@@ -1,0 +1,108 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+All ``csrc/*.cu`` sources compile in one ``nvcc`` call into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds). The library's file name carries a hash of the sources and flags,
+so an edited source is never served by a stale build. The build runs at the
+first launch of a kernel, never at import: hosts without ``nvcc`` (CPU-only
+test runs) import every module and run the plain versions.
+
+Each launcher returns ``cudaGetLastError()`` as an int, which the wrappers
+turn into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every pointer and the stream are c_void_p (a plain int
+# would be cut to 32 bits).
+LAUNCHERS = {
+    # src, enc_src_idx, enc_par_idx, out, B, k, m, W, dmax, pmax, stream
+    "ldpc_encode_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # values, erased, vlist_idx, vlist_len, values_out, erased_out,
+    # iters_out, B, n, m, dmax, W, k_stop, max_iters, stream
+    "ldpc_peel_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libldpc_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, float]:
+    """Compile the library unless it exists; returns (path, build seconds)."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    with open(path[: -len(".so")] + ".log", "w") as f:
+        f.write(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, path)
+    return path, seconds
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, with argtypes set on every launcher."""
+    path, _ = build()
+    lib = ctypes.CDLL(path)
+    for name, argtypes in LAUNCHERS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ldpc_error_string.argtypes = [ctypes.c_int]
+    lib.ldpc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        msg = library().ldpc_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch: {msg}")
