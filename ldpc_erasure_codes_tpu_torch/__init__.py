@@ -19,6 +19,7 @@ from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_era
 from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode, from_vlist, get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
+from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 
 __version__ = "0.1.0"
@@ -31,6 +32,8 @@ __all__ = [
     "encode_packed",
     "from_vlist",
     "get_code",
+    "hybrid_decode",
+    "hybrid_decode_escalated",
     "iid_erasures",
     "peel_decode",
 ]

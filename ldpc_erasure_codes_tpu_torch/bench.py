@@ -14,6 +14,12 @@ of every frame. The source is drawn and encoded once, outside the loop.
 Run: ``python -m ldpc_erasure_codes_tpu_torch.bench`` on a machine with a
 CUDA card. Prints ONE JSON line on stdout: {"metric", "value", "unit",
 "vs_baseline"}; the card, its power limit and the timing go to stderr.
+
+:class:`HybridPath` is the hybrid decoder's counterpart of
+``scripts/bench_hybrid_values.py::run_point`` (:30-89): the same encode
+outside the timed region, and per rep a fresh mask, the hybrid decode
+(peel, then the compacted GE) and the consumed values; ``chip_smoke.py``
+times it at the GE-hot point ``HYBRID``.
 """
 
 from __future__ import annotations
@@ -27,12 +33,15 @@ from ldpc_erasure_codes_tpu_torch.channel.erasure import iid_erasures
 from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode, get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
+from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
 
 BASELINE_GBPS = 36.3
 METRIC = "ldpc_decode_throughput_n2040_k1530_per0.1406"
 B, W, PER, REPS, MAX_ITERS = 2048, 256, 0.1406, 10, 50
+# The GE-hot hybrid point of scripts/bench_hybrid_values.py:104-109.
+HYBRID = dict(b=1024, w=256, per=0.2031, peel_iters=10, emax=512, ge_subbatch=448)
 
 
 def random_words(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -97,6 +106,41 @@ class MainPath:
 
     def gbps(self, ms_per_rep: float) -> float:
         return self.b * self.code.k * 32 * self.w / (ms_per_rep * 1e-3) / 1e9
+
+
+class HybridPath(MainPath):
+    """The encode -> channel -> hybrid decode chain: the production branch
+    (residual frames compacted into ``ge_subbatch``, the topology syndrome,
+    the solved rows written back), ``peel_iters`` sweeps first."""
+
+    def __init__(self, code: LDPCCode, *, b: int, w: int, per: float, seed: int, device,
+                 peel_iters: int, emax: int, ge_subbatch: int):
+        super().__init__(code, b=b, w=w, per=per, seed=seed, device=device)
+        self.peel_iters, self.emax, self.ge_subbatch = peel_iters, emax, ge_subbatch
+        self.failed_frames = 0
+        self.frames = 0
+
+    def step(self):
+        """One rep: returns (mask, values, erased, iters, failed, consumed),
+        where ``consumed`` holds the failed count, the frames left with a
+        residual and the XOR of the first two symbols of every frame. Adds
+        the failed count to ``failed_frames`` (one host sync per rep)."""
+        mask = iid_erasures(
+            (self.b, self.code.n), self.per, generator=self.generator,
+            device=self.codewords.device,
+        )
+        values, erased, iters, failed = hybrid_decode(
+            self.arrays, self.codewords, mask, peel_iters=self.peel_iters, emax=self.emax,
+            ge_subbatch=self.ge_subbatch, tiled=True, static_topo=True,
+        )
+        consumed = (failed.sum(), erased.any(dim=1).sum(), xor_reduce(values[:, :2]))
+        self.failed_frames += int(consumed[0])
+        self.frames += self.b
+        return mask, values, erased, iters, failed, consumed
+
+    def fer(self) -> float:
+        """Frames failed over frames decoded since construction."""
+        return self.failed_frames / max(self.frames, 1)
 
 
 def main() -> None:

@@ -1,5 +1,5 @@
-"""Code tables and the encode and peel operations (kernel wrappers and their
-plain PyTorch versions)."""
+"""Code tables, the encode and peel operations, and the hybrid decoder's
+GF(2) solver (kernel wrappers and their plain PyTorch versions)."""
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     CodeArrays,
@@ -7,16 +7,45 @@ from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     code_arrays_from_numpy,
     host_arrays,
 )
+from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, residual_order
+from ldpc_erasure_codes_tpu_torch.ops.elim import f2_eliminate, f2_eliminate_reference
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
+from ldpc_erasure_codes_tpu_torch.ops.ge import erased_indices, ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
+from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
+    f2_apply_scatter,
+    f2_apply_scatter_reference,
+    f2_matmul_batched,
+    f2_matmul_batched_reference,
+    f2_matvec_wide,
+    f2_matvec_wide_reference,
+)
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 
 __all__ = [
     "CodeArrays",
     "code_arrays",
     "code_arrays_from_numpy",
+    "compact_ge_solve",
     "encode_packed",
     "encode_packed_reference",
+    "erased_indices",
+    "f2_apply_scatter",
+    "f2_apply_scatter_reference",
+    "f2_eliminate",
+    "f2_eliminate_reference",
+    "f2_matmul_batched",
+    "f2_matmul_batched_reference",
+    "f2_matvec_wide",
+    "f2_matvec_wide_reference",
+    "ge_solve_packed",
     "host_arrays",
+    "hybrid_decode",
+    "hybrid_decode_escalated",
     "peel_decode",
     "peel_decode_reference",
+    "residual_order",
+    "syndrome_from_topo",
+    "syndrome_from_topo_reference",
 ]

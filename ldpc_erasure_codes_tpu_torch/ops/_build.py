@@ -1,6 +1,7 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-All ``csrc/*.cu`` sources compile in one ``nvcc`` call into one shared
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). The library's file name carries a hash of the sources and flags,
 so an edited source is never served by a stale build. The build runs at the
@@ -28,9 +29,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +44,19 @@ LAUNCHERS = {
     # values, erased, vlist_idx, vlist_len, values_out, erased_out,
     # iters_out, B, n, m, dmax, W, k_stop, max_iters, stream
     "ldpc_peel_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # in, out, nreal, ncols, pivrow, failed, B, m, C, emax, a_words,
+    # in_smem, stream
+    "ldpc_elim_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # m, C
+    "ldpc_elim_fits_smem": [_I, _I],
+    # values, vlist_idx, vlist_len, out, B, n, m, dmax, W, stream
+    "ldpc_synd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # values, h_words, out, B, n, KW, m, W, stream
+    "ldpc_f2_matvec_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # rhs, t_words, out, B, K, KW, E, W, stream
+    "ldpc_f2_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # rhs, t_words, idx, out, B, K, KW, E, W, n, stream
+    "ldpc_f2_apply_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -60,7 +75,7 @@ def nvcc_path() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -73,17 +88,43 @@ def build() -> tuple[str, float]:
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    tag = f"{path[: -len('.so')]}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in sources()]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(sources(), objs)
+    ]
+    link = [nvcc, *LINK_FLAGS, "-o", f"{tag}.tmp", *objs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    logs, procs, rcs = [], [], []
+    try:
+        for cmd in compiles:
+            procs.append(subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        for cmd, proc in zip(compiles, procs):
+            out, _ = proc.communicate(timeout=900)
+            logs.append(f"$ {' '.join(cmd)}\n{out}")
+            rcs.append(proc.returncode)
+        if not any(rcs):
+            proc = subprocess.run(link, capture_output=True, text=True, timeout=900)
+            logs.append(f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}")
+            rcs.append(proc.returncode)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    log = "".join(logs)
     with open(path[: -len(".so")] + ".log", "w") as f:
         f.write(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, path)
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed ({rcs}):\n{log}")
+    os.replace(f"{tag}.tmp", path)
     return path, seconds
 
 

@@ -4,6 +4,9 @@ Counterpart of ``ldpc_erasure_codes_tpu/ops/arrays.py``. :class:`CodeArrays`
 holds the fields that the binary encode and peel kernels read, derived in
 NumPy exactly as the JAX package's ``_host_arrays`` derives them, so both
 sides compute on identical tables (the CPU tests check this field by field).
+It also holds the packed-bit helpers that the GF(2) elimination and the
+bit-matrix products share: bit ``j`` of a row lives in bit ``j & 31`` of
+word ``j >> 5`` (LSB first, the JAX package's ``_bits_to_words``).
 """
 
 from __future__ import annotations
@@ -18,11 +21,32 @@ from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode
 FIELDS = ("vlist_idx", "vlist_len", "enc_src_idx", "enc_par_idx")
 
 
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 values (..., N) -> packed int32 words (..., ceil(N/32)), LSB
+    first; bits past N are zero."""
+    *lead, nb = bits.shape
+    nw = -(-nb // 32)
+    b8 = torch.nn.functional.pad(bits.to(torch.uint8), (0, 32 * nw - nb)).reshape(*lead, 4 * nw, 8)
+    weights = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    packed = (b8 << weights).sum(dim=-1, dtype=torch.uint8)  # (..., 4 * nw) bytes
+    return packed.contiguous().view(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """Packed int32 words (..., K) -> uint8 0/1 values (..., 32K), LSB first."""
+    by = words.contiguous().view(torch.uint8)  # (..., 4K), little-endian
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    return ((by[..., None] >> shifts) & 1).reshape(*words.shape[:-1], words.shape[-1] * 32)
+
+
 @dataclasses.dataclass(frozen=True)
 class CodeArrays:
-    """Device tables for one code (all ``torch.int32``, contiguous).
+    """Device tables for one code (``torch.int32`` unless noted, contiguous).
 
     Attributes:
+      h: (m, n) ``torch.int8`` 0/1 support of H (``_host_arrays``' ``h``).
+      h_words: (m, ceil(n/32)) int32, ``h`` packed (:func:`pack_bits`), for
+        the dense syndrome product; derived from ``h``.
       vlist_idx: (m, dmax) neighbour columns of each check, pad = n.
       vlist_len: (m,) check degrees.
       enc_src_idx: (m, dmax) per parity row, its neighbours in the source
@@ -34,6 +58,8 @@ class CodeArrays:
         past a frame.
     """
 
+    h: torch.Tensor
+    h_words: torch.Tensor
     vlist_idx: torch.Tensor
     vlist_len: torch.Tensor
     enc_src_idx: torch.Tensor
@@ -45,6 +71,10 @@ class CodeArrays:
         return self.vlist_idx.shape[0]
 
     @property
+    def n(self) -> int:
+        return self.h.shape[1]
+
+    @property
     def dmax(self) -> int:
         return self.vlist_idx.shape[1]
 
@@ -53,12 +83,14 @@ class CodeArrays:
         return self.vlist_idx.device
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        return {f: getattr(self, f).cpu().numpy() for f in FIELDS}
+        return {f: getattr(self, f).cpu().numpy() for f in (*FIELDS, "h")}
 
 
 def host_arrays(code: LDPCCode) -> dict[str, np.ndarray]:
     """The slice's tables as NumPy, derived as ``_host_arrays`` does
-    (ldpc_erasure_codes_tpu/ops/arrays.py:98-130).
+    (ldpc_erasure_codes_tpu/ops/arrays.py:92-130).
+
+    ``h`` is the 0/1 support of H as int8, ``(h_dense != 0)`` there.
 
     The encoder splits each check row of the triangle-form H into its
     source-region neighbours (a parallel gather-XOR) and its strictly-lower
@@ -91,6 +123,7 @@ def host_arrays(code: LDPCCode) -> dict[str, np.ndarray]:
     for r, par in enumerate(par_rows):
         enc_par_idx[r, : len(par)] = par
     return dict(
+        h=_support(code.vlist_idx, code.vlist_len, code.n),
         vlist_idx=np.asarray(code.vlist_idx, dtype=np.int32),
         vlist_len=np.asarray(code.vlist_len, dtype=np.int32),
         enc_src_idx=enc_src_idx,
@@ -98,11 +131,21 @@ def host_arrays(code: LDPCCode) -> dict[str, np.ndarray]:
     )
 
 
+def _support(vlist_idx: np.ndarray, vlist_len: np.ndarray, n: int) -> np.ndarray:
+    """(m, n) int8 0/1 matrix with a one at every Vlist neighbour."""
+    m, dmax = vlist_idx.shape
+    real = np.arange(dmax)[None, :] < np.asarray(vlist_len)[:, None]
+    h = np.zeros((m, n), dtype=np.int8)
+    h[np.nonzero(real)[0], np.asarray(vlist_idx)[real]] = 1
+    return h
+
+
 def code_arrays_from_numpy(host: dict, device: torch.device | str) -> CodeArrays:
     """:class:`CodeArrays` from a dict of NumPy tables.
 
     Takes the port's own :func:`host_arrays` or the dict that the JAX
     package's ``ops.arrays._host_arrays`` returns (extra fields ignored).
+    ``h`` must be the support of the Vlist; ``h_words`` is packed from it.
     """
     tabs = {f: np.ascontiguousarray(host[f], dtype=np.int32) for f in FIELDS}
     idx, ln = tabs["vlist_idx"], tabs["vlist_len"]
@@ -111,9 +154,20 @@ def code_arrays_from_numpy(host: dict, device: torch.device | str) -> CodeArrays
     if any(t.min(initial=0) < 0 for t in tabs.values()):
         raise ValueError("negative index in a code table")
     real = np.arange(idx.shape[1])[None, :] < ln[:, None]
+    min_n = int(idx[real].max(initial=-1)) + 1
+    h = np.asarray(host["h"])
+    if h.ndim != 2 or h.shape[0] != idx.shape[0] or h.shape[1] < min_n:
+        raise ValueError(f"h shape {h.shape} does not fit {idx.shape[0]} checks of the Vlist")
+    h = (h != 0).astype(np.int8)
+    if not np.array_equal(h, _support(idx, ln, h.shape[1])):
+        raise ValueError("h is not the support of the Vlist")
+    h_t = torch.from_numpy(h).to(device)
+    h_words = pack_bits(h_t)
     return CodeArrays(
+        h=h_t,
+        h_words=h_words.contiguous(),
         **{f: torch.from_numpy(t).to(device) for f, t in tabs.items()},
-        min_n=int(idx[real].max(initial=-1)) + 1,
+        min_n=min_n,
     )
 
 

@@ -1,0 +1,59 @@
+"""Residual-frame compaction for the Gauss-Jordan fallback.
+
+Counterpart of ``ldpc_erasure_codes_tpu/ops/compact.py``: ``residual_order``
+(:25-37) and ``compact_ge_solve`` (:58-106), binary packed GE only. After
+peeling, only the frames stuck in a stopping set need elimination; they are
+gathered into a bucket of ``f_max`` frames, solved there and scattered
+back. Residual frames beyond the bucket are flagged failed (overflow).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve_packed
+
+
+def residual_order(
+    erased: torch.Tensor, f_max: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Indices of the residual frames, padded to ``f_max``.
+
+    Returns (sel (min(f_max, B),) int64 frame indices: residual frames
+    first in ascending order, then non-residual fillers; is_resid, bool,
+    the same length; overflow (B,) bool, residual frames that did not fit).
+    """
+    resid = erased.any(dim=1)
+    order = torch.argsort((~resid).to(torch.uint8), stable=True)
+    sel = order[:f_max]
+    is_resid = resid[sel]
+    rank = torch.cumsum(resid.to(torch.int32), dim=0) - 1  # position among residuals
+    overflow = resid & (rank >= f_max)
+    return sel, is_resid, overflow
+
+
+def compact_ge_solve(
+    arrays: CodeArrays,
+    values: torch.Tensor,
+    erased: torch.Tensor,
+    *,
+    emax: int,
+    f_max: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`.ge.ge_solve_packed` on the residual sub-batch, scattered back.
+
+    Returns new (values, erased, failed). The filler frames of the bucket
+    have no erasures, so the solver returns them unchanged and the whole
+    sub-batch scatters back (compact.py:94-101). The syndrome is the dense
+    ``f2_matvec_wide`` and the placement ``f2_apply_scatter``, as the JAX
+    function calls the solver without a topology.
+    """
+    b = erased.shape[0]
+    sel, is_resid, overflow = residual_order(erased, f_max)
+    v_sub, e_sub, failed_sub = ge_solve_packed(arrays, values[sel], erased[sel], emax=emax)
+    values = values.index_copy(0, sel, v_sub)
+    erased = erased.index_copy(0, sel, torch.where(is_resid[:, None], e_sub, erased[sel]))
+    failed = torch.zeros((b,), dtype=torch.bool, device=erased.device)
+    failed[sel] = failed_sub & is_resid
+    return values, erased, failed | overflow

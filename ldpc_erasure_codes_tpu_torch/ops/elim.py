@@ -1,0 +1,136 @@
+"""Swap-free GF(2) Gauss-Jordan elimination of packed-bit [A | T] cubes.
+
+Counterpart of the TPU kernel ``ldpc_erasure_codes_tpu/ops/pallas_elim.py::
+f2_eliminate`` (:252-412), the elimination inside ``ops/ge.py::
+ge_solve_packed`` (step :266-283). The TPU kernel keeps the batch on its
+128 lanes, (C, m_pad, B); the port keeps one frame's rows together,
+(B, m, C), because on Hopper a frame's cube is one block's shared memory.
+:func:`f2_eliminate` launches ``csrc/elim.cu`` for CUDA tensors and runs
+:func:`f2_eliminate_reference` for CPU tensors.
+
+With ``a_words`` > 0 both apply the TPU kernel's two exact cuts: the
+column loop stops at the batch's widest residual ``min(max(nreal), emax)``,
+and A words left of the current column are not updated. Pivot rows and
+failure flags are unchanged by the cuts; the cubes of failed frames may
+differ from the uncut elimination (pallas_elim.py:272-287). The kernel and
+the plain version apply the same cuts, so they agree on every output.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ldpc_erasure_codes_tpu_torch.ops import _build
+
+
+def _check(cube: torch.Tensor, nreal: torch.Tensor, emax: int, a_words: int) -> None:
+    if cube.dtype != torch.int32 or nreal.dtype != torch.int32:
+        raise TypeError(f"cube and nreal must be torch.int32, got {cube.dtype}, {nreal.dtype}")
+    if cube.dim() != 3:
+        raise ValueError(f"cube must be (B, m, C), got {tuple(cube.shape)}")
+    b, _, c = cube.shape
+    if nreal.shape != (b,):
+        raise ValueError(f"nreal shape {tuple(nreal.shape)} != ({b},)")
+    if not 0 <= emax <= 32 * c:
+        raise ValueError(f"emax={emax} outside 0..{32 * c} (the cube's bit columns)")
+    if not 0 <= a_words <= c:
+        raise ValueError(f"a_words={a_words} outside 0..{c}")
+    if cube.device != nreal.device:
+        raise ValueError(f"cube on {cube.device}, nreal on {nreal.device}")
+    if not (cube.is_contiguous() and nreal.is_contiguous()):
+        raise ValueError("cube and nreal must be contiguous")
+
+
+def f2_eliminate_reference(
+    cube: torch.Tensor, nreal: torch.Tensor, *, emax: int, a_words: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch elimination: a Python loop over pivot columns of
+    whole-cube tensor operations, as ge.py's ``step`` (:266-283)."""
+    _check(cube, nreal, emax, a_words)
+    b, m, _ = cube.shape
+    dev = cube.device
+    r = cube.clone()
+    used = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    pivrow = torch.zeros((b, emax), dtype=torch.int32, device=dev)
+    failed = torch.zeros((b,), dtype=torch.bool, device=dev)
+    rows = torch.arange(m, device=dev)
+    frames = torch.arange(b, device=dev)
+    ub = emax
+    if a_words:
+        ub = min(int(nreal.max()), emax) if b else 0
+    for col in range(ub):
+        colv = ((r[:, :, col >> 5] >> (col & 31)) & 1).bool()  # (B, m)
+        cand = colv & ~used
+        has = cand.any(dim=1)
+        piv = torch.where(has, cand.to(torch.uint8).argmax(dim=1), 0)  # first row
+        is_piv = (rows[None, :] == piv[:, None]) & has[:, None]
+        used |= is_piv
+        pivrow[:, col] = piv.to(torch.int32)
+        c0 = min(col >> 5, a_words) if a_words else 0
+        prow = r[frames, piv, c0:]  # (B, C - c0)
+        elim = colv & ~is_piv & has[:, None]
+        r[:, :, c0:] ^= torch.where(elim[:, :, None], prow[:, None, :], 0)
+        failed |= ~has & (col < nreal)
+    return r, pivrow, failed
+
+
+def launch_kernel(cube, nreal, emax: int, a_words: int, in_smem: bool):
+    """Launch the kernel with the cube in shared memory (``in_smem``) or in
+    device memory; :func:`f2_eliminate` picks the mode by size, the card
+    tests force each."""
+    b, m, c = cube.shape
+    out = torch.empty_like(cube)
+    pivrow = torch.empty((b, emax), dtype=torch.int32, device=cube.device)
+    failed = torch.empty((b,), dtype=torch.int32, device=cube.device)
+    # The loop bound stays on the device: no host sync.
+    ncols = nreal.max().clamp(max=emax).reshape(1) if b else nreal.new_zeros(1)
+    rc = _build.library().ldpc_elim_launch(
+        cube.data_ptr(), out.data_ptr(), nreal.data_ptr(), ncols.data_ptr(),
+        pivrow.data_ptr(), failed.data_ptr(), b, m, c, emax, a_words, int(in_smem),
+        torch.cuda.current_stream(cube.device).cuda_stream,
+    )
+    _build.check(rc, "ldpc_elim_launch")
+    f2_eliminate.launches += 1
+    return out, pivrow, failed != 0
+
+
+def fits_shared_memory(m: int, c: int) -> bool:
+    """Whether a frame's (m, c)-word cube fits in one block's shared memory
+    on the current CUDA device (the kernel's fast mode)."""
+    return bool(_build.library().ldpc_elim_fits_smem(m, c))
+
+
+def f2_eliminate(
+    cube: torch.Tensor, nreal: torch.Tensor, *, emax: int, a_words: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GF(2) swap-free elimination of a packed-bit cube.
+
+    Args:
+      cube: (B, m, C) int32, the packed [A | T] rows of each frame; bit
+        ``col`` of a row is bit ``col & 31`` of word ``col >> 5``.
+      nreal: (B,) int32, the real erased columns of each frame: a column
+        ``>= nreal`` that finds no pivot is not a failure.
+      emax: the pivot columns to eliminate (bit columns 0..emax-1).
+      a_words: leading words of each row that hold A; > 0 turns on the
+        exact work cuts (module docstring).
+
+    Returns:
+      (cube_out (B, m, C) int32, pivrow (B, emax) int32 with the pivot row
+      of each column, 0 where none; failed (B,) bool).
+
+    CPU tensors take :func:`f2_eliminate_reference`; CUDA tensors launch
+    the kernel (or raise), with the cube in shared memory when it fits
+    there and in device memory otherwise. ``f2_eliminate.launches`` counts
+    kernel launches.
+    """
+    _check(cube, nreal, emax, a_words)
+    if cube.device.type == "cpu":
+        return f2_eliminate_reference(cube, nreal, emax=emax, a_words=a_words)
+    if cube.device.type != "cuda":
+        raise ValueError(f"unsupported device {cube.device}")
+    with torch.cuda.device(cube.device):
+        in_smem = fits_shared_memory(cube.shape[1], cube.shape[2])
+        return launch_kernel(cube, nreal, emax, a_words, in_smem)
+
+
+f2_eliminate.launches = 0

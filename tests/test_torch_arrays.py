@@ -45,8 +45,17 @@ def test_code_arrays_match_jax_host_arrays(name):
         assert got[f].dtype == np.int32, f
         np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
     np.testing.assert_array_equal(host_arrays(get_code(name))["enc_par_idx"], ref["enc_par_idx"])
-    assert ours.min_n == ref["h"].shape[1]
+    assert ours.min_n == ours.n == ref["h"].shape[1]
     assert all(getattr(ours, f).is_contiguous() for f in FIELDS)
+    # h: the dense support of H, as _host_arrays derives it; h_words packs it.
+    assert got["h"].dtype == np.int8 == ref["h"].dtype
+    np.testing.assert_array_equal(got["h"], ref["h"])
+    want_words = np.packbits(ref["h"].astype(bool), axis=1, bitorder="little")
+    want_words = np.pad(want_words, ((0, 0), (0, -want_words.shape[1] % 4))).view(np.uint32)
+    np.testing.assert_array_equal(ours.h_words.numpy().view(np.uint32), want_words)
+    from_jax = code_arrays_from_numpy(ref, "cpu")
+    for f in (*FIELDS, "h", "h_words"):
+        assert torch.equal(getattr(from_jax, f), getattr(ours, f)), f
 
 
 def test_code_arrays_from_numpy_round_trip():
@@ -77,6 +86,13 @@ def test_tables_are_validated():
     neg = dict(host, enc_src_idx=host["enc_src_idx"] - 2000)
     with pytest.raises(ValueError):
         code_arrays_from_numpy(neg, "cpu")
+    # h must be the Vlist's support, one row per check.
+    flipped = host["h"].copy()
+    flipped[0, 0] ^= 1
+    with pytest.raises(ValueError):
+        code_arrays_from_numpy(dict(host, h=flipped), "cpu")
+    with pytest.raises(ValueError):
+        code_arrays_from_numpy(dict(host, h=host["h"][1:]), "cpu")
     # A parity neighbour above the diagonal is not triangle form.
     idx = np.array([[0, 2, 3], [1, 3, 4]], dtype=np.int32)
     upper = from_vlist("upper", 4, 2, idx, np.array([3, 2]))

@@ -14,9 +14,13 @@ import pytest
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
+from ldpc_erasure_codes_tpu_torch.ops import elim, nbmm
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from torch_port_cases import cuda_device, random_words, to_torch  # noqa: F401 (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +80,158 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     vals = torch.zeros((2, code.n, 4), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         peel_decode(cpu_arrays, vals, torch.zeros((2, code.n), dtype=torch.bool))
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _random_cube(rng, b, m, c, emax, zero_pad_columns):
+    """Sparse random packed systems: a third of the frames have no rows
+    below m - 4 (pad-style zero rows), two frames are all zero (they fail);
+    nreal random, with A bits past nreal zeroed where the solver would."""
+    r = rng.integers(0, 2**32, (b, m, c), dtype=np.uint32)
+    r &= rng.integers(0, 2**32, (b, m, c), dtype=np.uint32)
+    r[: b // 3, m - 4 :] = 0
+    r[-2:] = 0
+    nreal = rng.integers(0, emax + 1, b).astype(np.int32)
+    if zero_pad_columns:
+        cols = np.arange(32 * c)
+        keep = (cols[None, :] < nreal[:, None]) | (cols[None, :] >= emax)  # (B, 32C)
+        words = np.packbits(keep, axis=1, bitorder="little").view(np.uint32)  # (B, C)
+        r &= words[:, None, :]
+    return to_torch(r), torch.from_numpy(nreal)
+
+
+@pytest.mark.parametrize("in_smem", [True, False], ids=["smem", "device_memory"])
+@pytest.mark.parametrize("a_words", [False, True], ids=["a_words_0", "a_words_wa"])
+@pytest.mark.parametrize("b,m,c,emax", [(64, 510, 32, 512), (16, 1000, 56, 768), (3, 40, 3, 40)])
+def test_eliminate_kernel_matches_plain(cuda_device, in_smem, a_words, b, m, c, emax):
+    """Both modes of the kernel, with and without the a_words cuts, at the
+    (2040,1530) and (2000,1000) GE cubes (65 KB and 224 KB per frame)."""
+    rng = np.random.default_rng(m + c)
+    wa = -(-emax // 32)
+    cube, nreal = _random_cube(rng, b, m, c, emax, zero_pad_columns=a_words)
+    cube, nreal = cube.to(cuda_device), nreal.to(cuda_device)
+    aw = wa if a_words else 0
+    if in_smem:
+        assert elim.fits_shared_memory(m, c)
+    before = elim.f2_eliminate.launches
+    got = elim.launch_kernel(cube, nreal, emax, aw, in_smem)
+    torch.cuda.synchronize()
+    assert elim.f2_eliminate.launches == before + 1
+    want = elim.f2_eliminate_reference(cube, nreal, emax=emax, a_words=aw)
+    _equal(got, want)
+    if b >= 16:  # solved and failed frames both occur
+        assert want[2].any() and not want[2].all()
+
+
+def test_eliminate_device_memory_mode_at_4000(cuda_device):
+    """(4000,2000) at emax 1024: 2000 rows x 95 words do not fit in shared
+    memory, so the wrapper takes the device-memory mode."""
+    m, c, emax = 2000, 32 + 63, 1024
+    assert not elim.fits_shared_memory(m, c)
+    cube, nreal = _random_cube(np.random.default_rng(40), 3, m, c, emax, zero_pad_columns=True)
+    cube, nreal = cube.to(cuda_device), nreal.to(cuda_device)
+    got = elim.f2_eliminate(cube, nreal, emax=emax, a_words=emax // 32)
+    torch.cuda.synchronize()
+    _equal(got, elim.f2_eliminate_reference(cube, nreal, emax=emax, a_words=emax // 32))
+
+
+@pytest.mark.parametrize("w,aligned", [(256, True), (256, False), (5, True), (3, True)])
+def test_syndrome_kernel_matches_plain(cuda_device, w, aligned):
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(w)
+    v = random_words(rng, (8, code.n, w))
+    v[rng.random((8, code.n)) < 0.2] = 0
+    values = to_torch(v).to(cuda_device)
+    if not aligned:
+        values = _misaligned(values)
+    before = syndrome_from_topo.launches
+    got = syndrome_from_topo(arrays, values)
+    torch.cuda.synchronize()
+    assert syndrome_from_topo.launches == before + 1
+    torch.testing.assert_close(got, syndrome_from_topo_reference(arrays, values), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("w,aligned", [(256, True), (256, False), (5, True), (3, True)])
+@pytest.mark.parametrize("k,e", [(510, 512), (1000, 768), (40, 9)])
+def test_f2mm_kernels_match_plain(cuda_device, w, aligned, k, e):
+    """matmul_batched and apply_scatter at the GE transform shapes, and
+    matvec with a dense random H; bits past K are set in the matrices and
+    must be ignored."""
+    rng = np.random.default_rng(k + w)
+    b, n = 4, 2 * k
+    kw = -(-k // 32)
+    dev = cuda_device
+    rhs = to_torch(random_words(rng, (b, k, w))).to(dev)
+    t = to_torch(random_words(rng, (b, e, kw))).to(dev)
+    values = to_torch(random_words(rng, (b, n, w))).to(dev)
+    if not aligned:
+        rhs, values = _misaligned(rhs), _misaligned(values)
+    idx = np.stack([rng.permutation(n + 8)[:e] for _ in range(b)]).astype(np.int32)
+    idx[0, :3] = [-1, n, n + 100]  # dropped targets
+    idx = torch.from_numpy(idx).to(dev)
+    h = to_torch(random_words(rng, (k, -(-n // 32)))).to(dev)
+    counts = [nbmm.f2_matmul_batched.launches, nbmm.f2_apply_scatter.launches,
+              nbmm.f2_matvec_wide.launches]
+    got = (nbmm.f2_matmul_batched(rhs, t), nbmm.f2_apply_scatter(values, rhs, t, idx),
+           nbmm.f2_matvec_wide(values, h))
+    torch.cuda.synchronize()
+    assert [nbmm.f2_matmul_batched.launches, nbmm.f2_apply_scatter.launches,
+            nbmm.f2_matvec_wide.launches] == [c + 1 for c in counts]
+    want = (nbmm.f2_matmul_batched_reference(rhs, t),
+            nbmm.f2_apply_scatter_reference(values, rhs, t, idx),
+            nbmm.f2_matvec_wide_reference(values, h))
+    _equal(got, want)
+
+
+def _peeled(code, arrays, b, w, per, peel_iters, seed):
+    rng = np.random.default_rng(seed)
+    src = to_torch(random_words(rng, (b, code.k, w))).to(arrays.device)
+    cw = encode_packed(arrays, src)
+    mask = torch.from_numpy(rng.random((b, code.n)) < per).to(arrays.device)
+    return cw, mask
+
+
+@pytest.mark.parametrize("return_rows", [False, True])
+@pytest.mark.parametrize("static_topo", [False, True])
+def test_ge_solve_packed_cuda_matches_cpu(cuda_device, return_rows, static_topo):
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, cuda_device)
+    cw, mask = _peeled(code, arrays, 32, 8, 0.2031, 10, 11)
+    v, e, _ = peel_decode(arrays, cw, mask, max_iters=10)
+    assert e.any()
+    got = ge_solve_packed(arrays, v, e, emax=512, return_rows=return_rows,
+                          static_topo=static_topo)
+    want = ge_solve_packed(code_arrays(code, "cpu"), v.cpu(), e.cpu(), emax=512,
+                           return_rows=return_rows, static_topo=static_topo)
+    torch.cuda.synchronize()
+    ok = ~want[-1]
+    for g, w in zip(got, want):
+        g = g.cpu()
+        torch.testing.assert_close(g[ok] if g.dim() == 3 else g, w[ok] if w.dim() == 3 else w,
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("per,peel_iters", [(0.05, 10), (0.25, 2)], ids=["all_peeled", "all_residual"])
+@pytest.mark.parametrize("tiled", [True, False])
+def test_hybrid_cuda_matches_cpu(cuda_device, per, peel_iters, tiled):
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, cuda_device)
+    cw, mask = _peeled(code, arrays, 16, 4, per, peel_iters, 12)
+    kw = dict(peel_iters=peel_iters, emax=512, ge_subbatch=8, tiled=tiled, static_topo=True,
+              return_overflow=True)
+    before = elim.f2_eliminate.launches
+    got = hybrid_decode(arrays, cw, mask, **kw)
+    torch.cuda.synchronize()
+    want = hybrid_decode(code_arrays(code, "cpu"), cw.cpu(), mask.cpu(), **kw)
+    resid = peel_decode(arrays, cw, mask, max_iters=peel_iters)[1].any(dim=1)
+    assert bool(resid.all()) == (per == 0.25) and bool(resid.any()) == (per == 0.25)
+    assert (elim.f2_eliminate.launches > before) == (per == 0.25)
+    ok = ~want[3]
+    torch.testing.assert_close(got[0].cpu()[ok], want[0][ok], rtol=0, atol=0)
+    torch.testing.assert_close(got[0].cpu()[ok], cw.cpu()[ok], rtol=0, atol=0)
+    _equal([x.cpu() for x in got[1:]], want[1:])

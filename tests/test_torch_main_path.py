@@ -108,6 +108,11 @@ def test_runs_with_jax_unimportable():
         "mask = p.iid_erasures((2, code.n), 0.3, generator=g, device='cpu')\n"
         "v, e, it = p.peel_decode(arrays, cw, mask, early_stop_k=code.k)\n"
         "assert (v[~e] == cw[~e]).all() and not v[e].any()\n"
+        "mask = p.iid_erasures((2, code.n), 0.44, generator=g, device='cpu')\n"
+        "assert p.peel_decode(arrays, cw, mask, max_iters=10)[1].any()\n"
+        "hv, he, hit, hf = p.hybrid_decode(arrays, cw, mask, emax=1000, ge_subbatch=2,\n"
+        "                                  tiled=True, static_topo=True)\n"
+        "assert not hf.all() and not he[~hf].any() and (hv[~hf] == cw[~hf]).all()\n"
         "assert not [m for m in sys.modules if m.startswith('ldpc_erasure_codes_tpu.')]\n"
         "print('ok', it.tolist())\n"
     )
@@ -178,7 +183,9 @@ def test_xor_reduce(n):
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert {"ldpc_encode_launch", "ldpc_peel_launch"} <= set(_build.LAUNCHERS)
+    assert {"ldpc_encode_launch", "ldpc_peel_launch", "ldpc_elim_launch", "ldpc_synd_launch",
+            "ldpc_f2_matvec_launch", "ldpc_f2_matmul_launch", "ldpc_f2_apply_launch"} <= set(
+        _build.LAUNCHERS)
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
@@ -186,6 +193,38 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert first == _build.library_path()
     (csrc / "words.cuh").write_text((csrc / "words.cuh").read_text() + "\n")
     assert _build.library_path() != first
+
+
+def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch):
+    """One nvcc per csrc/*.cu, all started before any is waited on, then
+    one link; objects are removed and the library lands under its hash."""
+    log = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!" + sys.executable + "\n"
+        "import sys, time\n"
+        f"open({str(log)!r}, 'a').write(repr(sys.argv[1:]) + '\\n')\n"
+        "time.sleep(0.5 if '-c' in sys.argv else 0)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('x')\n"
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    path, seconds = _build.build()
+    calls = [eval(line) for line in log.read_text().splitlines()]
+    srcs = _build.sources()
+    assert {"elim.cu", "synd.cu", "f2mm.cu", "peel.cu", "encode.cu"} <= {
+        os.path.basename(x) for x in srcs
+    }
+    compiles = [c for c in calls if "-c" in c]
+    assert sorted(c[-1] for c in compiles) == sorted(srcs)
+    assert calls[-1][: len(_build.LINK_FLAGS)] == list(_build.LINK_FLAGS)
+    assert seconds < 0.5 * len(srcs)  # the compiles overlapped
+    assert os.path.exists(path) and path == _build.library_path()
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [os.path.basename(path), os.path.basename(path)[: -len(".so")] + ".log"]
+    )
+    assert _build.build() == (path, 0.0)
 
 
 @pytest.mark.parametrize("alone", [False, True])
