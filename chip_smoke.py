@@ -31,10 +31,34 @@ Phases, each fatal on failure:
    verified, and held against the production branch on the same mask;
 5. each kernel's time against its plain version's at the main path's
    shapes (phase 4 for encode and peel, phase 4b's GE bucket for the rest),
-   with the outputs compared again, and the hybrid step's stages.
+   with the outputs compared again, and the hybrid step's stages;
+6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
+   (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
+   their plain versions at small shapes, bit-exact;
+6a. the NB main path (``bench.NBPath``): ``n2040_k1530_gf256``, B=512,
+   1024-byte symbols, PER .1406, first-k early stop; counted, verified
+   (``check_nb``), 5 reps timed;
+6b. the NB hybrid, production knobs (10 sweeps, emax 128, bucket 64; its
+   GE is the plain byte Gauss-Jordan ``ge_solve``); counted, verified
+   (``check_hybrid``), 3 reps timed;
+6c. NB escalation: B=64, PER .2031, emax 128, bucket 16, so the production
+   branch overflows and ``ge_solve_wide_nb`` solves the rest with the cube
+   in device memory; verified, with ``ge_solve``'s stage time;
+6d. RS(255,192) wide decode (``bench.RSPath``), B=1024, 1024-byte
+   payloads: verified on ``verify_rs``'s pattern (e = 1..63, one frame at
+   64 that must fail, ``check_rs``), then the i.i.d. PER .15 and the e=63
+   systematic legs timed; the three GF(256) GE kernels launch on every
+   decode;
+7. each GF(256) kernel's time against its plain version's: encode and peel
+   at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Every kernel's entry carries its bound: the larger of the bytes it must
+move (inputs read once, outputs written once) over 3.35 TB/s and the
+integer operations its inputs need over the card's INT32 rate (``bound``).
+No single PyTorch call computes any of these GF(2)/GF(256) functions, so
+``library_ms`` is null throughout. The line before the last is a JSON
+object with one entry per kernel; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,6 +68,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ldpc_erasure_codes_tpu_torch import bench
@@ -52,9 +77,22 @@ from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import _build, elim
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.compact import residual_order
-from ldpc_erasure_codes_tpu_torch.ops.elim import f2_eliminate, f2_eliminate_reference
+from ldpc_erasure_codes_tpu_torch.gf.ops import gf_inv, gf_mul_packed
+from ldpc_erasure_codes_tpu_torch.ops.elim import (
+    f2_eliminate,
+    f2_eliminate_reference,
+    gf256_eliminate,
+    gf256_eliminate_reference,
+)
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
-from ldpc_erasure_codes_tpu_torch.ops.ge import coefficient_cube, erased_indices, pivot_transforms
+from ldpc_erasure_codes_tpu_torch.ops.ge import (
+    _unpack_words_bytes,
+    coefficient_cube,
+    coefficient_cube_nb,
+    erased_indices,
+    ge_solve,
+    pivot_transforms,
+)
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_apply_scatter,
@@ -63,11 +101,16 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_matmul_batched_reference,
     f2_matvec_wide,
     f2_matvec_wide_reference,
+    gf_apply_scatter,
+    gf_apply_scatter_reference,
+    gf_matvec_wide,
+    gf_matvec_wide_reference,
 )
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
+from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode
 from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
-from ldpc_erasure_codes_tpu_torch.utils.verify import check_hybrid, check_peel
+from ldpc_erasure_codes_tpu_torch.utils.verify import check_hybrid, check_nb, check_peel, check_rs
 
 KERNELS = {
     "encode_packed": dict(
@@ -98,17 +141,60 @@ KERNELS = {
         source="ldpc_erasure_codes_tpu_torch/csrc/f2mm.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:465",
     ),
+    "peel_decode_gf256": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:1281",
+    ),
+    "encode_packed_gf256": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/encode.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_encode.py:223",
+    ),
+    "gf256_eliminate": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/elim.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_elim.py:75",
+    ),
+    "gf_matvec_wide": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/gfmm.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:132",
+    ),
+    "gf_apply_scatter": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/gfmm.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:556",
+    ),
 }
-# The wrapper of each kernel; ``.launches`` counts its kernel's launches.
-WRAPPERS = {
-    "encode_packed": encode_packed,
-    "peel_decode": peel_decode,
-    "f2_eliminate": f2_eliminate,
-    "syndrome_from_topo": syndrome_from_topo,
-    "f2_matvec_wide": f2_matvec_wide,
-    "f2_matmul_batched": f2_matmul_batched,
-    "f2_apply_scatter": f2_apply_scatter,
+# Where each kernel's launches are counted: (wrapper, attribute). The
+# encode and peel wrappers count their GF(256) mode apart.
+COUNTERS = {
+    "encode_packed": (encode_packed, "launches"),
+    "peel_decode": (peel_decode, "launches"),
+    "f2_eliminate": (f2_eliminate, "launches"),
+    "syndrome_from_topo": (syndrome_from_topo, "launches"),
+    "f2_matvec_wide": (f2_matvec_wide, "launches"),
+    "f2_matmul_batched": (f2_matmul_batched, "launches"),
+    "f2_apply_scatter": (f2_apply_scatter, "launches"),
+    "peel_decode_gf256": (peel_decode, "launches_gf256"),
+    "encode_packed_gf256": (encode_packed, "launches_gf256"),
+    "gf256_eliminate": (gf256_eliminate, "launches"),
+    "gf_matvec_wide": (gf_matvec_wide, "launches"),
+    "gf_apply_scatter": (gf_apply_scatter, "launches"),
 }
+
+# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory
+# 3.35 TB/s; INT32 16.7e12 operations/s (64 INT32 lanes per SM, half the
+# 128 FP32 lanes behind the 67 TFLOP/s float32 rate, at 1.98 GHz on 132
+# SMs). Every kernel here is integer XOR/shift work.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# A GF(256) multiply-by-x of a packed word: shift, mask, shift, mask,
+# multiply, XOR. A sum of products by known coefficients needs at least
+# the 7 doublings of Horner's rule per output word plus one XOR per set
+# coefficient bit (the TPU kernels' form); the bounds count that much.
+XTIME_OPS = 6
+HORNER_OPS = 7 * XTIME_OPS
+
+
+BINARY = ("encode_packed", "peel_decode", "f2_eliminate", "syndrome_from_topo",
+          "f2_matvec_wide", "f2_matmul_batched", "f2_apply_scatter")
 
 
 def log(msg: str) -> None:
@@ -183,12 +269,78 @@ def compare_small(device, errs: dict) -> None:
 
 
 def zero_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the INT32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": float(nbytes), "ops": float(ops)}
+
+
+_POP = {}
+
+
+def popcount(t: torch.Tensor) -> torch.Tensor:
+    """Set bits of each byte of a uint8 tensor, as int64."""
+    dev = str(t.device)
+    if dev not in _POP:
+        _POP[dev] = torch.tensor([bin(i).count("1") for i in range(256)], device=t.device)
+    return _POP[dev][t.long()]
+
+
+def word_popcount(t: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word, as int64 (last dimension summed)."""
+    return popcount(t.contiguous().view(torch.uint8)).sum(dim=-1)
+
+
+def elim_ops(cube: torch.Tensor, nreal: torch.Tensor, emax: int, a_words: int, gf: bool) -> int:
+    """Integer operations the elimination of these cubes needs, counted by
+    replaying it (the plain version's steps, with the same cuts): a GF(2)
+    row update is one XOR per word; a GF(256) column costs the pivot row's
+    Horner doublings and inverse product, then one XOR per set factor bit
+    per word of every updated row."""
+    b, m, c = cube.shape
+    dev = cube.device
+    r = cube.clone()
+    used = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    rows = torch.arange(m, device=dev)
+    frames = torch.arange(b, device=dev)
+    ub = min(int(nreal.max()), emax) if (a_words and b) else emax
+    per, width, mask = (4, 8, 0xFF) if gf else (32, 1, 1)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for col in range(ub):
+        w = col // per
+        colv = (r[:, :, w] >> (width * (col % per))) & mask
+        cand = (colv != 0) & ~used
+        has = cand.any(dim=1)
+        piv = torch.where(has, cand.to(torch.uint8).argmax(dim=1), 0)
+        is_piv = (rows[None, :] == piv[:, None]) & has[:, None]
+        used |= is_piv
+        c0 = min(w, a_words) if a_words else 0
+        factor = torch.where(is_piv | ~has[:, None], 0, colv)
+        nw = c - c0
+        prow = r[frames, piv, c0:]
+        if gf:
+            inv = gf_inv(colv[frames, piv]).to(torch.int32)
+            prow = gf_mul_packed(prow, inv[:, None])
+            total += nw * ((popcount(inv.to(torch.uint8)) + HORNER_OPS) * has).sum()
+            total += nw * popcount(factor.to(torch.uint8)).sum()
+            upd = r[:, :, c0:] ^ gf_mul_packed(prow[:, None, :], factor[:, :, None])
+            r[:, :, c0:] = torch.where(is_piv[:, :, None], prow[:, None, :], upd)
+        else:
+            total += nw * (factor != 0).sum()
+            r[:, :, c0:] ^= torch.where(factor[:, :, None] != 0, prow[:, None, :], 0)
+    return int(total)
 
 
 class GEInputs:
@@ -206,6 +358,27 @@ class GEInputs:
         self.t_rows = pivot_transforms(self.elim_out[0], self.elim_out[1], self.wa)
         self.idx = torch.where(self.real, self.er_idx, n).to(torch.int32)
         self.rhs = syndrome_from_topo(arrays, values)
+
+    def bounds(self) -> dict:
+        """name -> :func:`bound` of each GE kernel on these operands."""
+        a, (b, n, w) = self.arrays, self.values.shape
+        m, cw = self.cube.shape[1:]
+        kw, e = self.t_rows.shape[2], self.emax
+        edges = int(a.vlist_len.sum())
+        terms = (word_popcount(self.t_rows) - 1).clamp(min=0)  # (B, E) XORs per word
+        placed = self.idx < n
+        return {
+            "f2_eliminate": bound(
+                8 * b * m * cw + 4 * b * e + 8 * b,
+                elim_ops(self.cube, self.nreal, e, self.wa, gf=False)),
+            "syndrome_from_topo": bound(4 * b * w * (n + m), b * w * (edges - m)),
+            "f2_matvec_wide": bound(4 * b * w * (n + m) + a.h_words.numel() * 4,
+                                    b * w * (edges - m)),
+            "f2_matmul_batched": bound(4 * (b * m * w + b * e * kw + b * e * w),
+                                       w * int(terms.sum())),
+            "f2_apply_scatter": bound(4 * (2 * b * n * w + b * m * w + b * e * kw + b * e),
+                                      w * int(terms[placed].sum())),
+        }
 
     def kernels(self) -> dict:
         """name -> (kernel call, plain call) on these operands."""
@@ -390,7 +563,343 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     resid = int(erased.any(dim=1).sum())
     log(f"phase 5: GE bucket {vs.shape[0]} frames ({resid} residual in the batch), max residual "
         f"{int(ge.nreal.max())}, cube {tuple(ge.cube.shape)}")
-    return times, plain, stages
+    return times, plain, stages, ge.bounds()
+
+
+def encode_bound(arrays, b: int, wbytes: int, gf: bool) -> dict:
+    """Bound of the encode: source in, codewords out, the tables; per
+    parity row an XOR per neighbour word (GF(2)) or, for GF(256), its
+    Horner product sum and the product by the diagonal's inverse."""
+    n, m = arrays.n, arrays.m
+    words = wbytes // 4
+    tabs = [arrays.enc_src_idx, arrays.enc_par_idx]
+    if gf:
+        tabs += [arrays.enc_src_val, arrays.enc_par_val, arrays.enc_diag_inv]
+    nbytes = b * wbytes * ((n - m) + n) + sum(t.numel() * t.element_size() for t in tabs)
+    if not gf:
+        return bound(nbytes, b * words * (int(arrays.vlist_len.sum()) - 2 * m))
+    pops = sum(int(popcount(t).sum()) for t in (
+        arrays.enc_src_val, arrays.enc_par_val, arrays.enc_diag_inv))
+    return bound(nbytes, b * words * (pops + 2 * m * HORNER_OPS))
+
+
+def peel_bound(arrays, mask, erased_out, wbytes: int, gf: bool) -> dict:
+    """Bound of the peel on this run's erasures: frames in and out, masks
+    in and out; per resolved symbol its check's other neighbours summed
+    (the mean check degree; GF(256): their Horner product sum and the
+    product by the solved slot's inverse)."""
+    b, n = mask.shape
+    words = wbytes // 4
+    resolved = int((mask & ~erased_out).sum())
+    m, edges = arrays.m, int(arrays.vlist_len.sum())
+    nbytes = b * n * (2 * wbytes + 2) + 4 * b
+    if not gf:
+        return bound(nbytes, resolved * (edges / m - 2) * words)
+    support = arrays.vlist_idx < n
+    row_pop = int(popcount(arrays.vlist_val).sum()) / m
+    inv_pop = float(popcount(arrays.vlist_inv_val)[support].float().mean())
+    return bound(nbytes, resolved * (row_pop + inv_pop + 2 * HORNER_OPS) * words)
+
+
+class GEInputsNB:
+    """The GF(256) GE kernels' operands for frames (values uint8 bytes,
+    erased), made as ``ge_solve_wide_nb`` makes them; the elimination runs
+    on the kernel."""
+
+    def __init__(self, arrays, values, erased, emax: int):
+        n = erased.shape[1]
+        m = arrays.m
+        self.arrays, self.values = arrays, values
+        self.emax = min(emax, n)
+        self.er_idx, self.real, self.nreal = erased_indices(erased, self.emax)
+        self.cube = coefficient_cube_nb(arrays, self.er_idx, self.real)
+        self.wa = -(-self.emax // 4)
+        self.elim_out = gf256_eliminate(self.cube, self.nreal, emax=self.emax, a_words=self.wa)
+        t = pivot_transforms(self.elim_out[0], self.elim_out[1], self.wa)
+        self.t_top = _unpack_words_bytes(t)[:, :, :m].contiguous()
+        writable = self.real & ~(self.nreal > self.emax)[:, None]
+        self.idx = torch.where(writable, self.er_idx, n).to(torch.int32)
+        self.rhs = gf_matvec_wide(values, arrays.vlist_idx, arrays.vlist_val)
+
+    def kernels(self) -> dict:
+        """name -> (kernel call, plain call) on these operands."""
+        a, v, rhs, t, idx = self.arrays, self.values, self.rhs, self.t_top, self.idx
+        kw = dict(emax=self.emax, a_words=self.wa)
+        return {
+            "gf256_eliminate": (lambda: gf256_eliminate(self.cube, self.nreal, **kw),
+                                lambda: gf256_eliminate_reference(self.cube, self.nreal, **kw)),
+            "gf_matvec_wide": (lambda: gf_matvec_wide(v, a.vlist_idx, a.vlist_val),
+                               lambda: gf_matvec_wide_reference(v, a.vlist_idx, a.vlist_val)),
+            "gf_apply_scatter": (lambda: gf_apply_scatter(v, rhs, t, idx),
+                                 lambda: gf_apply_scatter_reference(v, rhs, t, idx)),
+        }
+
+    def bounds(self) -> dict:
+        """name -> :func:`bound` of each GF(256) GE kernel on these operands."""
+        a, (b, n, wb) = self.arrays, self.values.shape
+        m, c = self.cube.shape[1:]
+        e, words = self.emax, wb // 4
+        placed = self.idx < n
+        t_ops = (popcount(self.t_top).sum(dim=2) + HORNER_OPS)[placed].sum()
+        lists = a.vlist_idx.numel() * 4 + a.vlist_val.numel()
+        return {
+            "gf256_eliminate": bound(8 * b * m * c + 4 * b * e + 8 * b,
+                                     elim_ops(self.cube, self.nreal, e, self.wa, gf=True)),
+            "gf_matvec_wide": bound(b * wb * (n + m) + lists,
+                                    b * words * (int(popcount(a.vlist_val).sum())
+                                                 + m * HORNER_OPS)),
+            "gf_apply_scatter": bound(b * wb * (2 * n + m) + b * e * m + 4 * b * e,
+                                      words * int(t_ops)),
+        }
+
+
+def random_bytes(shape, seed: int, device) -> torch.Tensor:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return bench.random_bytes(shape, gen, device)
+
+
+def verify_rs_pattern(b: int, n: int, seed: int, device) -> torch.Tensor:
+    """``verify_rs``'s erasures (utils/verify.py:327-335): frame f < B-1
+    loses 1 + round(f * 62 / (B - 2)) symbols, the last frame 64."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((b, n), dtype=bool)
+    for f in range(b):
+        e = 1 + round((b - 2 and f * 62 / (b - 2)) or 0) if f < b - 1 else 64
+        mask[f, rng.choice(n, e, replace=False)] = True
+    return torch.from_numpy(mask).to(device)
+
+
+def compare_gf_small(device, errs: dict) -> None:
+    """Phase 6: the GF(256) kernels and modes against their plain versions."""
+    code = get_code("n2040_k1530_gf256")
+    arrays = code_arrays(code, device)
+    src = random_bytes((16, code.k, 1024), 11, device)
+    cw = encode_packed(arrays, src, gf_order=256)
+    e = max_abs_err(cw, encode_packed_reference(arrays, src, gf_order=256))
+    errs["encode_packed_gf256"] = max(errs["encode_packed_gf256"], e)
+    require(e == 0, f"GF(256) encode kernel != plain ({e})")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    mask = iid_erasures((16, code.n), bench.NB["per"], generator=gen, device=device)
+    for esk in (None, code.k):
+        kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=esk, gf_order=256)
+        e = outputs_err(peel_decode(arrays, cw, mask, **kw),
+                        peel_decode_reference(arrays, cw, mask, **kw))
+        errs["peel_decode_gf256"] = max(errs["peel_decode_gf256"], e)
+        require(e == 0, f"GF(256) peel kernel != plain (early_stop_k={esk}, {e})")
+    log("phase 6: n2040_k1530_gf256 B=16, 1024-byte symbols: GF(256) encode and peel "
+        "(early_stop_k None, k) bit-exact against the plain versions")
+
+    rs_arrays = code_arrays(rs_code(255, 192), device)
+    rs_cw = rs_encode(rs_arrays, random_bytes((64, 192, 64), 13, device))
+    rs_mask = verify_rs_pattern(64, 255, 14, device)
+    mask = iid_erasures((8, code.n), 0.2031, generator=gen, device=device)
+    peeled_nb = peel_decode(arrays, cw[:8, :, :16].contiguous(), mask, max_iters=10, gf_order=256)
+    require(bool(peeled_nb[1].any()), "the GF(256) peel left no residual for the GE")
+    for name, a, values, erased, emax, in_smem in (
+        ("RS(255,192) B=64", rs_arrays, rs_cw.masked_fill(rs_mask[:, :, None], 0), rs_mask,
+         63, True),
+        ("n2040_k1530_gf256 B=8 peeled, emax 384", arrays, peeled_nb[0], peeled_nb[1], 384,
+         False),
+    ):
+        ge = GEInputsNB(a, values, erased, emax)
+        m, c = ge.cube.shape[1:]
+        require(elim.fits_shared_memory_gf256(m, c) == in_smem,
+                f"{name}: a ({m}, {c})-word cube should {'' if in_smem else 'not '}fit in "
+                "shared memory")
+        checks = ge.kernels()
+        checks["gf256_eliminate a_words=0"] = (
+            lambda: gf256_eliminate(ge.cube, ge.nreal, emax=ge.emax),
+            lambda: gf256_eliminate_reference(ge.cube, ge.nreal, emax=ge.emax),
+        )
+        if in_smem:  # the device-memory mode on the same cube
+            checks["gf256_eliminate device memory"] = (
+                lambda: elim.launch_kernel_gf256(ge.cube, ge.nreal, ge.emax, ge.wa, False),
+                checks["gf256_eliminate"][1],
+            )
+        for kname, (kern, ref) in checks.items():
+            e = outputs_err(as_tuple(kern()), as_tuple(ref()))
+            base = kname.split()[0]
+            errs[base] = max(errs[base], e)
+            require(e == 0, f"{name}: {kname} kernel != plain (max abs err {e})")
+        torch.cuda.synchronize()
+        log(f"phase 6: {name}: cube ({m}, {c}) words in "
+            f"{'shared' if in_smem else 'device'} memory; max residual {int(ge.nreal.max())}, "
+            f"{int(ge.elim_out[2].sum())} failed; GF(256) GE kernels bit-exact against the "
+            "plain versions")
+
+
+def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict,
+              launches: dict) -> None:
+    """Phases 6-7: the GF(256) kernels, the NB paths and RS."""
+    compare_gf_small(device, errs)
+
+    # 6a: the NB main path, counted.
+    code = get_code("n2040_k1530_gf256")
+    nb = bench.NB
+    zero_counts()
+    path = bench.NBPath(code, seed=2024, device=device, **nb)
+    mask, values, erased, iters, _, consumed = path.step()
+    torch.cuda.synchronize()
+    require(values.shape == (nb["b"], code.n, nb["wb"]) and values.dtype == torch.uint8,
+            f"values {tuple(values.shape)} {values.dtype}")
+    report = check_nb(path.arrays, path.codewords, mask, values, erased, iters,
+                      max_iters=bench.MAX_ITERS, early_stop_k=code.k)
+    log(f"phase 6a: verify {json.dumps(report)}")
+    require(report["ok"], "NB main-path decode failed verification")
+    frames_left = int(erased[:, : code.k].any(dim=1).sum())
+    del mask, values, erased, iters, consumed
+    ms = path.time_reps(5)
+    counts = read_counts()
+    for name in ("encode_packed_gf256", "peel_decode_gf256"):
+        require(counts[name] > 0, f"the NB main path never launched the {name} kernel")
+    log(f"phase 6a: NB main path {path.gbps(ms):.2f} Gbps info ({ms:.3f} ms/rep over 5 reps, "
+        f"B={nb['b']} {nb['wb']}-byte symbols PER {nb['per']}, first-k early stop); frames "
+        f"with source symbols left erased in the verified rep {frames_left}; launches "
+        f"{counts}; on {card}")
+    add_counts(launches, counts)
+
+    # 7a: encode and peel GF(256) against their plain versions at these shapes.
+    arrays = path.arrays
+    src = random_bytes((nb["b"], code.k, nb["wb"]), 15, device)
+    times["encode_packed_gf256"] = cuda_ms(lambda: encode_packed(arrays, src, gf_order=256), 3)
+    want, plain["encode_packed_gf256"] = host_ms(
+        lambda: encode_packed_reference(arrays, src, gf_order=256))
+    e = max_abs_err(encode_packed(arrays, src, gf_order=256), want)
+    errs["encode_packed_gf256"] = max(errs["encode_packed_gf256"], e)
+    require(e == 0, f"NB main shape: GF(256) encode kernel != plain ({e})")
+    bounds["encode_packed_gf256"] = encode_bound(arrays, nb["b"], nb["wb"], gf=True)
+    del src, want
+    gen = torch.Generator(device=device)
+    gen.manual_seed(16)
+    mask = iid_erasures((nb["b"], code.n), nb["per"], generator=gen, device=device)
+    kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=code.k, gf_order=256)
+    cw = path.codewords
+    times["peel_decode_gf256"] = cuda_ms(lambda: peel_decode(arrays, cw, mask, **kw), 5)
+    want, plain["peel_decode_gf256"] = host_ms(
+        lambda: peel_decode_reference(arrays, cw, mask, **kw))
+    got = peel_decode(arrays, cw, mask, **kw)
+    e = outputs_err(got, want)
+    errs["peel_decode_gf256"] = max(errs["peel_decode_gf256"], e)
+    require(e == 0, f"NB main shape: GF(256) peel kernel != plain ({e})")
+    bounds["peel_decode_gf256"] = peel_bound(arrays, mask, got[1], nb["wb"], gf=True)
+    del want, got
+
+    # 6b: the NB hybrid with the production knobs, on the same codewords.
+    path.hybrid = bench.NB_HYBRID
+    zero_counts()
+    mask, values, erased, iters, failed, consumed = path.step()
+    torch.cuda.synchronize()
+    report = check_hybrid(arrays, cw, mask, values, erased, failed,
+                          peel_iters=bench.NB_HYBRID["peel_iters"], gf_order=256,
+                          require_ge=False)
+    log(f"phase 6b: verify {json.dumps(report)}")
+    require(report["ok"], "NB hybrid decode failed verification")
+    del mask, values, erased, iters, failed, consumed
+    path.failed_frames = path.frames = 0
+    ms = path.time_reps(3)
+    counts = read_counts()
+    require(counts["peel_decode_gf256"] > 0, "the NB hybrid never launched the GF(256) peel")
+    log(f"phase 6b: NB hybrid {path.gbps(ms):.2f} Gbps info ({ms:.3f} ms/rep over 3 reps, "
+        f"{bench.NB_HYBRID}); hybrid FER {path.fer():.4e} ({path.failed_frames}/{path.frames});"
+        f" GE frames in the verified rep {report['ge_frames']} (the GE branch is the plain "
+        f"ge_solve); launches {counts}; on {card}")
+    add_counts(launches, counts)
+    del path, cw
+
+    # 6c: NB escalation: buckets too small, ge_solve_wide_nb on the rest.
+    esc = bench.NBPath(code, b=64, wb=nb["wb"], per=0.2031, seed=77, device=device)
+    mask = iid_erasures((64, code.n), 0.2031, generator=esc.generator, device=device)
+    kw = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=16)
+    prod = hybrid_decode(esc.arrays, esc.codewords, mask, return_overflow=True, **kw)
+    require(bool(prod[4].any()), "the production branch overflowed no frame")
+    zero_counts()
+    v, e_out, it, f, n_esc = hybrid_decode_escalated(esc.arrays, esc.codewords, mask, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    report = check_hybrid(esc.arrays, esc.codewords, mask, v, e_out, f, peel_iters=10,
+                          gf_order=256)
+    pv, resid, _ = peel_decode(esc.arrays, esc.codewords, mask, max_iters=10, gf_order=256)
+    cand = prod[3] & resid.any(dim=1)
+    emax2 = min(code.n, -(-int(resid[cand].sum(dim=1).max()) // 128) * 128)
+    c2 = -(-emax2 // 4) + -(-code.m // 4)
+    log(f"phase 6c: production branch failed {int(prod[3].sum())} ({int(prod[4].sum())} by "
+        f"overflow); escalated {n_esc}; verify {json.dumps(report)}; escalation cube "
+        f"({code.m}, {c2}) words, emax {emax2}; launches {counts}")
+    require(report["ok"] and n_esc > 0, "NB escalation failed verification")
+    require(not elim.fits_shared_memory_gf256(code.m, c2),
+            "the escalation cube should live in device memory")
+    for name in ("peel_decode_gf256", "gf256_eliminate", "gf_matvec_wide", "gf_apply_scatter"):
+        require(counts[name] > 0, f"the NB escalation never launched the {name} kernel")
+    add_counts(launches, counts)
+    sel = residual_order(resid, kw["ge_subbatch"])[0]
+    vs, es = pv[sel], resid[sel]
+    ge_ms = cuda_ms(lambda: ge_solve(esc.arrays, vs, es, emax=kw["emax"], gf_order=256), 2)
+    log(f"phase 6c: ge_solve (plain byte Gauss-Jordan) on the production bucket "
+        f"({vs.shape[0]} frames, emax {kw['emax']}, {nb['wb']}-byte symbols): {ge_ms:.3f} ms "
+        f"on {card}")
+    del esc, v, pv, vs
+
+    # 6d: RS(255,192) wide decode.
+    r = bench.RS
+    path = bench.RSPath(seed=2024, device=device, **r)
+    path.pattern = verify_rs_pattern(r["b"], r["n"], 5, device)
+    zero_counts()
+    mask, values, erased, failed, consumed = path.step()
+    torch.cuda.synchronize()
+    report = check_rs(path.codewords, mask, values, erased, failed, n_minus_k=r["n"] - r["k"])
+    log(f"phase 6d: verify (e = 1..63 over {r['b'] - 1} frames, one at 64) {json.dumps(report)}")
+    require(report["ok"] and bool(failed[-1]) and int(failed.sum()) == 1,
+            "RS decode failed verification")
+    del values, erased, failed, consumed
+    path.pattern = None
+    path.failed_frames = path.frames = 0
+    ms_iid = path.time_reps(5)
+    fer_iid = (path.failed_frames, path.frames)
+    path.pattern = path.systematic_pattern(r["n"] - r["k"], seed=63)
+    _, values, _, failed, _ = path.step()
+    require(not bool(failed.any()) and torch.equal(values, path.codewords),
+            "RS e=63 systematic decode failed")
+    del values, failed
+    ms_63 = path.time_reps(5)
+    counts = read_counts()
+    for name in ("gf256_eliminate", "gf_matvec_wide", "gf_apply_scatter"):
+        require(counts[name] == 12, f"RS: {name} launched {counts[name]} times for 12 decodes")
+    log(f"phase 6d: RS({r['n']},{r['k']}) B={r['b']} {r['wb']}-byte payloads: i.i.d. PER "
+        f"{r['per']} {path.gbps(ms_iid):.2f} Gbps info ({ms_iid:.3f} ms/batch over 5 reps, "
+        f"FER {fer_iid[0] / fer_iid[1]:.4e}: {fer_iid[0]}/{fer_iid[1]}); "
+        f"e=63 systematic {path.gbps(ms_63):.2f} Gbps info ({ms_63:.3f} ms/batch); launches "
+        f"{counts}; on {card}")
+    add_counts(launches, counts)
+
+    # 7b: the GE kernels against their plain versions at the RS i.i.d. batch.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    mask = iid_erasures((r["b"], r["n"]), r["per"], generator=gen, device=device)
+    recv = path.codewords.masked_fill(mask[:, :, None], 0)
+    ge = GEInputsNB(path.arrays, recv, mask, r["n"] - r["k"])
+    for name, (kern, ref) in ge.kernels().items():
+        times[name] = cuda_ms(kern, 5)
+        want, plain[name] = host_ms(ref)
+        e = outputs_err(as_tuple(kern()), as_tuple(want))
+        errs[name] = max(errs[name], e)
+        require(e == 0, f"RS shape: {name} kernel != plain ({e})")
+        del want
+    bounds.update(ge.bounds())
+    for name in ("encode_packed_gf256", "peel_decode_gf256", "gf256_eliminate",
+                 "gf_matvec_wide", "gf_apply_scatter"):
+        at = (f"B={nb['b']} {nb['wb']}-byte symbols" if "gf256" in name and "elim" not in name
+              else f"RS({r['n']},{r['k']}) B={r['b']} {r['wb']} bytes, PER {r['per']}")
+        log(f"phase 7: {name} at {at}: kernel {times[name]:.3f} ms, plain "
+            f"{plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+            f"({bounds[name]['bound_by']}: {bounds[name]['bytes']:.4g} bytes, "
+            f"{bounds[name]['ops']:.4g} ops), max abs err {errs[name]} on {card}")
+
+
+def add_counts(launches: dict, counts: dict) -> None:
+    for name, count in counts.items():
+        launches[name] = launches.get(name, 0) + count
 
 
 def main() -> None:
@@ -443,10 +952,10 @@ def main() -> None:
     hybrid, counts4b = hybrid_phase(device, card)
     counts4c = escalation_phase(hybrid, device)
     launches = {
-        name: counts4[name] + counts4b[name] + counts4c[name] for name in KERNELS
+        name: counts4[name] + counts4b[name] + counts4c[name] for name in BINARY
     }
-    for name, count in launches.items():
-        require(count > 0, f"no path launched the {name} kernel")
+    for name in BINARY:
+        require(launches[name] > 0, f"no path launched the {name} kernel")
     del hybrid
 
     # Phase 5: kernel against plain version at the main path's shapes.
@@ -465,27 +974,41 @@ def main() -> None:
     kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=code.k)
     times["peel_decode"] = cuda_ms(lambda: peel_decode(arrays, cw, mask, **kw), 5)
     want, times_plain_peel = host_ms(lambda: peel_decode_reference(arrays, cw, mask, **kw))
-    e = outputs_err(peel_decode(arrays, cw, mask, **kw), want)
+    got = peel_decode(arrays, cw, mask, **kw)
+    bounds = {
+        "encode_packed": encode_bound(arrays, bench.B, bench.W * 4, gf=False),
+        "peel_decode": peel_bound(arrays, mask, got[1], bench.W * 4, gf=False),
+    }
+    e = outputs_err(got, want)
     errs["peel_decode"] = max(errs["peel_decode"], e)
     require(e == 0, f"main shape: peel kernel != plain ({e})")
     plain = {"encode_packed": times_plain_enc, "peel_decode": times_plain_peel}
-    del main_path, cw, mask, want
+    del main_path, cw, mask, want, got
     hybrid = bench.HybridPath(code, seed=5, device=device, **bench.HYBRID)
-    ge_times, ge_plain, stages = stage_times(hybrid, device, errs)
+    ge_times, ge_plain, stages, ge_bounds = stage_times(hybrid, device, errs)
     times.update(ge_times)
     plain.update(ge_plain)
+    bounds.update(ge_bounds)
     log("phase 5: hybrid step stages (ms, CUDA events): " + "; ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
     h = bench.HYBRID
-    for name in KERNELS:
+    for name in BINARY:
         at = (f"B={bench.B} W={bench.W}" if name in ("encode_packed", "peel_decode") else
               f"the GE bucket ({h['ge_subbatch']} frames, W={h['w']}, emax {h['emax']})")
         log(f"phase 5: {name} at {at}: kernel {times[name]:.3f} ms, "
-            f"plain {plain[name]:.1f} ms, max abs err {errs[name]} on {card}")
+            f"plain {plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+            f"({bounds[name]['bound_by']}), max abs err {errs[name]} on {card}")
+    del hybrid
 
+    gf_phases(device, card, errs, times, plain, bounds, launches)
+
+    for name, count in launches.items():
+        require(count > 0, f"no path launched the {name} kernel")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **meta, "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name], "plain_ms": plain[name]}
+         "max_abs_err": errs[name], "ms": times[name], "plain_ms": plain[name],
+         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+         "library_ms": None}
         for name, meta in KERNELS.items()
     ]}))
     log(f"card: {card}")

@@ -11,16 +11,18 @@ This package imports ``torch`` and ``numpy`` and never ``jax``: the shipped
 codes are read as data from ``ldpc_erasure_codes_tpu/data/codes/*.npz``.
 
 Public contract (the JAX package's): values are ``(B, n, W)`` 32-bit words
-(held as ``torch.int32``), erasures are a ``(B, n)`` bool mask, and erased
-value slots hold zero.
+(held as ``torch.int32``) for binary codes and ``(B, n, Wbytes)`` uint8
+bytes (``Wbytes % 4 == 0``) for GF(256) codes and Reed-Solomon, erasures
+are a ``(B, n)`` bool mask, and erased value slots hold zero.
 """
 
 from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
-from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode, from_vlist, get_code
+from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode, from_h_dense, from_vlist, get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
+from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_decode, rs_decode_wide, rs_encode
 
 __version__ = "0.1.0"
 
@@ -30,10 +32,15 @@ __all__ = [
     "apply_erasures",
     "code_arrays",
     "encode_packed",
+    "from_h_dense",
     "from_vlist",
     "get_code",
     "hybrid_decode",
     "hybrid_decode_escalated",
     "iid_erasures",
     "peel_decode",
+    "rs_code",
+    "rs_decode",
+    "rs_decode_wide",
+    "rs_encode",
 ]

@@ -20,6 +20,15 @@ CUDA card. Prints ONE JSON line on stdout: {"metric", "value", "unit",
 outside the timed region, and per rep a fresh mask, the hybrid decode
 (peel, then the compacted GE) and the consumed values; ``chip_smoke.py``
 times it at the GE-hot point ``HYBRID``.
+
+:class:`NBPath` is the GF(256) chain of ``scripts/bench_nb_stages.py``
+(``enc_dec``, :111-124) and, with ``hybrid``, of
+``scripts/bench_nb_pipeline.py`` (:37-57): ``n2040_k1530_gf256``, 1024-byte
+symbols. :class:`RSPath` is ``scripts/bench_rs_wide.py`` (:34-101):
+RS(255,192) wide decode of 1024-byte payloads under an i.i.d. mask or a
+fixed erasure pattern. Both count information bits as
+B * k * 8 * Wbytes per rep (bench_nb_stages.py:83) and keep the encode
+outside the timed region.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
+from ldpc_erasure_codes_tpu_torch.rs.code import rs_code
+from ldpc_erasure_codes_tpu_torch.rs.decode import rs_decode_wide, rs_encode
 from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
 
 BASELINE_GBPS = 36.3
@@ -42,6 +53,12 @@ METRIC = "ldpc_decode_throughput_n2040_k1530_per0.1406"
 B, W, PER, REPS, MAX_ITERS = 2048, 256, 0.1406, 10, 50
 # The GE-hot hybrid point of scripts/bench_hybrid_values.py:104-109.
 HYBRID = dict(b=1024, w=256, per=0.2031, peel_iters=10, emax=512, ge_subbatch=448)
+# The GF(256) points: scripts/bench_nb_stages.py / bench_nb_pipeline.py
+# (B=512, 1 KB symbols, PER .1406; the hybrid's production knobs) and
+# scripts/bench_rs_wide.py (RS(255,192), B=1024, 1 KB payloads).
+NB = dict(b=512, wb=1024, per=0.1406)
+NB_HYBRID = dict(peel_iters=10, emax=128, ge_subbatch=64)
+RS = dict(n=255, k=192, b=1024, wb=1024, per=0.15)
 
 
 def random_words(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -141,6 +158,104 @@ class HybridPath(MainPath):
     def fer(self) -> float:
         """Frames failed over frames decoded since construction."""
         return self.failed_frames / max(self.frames, 1)
+
+
+def random_bytes(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Uniform random uint8 bytes from ``generator``, drawn as int32 words
+    (the last dimension must be a multiple of 4)."""
+    *lead, wb = shape
+    return random_words((*lead, wb // 4), generator, device).view(torch.uint8)
+
+
+class NBPath(MainPath):
+    """The GF(256) encode -> channel -> decode chain on uint8 byte frames:
+    the peel with first-k early stop and ``MAX_ITERS`` sweeps, or with
+    ``hybrid`` (``NB_HYBRID``'s knobs) the hybrid decode, whose GE branch
+    for GF(256) is the compacted byte Gauss-Jordan (``ge_solve``)."""
+
+    def __init__(self, code: LDPCCode, *, b: int, wb: int, per: float, seed: int, device,
+                 hybrid: dict | None = None):
+        self.code, self.b, self.w, self.per, self.hybrid = code, b, wb, per, hybrid
+        self.arrays = code_arrays(code, device)
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(seed)
+        source = random_bytes((b, code.k, wb), self.generator, device)
+        self.codewords = encode_packed(self.arrays, source, gf_order=256)
+        self.failed_frames = 0
+        self.frames = 0
+
+    def step(self):
+        """One rep: returns (mask, values, erased, iters, failed, consumed);
+        ``failed`` is None for the peel. ``consumed`` holds the first-k
+        residual (peel) or the failed count (hybrid, added to
+        ``failed_frames``: one host sync per rep), the largest iteration
+        count and the XOR of the first two symbols of every frame."""
+        code = self.code
+        mask = iid_erasures((self.b, code.n), self.per, generator=self.generator,
+                            device=self.codewords.device)
+        failed = None
+        if self.hybrid is None:
+            values, erased, iters = peel_decode(
+                self.arrays, self.codewords, mask, max_iters=MAX_ITERS, early_stop_k=code.k,
+                gf_order=256)
+            first = erased[:, : code.k].sum()
+        else:
+            values, erased, iters, failed = hybrid_decode(
+                self.arrays, self.codewords, mask, gf_order=256, tiled=True, **self.hybrid)
+            first = failed.sum()
+            self.failed_frames += int(first)
+            self.frames += self.b
+        consumed = (first, iters.max(), xor_reduce(values[:, :2].view(torch.int32)))
+        return mask, values, erased, iters, failed, consumed
+
+    def fer(self) -> float:
+        return self.failed_frames / max(self.frames, 1)
+
+    def gbps(self, ms_per_rep: float) -> float:
+        return self.b * self.code.k * 8 * self.w / (ms_per_rep * 1e-3) / 1e9
+
+
+class RSPath(NBPath):
+    """RS(n, k) wide decode: payloads encoded once; each rep zeroes the
+    erased slots and decodes with :func:`rs_decode_wide` (the three GF(256)
+    GE kernels on every frame). ``pattern`` None draws an i.i.d. mask of
+    erasure rate ``per`` per rep (``dec_iid``); a (B, n) bool tensor is
+    used as it is on every rep (``dec``'s fixed patterns)."""
+
+    def __init__(self, *, n: int, k: int, b: int, wb: int, per: float, seed: int, device):
+        self.code, self.b, self.w, self.per = rs_code(n, k), b, wb, per
+        self.arrays = code_arrays(self.code, device)
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(seed)
+        source = random_bytes((b, k, wb), self.generator, device)
+        self.codewords = rs_encode(self.arrays, source)
+        self.pattern: torch.Tensor | None = None
+        self.failed_frames = 0
+        self.frames = 0
+
+    def systematic_pattern(self, e: int, seed: int) -> torch.Tensor:
+        """(B, n) mask erasing ``e`` distinct systematic symbols per frame."""
+        g = torch.Generator(device=self.codewords.device)
+        g.manual_seed(seed)
+        keys = torch.rand((self.b, self.code.k), generator=g, device=self.codewords.device)
+        cols = keys.argsort(dim=1)[:, :e]
+        mask = torch.zeros((self.b, self.code.n), dtype=torch.bool, device=keys.device)
+        return mask.scatter_(1, cols, True)
+
+    def step(self):
+        """One rep: returns (mask, values, erased, failed, consumed), with
+        ``consumed`` the failed count (added to ``failed_frames``: one host
+        sync per rep) and the XOR of every frame's first two symbols."""
+        mask = self.pattern
+        if mask is None:
+            mask = iid_erasures((self.b, self.code.n), self.per, generator=self.generator,
+                                device=self.codewords.device)
+        recv = self.codewords.masked_fill(mask[:, :, None], 0)
+        values, erased, failed = rs_decode_wide(self.arrays, recv, mask)
+        consumed = (failed.sum(), xor_reduce(values[:, :2].view(torch.int32)))
+        self.failed_frames += int(consumed[0])
+        self.frames += self.b
+        return mask, values, erased, failed, consumed
 
 
 def main() -> None:

@@ -1,10 +1,12 @@
 """LDPC codes as data: the Vlist form, loaded from the shipped ``.npz`` files.
 
 Counterpart of ``ldpc_erasure_codes_tpu/codes/io.py`` (``load_code``,
-``get_code``) and of the fields of ``codes/registry.py::LDPCCode`` that the
-binary encode and peel paths read. The JAX package's host modules import
-``jax`` (through ``gf/__init__.py``), so this package does not import them:
-it reads the same archives with ``np.load`` instead.
+``get_code``) and of ``codes/registry.py``: the fields of ``LDPCCode``,
+``h_dense_nb``, the seed-0 GF(256) lift (``lift_to_gf256``, :184-199) and
+``from_h_dense`` (:215-253), which the Reed-Solomon codes use. The JAX
+package's host modules import ``jax`` (through ``gf/__init__.py``), so this
+package does not import them: it reads the same archives with ``np.load``
+instead.
 
 Archive format (``codes/io.py::save_code``): ``name``, ``n``, ``k``,
 ``vlist_idx`` (m, dmax) int32 0-based neighbour columns padded with ``n``,
@@ -15,6 +17,7 @@ coefficients (pad 0), ``rs_n``, ``rs_k``, ``gf_order``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -39,6 +42,7 @@ class LDPCCode:
       vlist_len: (m,) int32 check degrees.
       vlist_val: (m, dmax) uint8 coefficients on the same support, pad = 0.
       gf_order: 2 for binary codes, 256 for non-binary.
+      rs_n / rs_k: the rate-matched Reed-Solomon comparison code (0 if none).
     """
 
     name: str
@@ -48,6 +52,8 @@ class LDPCCode:
     vlist_len: np.ndarray
     vlist_val: np.ndarray
     gf_order: int = 2
+    rs_n: int = 0
+    rs_k: int = 0
 
     def __post_init__(self):
         if self.vlist_idx.ndim != 2 or self.vlist_idx.shape[0] != self.m:
@@ -67,6 +73,53 @@ class LDPCCode:
     def dmax(self) -> int:
         return self.vlist_idx.shape[1]
 
+    @functools.cached_property
+    def h_dense_nb(self) -> np.ndarray:
+        """(m, n) uint8 GF(256) parity-check matrix (the coefficients)."""
+        h = np.zeros((self.m, self.n), dtype=np.uint8)
+        rows = np.repeat(np.arange(self.m), self.dmax)
+        cols = self.vlist_idx.reshape(-1)
+        valid = cols < self.n
+        h[rows[valid], cols[valid]] = self.vlist_val.reshape(-1)[valid]
+        return h
+
+    def lift_to_gf256(self, seed: int = 0, name: str | None = None) -> "LDPCCode":
+        """Non-binary lift: every 1 of H becomes a uniform draw from 1..255,
+        drawn over the Vlist support in row-major order, as
+        ``registry.py::lift_to_gf256`` (ErasureCodes_NonBinaryLDPCSim.m:52-58)."""
+        rng = np.random.default_rng(seed)
+        vals = self.vlist_val.copy()
+        support = self.vlist_idx < self.n
+        vals[support] = rng.integers(1, 256, size=int(support.sum()), dtype=np.uint8)
+        return dataclasses.replace(
+            self, name=name or f"{self.name}_gf256", vlist_val=vals, gf_order=256
+        )
+
+
+def from_h_dense(h, name: str, rs_n: int = 0, rs_k: int = 0) -> LDPCCode:
+    """A code from a dense (m, n) parity-check matrix, which may carry
+    GF(256) coefficients (gf_order 256 when any entry exceeds 1), as
+    ``registry.py::from_h_dense``."""
+    if hasattr(h, "toarray"):
+        h = h.toarray()
+    h = np.asarray(h)
+    if h.dtype in (np.float32, np.float64) and not np.all(h == np.round(h)):
+        raise ValueError("h must hold integers")
+    h = h.astype(np.int64)
+    m, n = h.shape
+    degs = (h != 0).sum(axis=1)
+    dm = int(degs.max())
+    vlist_idx = np.full((m, dm), n, dtype=np.int32)
+    vlist_val = np.zeros((m, dm), dtype=np.uint8)
+    for r in range(m):
+        cols = np.nonzero(h[r])[0]
+        vlist_idx[r, : cols.size] = cols
+        vlist_val[r, : cols.size] = h[r, cols]
+    return LDPCCode(
+        name=name, n=n, k=n - m, vlist_idx=vlist_idx, vlist_len=degs.astype(np.int32),
+        vlist_val=vlist_val, gf_order=256 if np.any(h > 1) else 2, rs_n=rs_n, rs_k=rs_k,
+    )
+
 
 def from_vlist(
     name: str,
@@ -76,6 +129,8 @@ def from_vlist(
     vlist_len,
     vlist_val=None,
     gf_order: int = 2,
+    rs_n: int = 0,
+    rs_k: int = 0,
 ) -> LDPCCode:
     """Build a code from Vlist arrays (e.g. a generated test code handed
     over as NumPy). ``vlist_val`` defaults to ones on the support."""
@@ -87,7 +142,7 @@ def from_vlist(
         val = np.asarray(vlist_val, dtype=np.uint8)
     return LDPCCode(
         name=name, n=int(n), k=int(k), vlist_idx=idx, vlist_len=ln,
-        vlist_val=val, gf_order=int(gf_order),
+        vlist_val=val, gf_order=int(gf_order), rs_n=int(rs_n), rs_k=int(rs_k),
     )
 
 
@@ -101,6 +156,8 @@ def load_code(path: str) -> LDPCCode:
             vlist_len=z["vlist_len"],
             vlist_val=z["vlist_val"],
             gf_order=int(z["gf_order"]),
+            rs_n=int(z["rs_n"]),
+            rs_k=int(z["rs_k"]),
         )
 
 
@@ -113,13 +170,11 @@ def list_codes() -> list[str]:
 def get_code(name: str) -> LDPCCode:
     """Load a shipped code by name (e.g. ``n2040_k1530``).
 
-    The GF(256) lifts (``<name>_gf256``) belong to a later slice of the port
-    and raise ``NotImplementedError``.
+    ``<name>_gf256`` is the deterministic seed-0 GF(256) lift of the shipped
+    binary code ``<name>`` (``io.py::get_code`` :146-152).
     """
     if name.endswith("_gf256"):
-        raise NotImplementedError(
-            f"{name!r}: GF(256) codes are not ported yet (binary codes only)"
-        )
+        return get_code(name[: -len("_gf256")]).lift_to_gf256(seed=0)
     path = os.path.join(DATA_DIR, f"{name}.npz")
     if not os.path.exists(path):
         raise KeyError(f"unknown code {name!r}; shipped codes: {list_codes()}")

@@ -1,0 +1,60 @@
+// GF(2^8) arithmetic on packed 32-bit words: four field elements per word,
+// byte j in bits 8j..8j+7 (the little-endian view of a byte payload).
+// Field polynomial x^8 + x^6 + x^5 + x^4 + 1 (0x171), the reference's.
+//
+// A product by a coefficient c is double-and-add over c's bits with the
+// SWAR multiply-by-x below: about 6 integer operations per doubling, all
+// four bytes at once. Where every lane of a warp multiplies by the same c
+// (one coefficient per check, row or pivot; the lanes own words), the
+// branches on c's bits are uniform and cost no divergence. The other
+// choice, 256-entry log/exp tables in shared memory, takes per byte two
+// gathers, an add and a zero test, and the four bytes of a word go apart:
+// about as many instructions per word, plus bank conflicts on
+// data-dependent addresses. The SWAR form needs no table and no staging.
+#pragma once
+
+#include <cstdint>
+
+#include "words.cuh"
+
+// Multiply each byte of v by x: a byte that overflows its top bit wraps
+// modulo the polynomial's low byte 0x71.
+__device__ __forceinline__ uint32_t gf_xtime4(uint32_t v) {
+    const uint32_t hi = (v >> 7) & 0x01010101u;
+    return ((v << 1) & 0xFEFEFEFEu) ^ (hi * 0x71u);
+}
+
+// Each byte of v times the field element c (0..255).
+__device__ __forceinline__ uint32_t gf_mul4(uint32_t v, uint32_t c) {
+    uint32_t acc = 0;
+    while (c) {
+        if (c & 1u) acc ^= v;
+        c >>= 1;
+        if (c) v = gf_xtime4(v);
+    }
+    return acc;
+}
+
+template <int VEC>
+__device__ __forceinline__ Words<VEC> gf_mul(Words<VEC> w, uint32_t c);
+
+template <>
+__device__ __forceinline__ Words<4> gf_mul<4>(Words<4> w, uint32_t c) {
+    uint32_t x = w.v.x, y = w.v.y, z = w.v.z, t = w.v.w;
+    uint32_t ax = 0, ay = 0, az = 0, at = 0;
+    while (c) {
+        if (c & 1u) {
+            ax ^= x; ay ^= y; az ^= z; at ^= t;
+        }
+        c >>= 1;
+        if (c) {
+            x = gf_xtime4(x); y = gf_xtime4(y); z = gf_xtime4(z); t = gf_xtime4(t);
+        }
+    }
+    return {make_int4((int)ax, (int)ay, (int)az, (int)at)};
+}
+
+template <>
+__device__ __forceinline__ Words<1> gf_mul<1>(Words<1> w, uint32_t c) {
+    return {(int32_t)gf_mul4((uint32_t)w.v, c)};
+}

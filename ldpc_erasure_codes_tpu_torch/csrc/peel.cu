@@ -11,6 +11,18 @@
 // the same sweep see it. Unrolling and fence gating are devices for the
 // TPU's compiler with identical results, and are not carried over.
 //
+// GF(256) mode (kNB, the kernels' gf_order=256 branch; four byte symbols per
+// word): the degree-1 check's sum is weighted, acc = sum_j coef_j * y_j
+// (the erased slot holds zero, so its term vanishes), and the solved symbol
+// is inv_s * acc with inv_s the inverse of the erased slot's coefficient
+// (pallas_peel.py:295-300, :1009-1036). The coefficients and inverses are
+// read from device memory beside the Vlist (vlist_val, vlist_inv_val). The
+// TPU's Horner form shares 8 doublings across a check's terms because its
+// rows sit in vector registers; here each term is a load followed by its
+// own double-and-add product with the coefficient's bits as warp-uniform
+// branches, which keeps no per-check array of loaded words. The mask
+// evolution is the binary decode's.
+//
 // Stopping is per frame (the TPU stops a whole 32-frame tile): a frame
 // stops after the first sweep that leaves its first k_stop symbols known
 // (iters = that sweep's number) or that changes nothing (iters = max_iters).
@@ -43,16 +55,18 @@
 
 #include <cuda_runtime.h>
 
+#include "gf256.cuh"
 #include "words.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 
-template <int VEC>
+template <int VEC, bool kNB>
 __global__ void __launch_bounds__(kWarps * 32)
 peel_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ erased,
             const int32_t* __restrict__ vlist_idx, const int32_t* __restrict__ vlist_len,
+            const uint8_t* __restrict__ vlist_val, const uint8_t* __restrict__ vlist_inv,
             int32_t* __restrict__ out, uint8_t* __restrict__ erased_out,
             int32_t* __restrict__ iters_out, int B, int n, int m, int dmax, int W,
             int k_stop, int max_iters, int flag_stride) {
@@ -92,17 +106,24 @@ peel_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ eras
             const int d = __ldg(vlist_len + c);
             int cnt = 0;
             int e = 0;
+            int es = 0;
             for (int j = 0; j < d; ++j) {
                 const int s = __ldg(nb + j);
                 if (er[s]) {
                     ++cnt;
                     e = s;
+                    es = j;
                 }
             }
             if (cnt != 1) continue;  // the same decision in every lane
             if (own) {
                 V acc = V::zero();
-                for (int j = 0; j < d; ++j) acc ^= V::load(o + (size_t)__ldg(nb + j) * W);
+                for (int j = 0; j < d; ++j) {
+                    V t = V::load(o + (size_t)__ldg(nb + j) * W);
+                    if (kNB) t = gf_mul<VEC>(t, __ldg(vlist_val + (size_t)c * dmax + j));
+                    acc ^= t;
+                }
+                if (kNB) acc = gf_mul<VEC>(acc, __ldg(vlist_inv + (size_t)c * dmax + es));
                 acc.store(o + (size_t)e * W);
             }
             __syncwarp();
@@ -126,38 +147,56 @@ peel_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ eras
     }
 }
 
-template <int VEC>
+template <int VEC, bool kNB>
 cudaError_t launch(const int32_t* values, const uint8_t* erased, const int32_t* vlist_idx,
-                   const int32_t* vlist_len, int32_t* out, uint8_t* erased_out,
-                   int32_t* iters_out, int B, int n, int m, int dmax, int W, int k_stop,
-                   int max_iters, cudaStream_t stream) {
+                   const int32_t* vlist_len, const uint8_t* vlist_val, const uint8_t* vlist_inv,
+                   int32_t* out, uint8_t* erased_out, int32_t* iters_out, int B, int n, int m,
+                   int dmax, int W, int k_stop, int max_iters, cudaStream_t stream) {
     const int flag_stride = (n + 15) / 16 * 16;
     const size_t smem = (size_t)kWarps * flag_stride;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            peel_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            peel_kernel<VEC, kNB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
     }
     const int n_chunks = (W + 32 * VEC - 1) / (32 * VEC);
     const long long tasks = (long long)B * n_chunks;
     const unsigned blocks = (unsigned)((tasks + kWarps - 1) / kWarps);
-    peel_kernel<VEC><<<blocks, kWarps * 32, smem, stream>>>(
-        values, erased, vlist_idx, vlist_len, out, erased_out, iters_out, B, n, m, dmax, W,
-        k_stop, max_iters, flag_stride);
+    peel_kernel<VEC, kNB><<<blocks, kWarps * 32, smem, stream>>>(
+        values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv, out, erased_out, iters_out,
+        B, n, m, dmax, W, k_stop, max_iters, flag_stride);
     return cudaGetLastError();
+}
+
+template <bool kNB>
+cudaError_t launch_field(const int32_t* values, const uint8_t* erased,
+                         const int32_t* vlist_idx, const int32_t* vlist_len,
+                         const uint8_t* vlist_val, const uint8_t* vlist_inv, int32_t* out,
+                         uint8_t* erased_out, int32_t* iters_out, int B, int n, int m,
+                         int dmax, int W, int k_stop, int max_iters, cudaStream_t stream) {
+    if (vec4_ok(W, {values, out}))
+        return launch<4, kNB>(values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv, out,
+                              erased_out, iters_out, B, n, m, dmax, W, k_stop, max_iters,
+                              stream);
+    return launch<1, kNB>(values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv, out,
+                          erased_out, iters_out, B, n, m, dmax, W, k_stop, max_iters, stream);
 }
 
 }  // namespace
 
+// nb = 0: GF(2), the coefficient tables are not read; nb = 1: GF(256).
 extern "C" int ldpc_peel_launch(const int32_t* values, const uint8_t* erased,
                                 const int32_t* vlist_idx, const int32_t* vlist_len,
+                                const uint8_t* vlist_val, const uint8_t* vlist_inv,
                                 int32_t* out, uint8_t* erased_out, int32_t* iters_out, int B,
-                                int n, int m, int dmax, int W, int k_stop, int max_iters,
+                                int n, int m, int dmax, int W, int k_stop, int max_iters, int nb,
                                 cudaStream_t stream) {
     if (B == 0) return (int)cudaSuccess;
-    if (vec4_ok(W, {values, out}))
-        return (int)launch<4>(values, erased, vlist_idx, vlist_len, out, erased_out,
-                              iters_out, B, n, m, dmax, W, k_stop, max_iters, stream);
-    return (int)launch<1>(values, erased, vlist_idx, vlist_len, out, erased_out, iters_out,
-                          B, n, m, dmax, W, k_stop, max_iters, stream);
+    if (nb)
+        return (int)launch_field<true>(values, erased, vlist_idx, vlist_len, vlist_val,
+                                       vlist_inv, out, erased_out, iters_out, B, n, m, dmax, W,
+                                       k_stop, max_iters, stream);
+    return (int)launch_field<false>(values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv,
+                                    out, erased_out, iters_out, B, n, m, dmax, W, k_stop,
+                                    max_iters, stream);
 }

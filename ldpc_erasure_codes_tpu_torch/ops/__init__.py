@@ -1,5 +1,6 @@
-"""Code tables, the encode and peel operations, and the hybrid decoder's
-GF(2) solver (kernel wrappers and their plain PyTorch versions)."""
+"""Code tables, the encode and peel operations, and the Gauss-Jordan
+solvers over GF(2) and GF(256) (kernel wrappers and their plain PyTorch
+versions)."""
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     CodeArrays,
@@ -8,9 +9,19 @@ from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     host_arrays,
 )
 from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, residual_order
-from ldpc_erasure_codes_tpu_torch.ops.elim import f2_eliminate, f2_eliminate_reference
+from ldpc_erasure_codes_tpu_torch.ops.elim import (
+    f2_eliminate,
+    f2_eliminate_reference,
+    gf256_eliminate,
+    gf256_eliminate_reference,
+)
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
-from ldpc_erasure_codes_tpu_torch.ops.ge import erased_indices, ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.ge import (
+    erased_indices,
+    ge_solve,
+    ge_solve_packed,
+    ge_solve_wide_nb,
+)
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_apply_scatter,
@@ -19,6 +30,11 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_matmul_batched_reference,
     f2_matvec_wide,
     f2_matvec_wide_reference,
+    gf_apply_scatter,
+    gf_apply_scatter_reference,
+    gf_matvec_wide,
+    gf_matvec_wide_reference,
+    matrix_rows,
 )
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
@@ -39,10 +55,19 @@ __all__ = [
     "f2_matmul_batched_reference",
     "f2_matvec_wide",
     "f2_matvec_wide_reference",
+    "ge_solve",
     "ge_solve_packed",
+    "ge_solve_wide_nb",
+    "gf256_eliminate",
+    "gf256_eliminate_reference",
+    "gf_apply_scatter",
+    "gf_apply_scatter_reference",
+    "gf_matvec_wide",
+    "gf_matvec_wide_reference",
     "host_arrays",
     "hybrid_decode",
     "hybrid_decode_escalated",
+    "matrix_rows",
     "peel_decode",
     "peel_decode_reference",
     "residual_order",

@@ -39,16 +39,27 @@ _I = ctypes.c_int
 # name -> argtypes; every pointer and the stream are c_void_p (a plain int
 # would be cut to 32 bits).
 LAUNCHERS = {
-    # src, enc_src_idx, enc_par_idx, out, B, k, m, W, dmax, pmax, stream
-    "ldpc_encode_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # values, erased, vlist_idx, vlist_len, values_out, erased_out,
-    # iters_out, B, n, m, dmax, W, k_stop, max_iters, stream
-    "ldpc_peel_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # src, enc_src_idx, enc_par_idx, enc_src_val, enc_par_val, enc_diag_inv,
+    # out, B, k, m, W, dmax, pmax, nb, stream
+    "ldpc_encode_launch": [*[_P] * 7, *[_I] * 7, _P],
+    # values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv_val,
+    # values_out, erased_out, iters_out, B, n, m, dmax, W, k_stop,
+    # max_iters, nb, stream
+    "ldpc_peel_launch": [*[_P] * 9, *[_I] * 8, _P],
     # in, out, nreal, ncols, pivrow, failed, B, m, C, emax, a_words,
     # in_smem, stream
     "ldpc_elim_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # m, C
     "ldpc_elim_fits_smem": [_I, _I],
+    # in, out, nreal, ncols, pivrow, failed, inv_table, B, m, C, emax,
+    # a_words, in_smem, stream
+    "ldpc_gf256_elim_launch": [*[_P] * 7, *[_I] * 6, _P],
+    # m, C
+    "ldpc_gf256_elim_fits_smem": [_I, _I],
+    # values, idx, coef, out, B, n, m, d, W, stream
+    "ldpc_gf_matvec_launch": [*[_P] * 4, *[_I] * 5, _P],
+    # rhs, mats, idx, out, B, m, E, W, n, stream
+    "ldpc_gf_apply_launch": [*[_P] * 4, *[_I] * 5, _P],
     # values, vlist_idx, vlist_len, out, B, n, m, dmax, W, stream
     "ldpc_synd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # values, h_words, out, B, n, KW, m, W, stream

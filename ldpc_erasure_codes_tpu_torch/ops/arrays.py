@@ -1,9 +1,11 @@
 """Code tables as torch tensors on an explicit device.
 
 Counterpart of ``ldpc_erasure_codes_tpu/ops/arrays.py``. :class:`CodeArrays`
-holds the fields that the binary encode and peel kernels read, derived in
-NumPy exactly as the JAX package's ``_host_arrays`` derives them, so both
-sides compute on identical tables (the CPU tests check this field by field).
+holds the fields that the encode, peel and Gauss-Jordan kernels read, over
+GF(2) and GF(256), derived in NumPy exactly as the JAX package's
+``_host_arrays`` derives them (:86-171), so both sides compute on identical
+tables (the CPU tests check this field by field). Binary codes carry
+all-ones coefficients, so their GF(256) fields are ones on the support.
 It also holds the packed-bit helpers that the GF(2) elimination and the
 bit-matrix products share: bit ``j`` of a row lives in bit ``j & 31`` of
 word ``j >> 5`` (LSB first, the JAX package's ``_bits_to_words``).
@@ -17,8 +19,11 @@ import numpy as np
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode
+from ldpc_erasure_codes_tpu_torch.gf.tables import build_tables
 
 FIELDS = ("vlist_idx", "vlist_len", "enc_src_idx", "enc_par_idx")
+# GF(256) coefficient tables, uint8, on the supports of the index tables.
+NB_FIELDS = ("h_nb", "vlist_val", "vlist_inv_val", "enc_src_val", "enc_par_val", "enc_diag_inv")
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -47,12 +52,18 @@ class CodeArrays:
       h: (m, n) ``torch.int8`` 0/1 support of H (``_host_arrays``' ``h``).
       h_words: (m, ceil(n/32)) int32, ``h`` packed (:func:`pack_bits`), for
         the dense syndrome product; derived from ``h``.
+      h_nb: (m, n) uint8 GF(256) coefficients of H (``h`` for binary codes).
       vlist_idx: (m, dmax) neighbour columns of each check, pad = n.
       vlist_len: (m,) check degrees.
+      vlist_val: (m, dmax) uint8 coefficients of the neighbours, pad 0.
+      vlist_inv_val: (m, dmax) uint8 their inverses, pad 0.
       enc_src_idx: (m, dmax) per parity row, its neighbours in the source
         region (col < k), pad = k.
+      enc_src_val: (m, dmax) uint8 their coefficients, pad 0.
       enc_par_idx: (m, pmax) per parity row i, the (col - k) indices of its
         strictly-lower parity neighbours (k <= col < k + i), pad = m.
+      enc_par_val: (m, pmax) uint8 their coefficients, pad 0.
+      enc_diag_inv: (m,) uint8 inverse of each row's diagonal coefficient.
       min_n: one more than the largest neighbour column; the peel wrapper
         refuses codewords shorter than this, so the kernel never indexes
         past a frame.
@@ -60,10 +71,16 @@ class CodeArrays:
 
     h: torch.Tensor
     h_words: torch.Tensor
+    h_nb: torch.Tensor
     vlist_idx: torch.Tensor
     vlist_len: torch.Tensor
+    vlist_val: torch.Tensor
+    vlist_inv_val: torch.Tensor
     enc_src_idx: torch.Tensor
+    enc_src_val: torch.Tensor
     enc_par_idx: torch.Tensor
+    enc_par_val: torch.Tensor
+    enc_diag_inv: torch.Tensor
     min_n: int
 
     @property
@@ -83,51 +100,66 @@ class CodeArrays:
         return self.vlist_idx.device
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        return {f: getattr(self, f).cpu().numpy() for f in (*FIELDS, "h")}
+        return {f: getattr(self, f).cpu().numpy() for f in (*FIELDS, *NB_FIELDS, "h")}
 
 
 def host_arrays(code: LDPCCode) -> dict[str, np.ndarray]:
-    """The slice's tables as NumPy, derived as ``_host_arrays`` does
-    (ldpc_erasure_codes_tpu/ops/arrays.py:92-130).
+    """The code's tables as NumPy, derived as ``_host_arrays`` does
+    (ldpc_erasure_codes_tpu/ops/arrays.py:86-171).
 
     ``h`` is the 0/1 support of H as int8, ``(h_dense != 0)`` there.
 
     The encoder splits each check row of the triangle-form H into its
-    source-region neighbours (a parallel gather-XOR) and its strictly-lower
+    source-region neighbours (a parallel gather-MAC) and its strictly-lower
     parity neighbours (the sequential back-substitution); the diagonal
-    neighbour ``k + r`` is the row's own parity symbol.
+    neighbour ``k + r`` is the row's own parity symbol, whose coefficient's
+    inverse closes the row.
     """
+    inv = build_tables().inv
     m, dmax, k = code.m, code.dmax, code.k
     enc_src_idx = np.full((m, dmax), k, dtype=np.int32)
-    par_rows: list[list[int]] = []
+    enc_src_val = np.zeros((m, dmax), dtype=np.uint8)
+    diag = np.zeros(m, dtype=np.uint8)
+    par_rows: list[list[tuple[int, int]]] = []
     for r in range(m):
         s_fill = 0
-        par: list[int] = []
-        has_diag = False
+        par: list[tuple[int, int]] = []
         for j in range(int(code.vlist_len[r])):
             c = int(code.vlist_idx[r, j])
+            v = int(code.vlist_val[r, j])
             if c < k:
                 enc_src_idx[r, s_fill] = c
+                enc_src_val[r, s_fill] = v
                 s_fill += 1
             elif c == k + r:
-                has_diag = True
+                diag[r] = v
             elif c < k + r:
-                par.append(c - k)
+                par.append((c - k, v))
             else:
                 raise ValueError(f"row {r}: parity neighbour above the diagonal")
-        if not has_diag:
+        if diag[r] == 0:
             raise ValueError(f"row {r}: triangle diagonal missing")
         par_rows.append(par)
     pmax = max(1, max(len(p) for p in par_rows))
     enc_par_idx = np.full((m, pmax), m, dtype=np.int32)
+    enc_par_val = np.zeros((m, pmax), dtype=np.uint8)
     for r, par in enumerate(par_rows):
-        enc_par_idx[r, : len(par)] = par
+        for j, (c, v) in enumerate(par):
+            enc_par_idx[r, j] = c
+            enc_par_val[r, j] = v
+    vlist_val = np.asarray(code.vlist_val, dtype=np.uint8)
     return dict(
         h=_support(code.vlist_idx, code.vlist_len, code.n),
+        h_nb=code.h_dense_nb,
         vlist_idx=np.asarray(code.vlist_idx, dtype=np.int32),
         vlist_len=np.asarray(code.vlist_len, dtype=np.int32),
+        vlist_val=vlist_val,
+        vlist_inv_val=inv[vlist_val],
         enc_src_idx=enc_src_idx,
+        enc_src_val=enc_src_val,
         enc_par_idx=enc_par_idx,
+        enc_par_val=enc_par_val,
+        enc_diag_inv=inv[diag],
     )
 
 
@@ -145,7 +177,8 @@ def code_arrays_from_numpy(host: dict, device: torch.device | str) -> CodeArrays
 
     Takes the port's own :func:`host_arrays` or the dict that the JAX
     package's ``ops.arrays._host_arrays`` returns (extra fields ignored).
-    ``h`` must be the support of the Vlist; ``h_words`` is packed from it.
+    ``h`` must be the support of the Vlist and of ``h_nb``; ``h_words`` is
+    packed from it.
     """
     tabs = {f: np.ascontiguousarray(host[f], dtype=np.int32) for f in FIELDS}
     idx, ln = tabs["vlist_idx"], tabs["vlist_len"]
@@ -161,12 +194,22 @@ def code_arrays_from_numpy(host: dict, device: torch.device | str) -> CodeArrays
     h = (h != 0).astype(np.int8)
     if not np.array_equal(h, _support(idx, ln, h.shape[1])):
         raise ValueError("h is not the support of the Vlist")
+    nb = {f: np.ascontiguousarray(host[f], dtype=np.uint8) for f in NB_FIELDS}
+    if nb["h_nb"].shape != h.shape or not np.array_equal(nb["h_nb"] != 0, h != 0):
+        raise ValueError("h_nb does not have the support of h")
+    for f, like in (("vlist_val", "vlist_idx"), ("vlist_inv_val", "vlist_idx"),
+                    ("enc_src_val", "enc_src_idx"), ("enc_par_val", "enc_par_idx")):
+        if nb[f].shape != tabs[like].shape:
+            raise ValueError(f"{f} shape {nb[f].shape} != {like} shape {tabs[like].shape}")
+    if nb["enc_diag_inv"].shape != ln.shape:
+        raise ValueError(f"enc_diag_inv shape {nb['enc_diag_inv'].shape} != ({ln.shape[0]},)")
     h_t = torch.from_numpy(h).to(device)
     h_words = pack_bits(h_t)
     return CodeArrays(
         h=h_t,
         h_words=h_words.contiguous(),
         **{f: torch.from_numpy(t).to(device) for f, t in tabs.items()},
+        **{f: torch.from_numpy(t).to(device) for f, t in nb.items()},
         min_n=min_n,
     )
 

@@ -1,7 +1,7 @@
 """Residual-frame compaction for the Gauss-Jordan fallback.
 
 Counterpart of ``ldpc_erasure_codes_tpu/ops/compact.py``: ``residual_order``
-(:25-37) and ``compact_ge_solve`` (:58-106), binary packed GE only. After
+(:25-37) and ``compact_ge_solve`` (:58-106). After
 peeling, only the frames stuck in a stopping set need elimination; they are
 gathered into a bucket of ``f_max`` frames, solved there and scattered
 back. Residual frames beyond the bucket are flagged failed (overflow).
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
-from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed
 
 
 def residual_order(
@@ -40,18 +40,25 @@ def compact_ge_solve(
     *,
     emax: int,
     f_max: int,
+    gf_order: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`.ge.ge_solve_packed` on the residual sub-batch, scattered back.
+    """The GE on the residual sub-batch, scattered back.
 
-    Returns new (values, erased, failed). The filler frames of the bucket
-    have no erasures, so the solver returns them unchanged and the whole
-    sub-batch scatters back (compact.py:94-101). The syndrome is the dense
-    ``f2_matvec_wide`` and the placement ``f2_apply_scatter``, as the JAX
-    function calls the solver without a topology.
+    Binary frames (int32 words) take :func:`.ge.ge_solve_packed`, with the
+    dense ``f2_matvec_wide`` syndrome and the ``f2_apply_scatter``
+    placement, as the JAX function calls the solver without a topology;
+    GF(256) frames (uint8 bytes) take :func:`.ge.ge_solve`, as
+    compact.py:77-93 routes them. Returns new (values, erased, failed). The
+    filler frames of the bucket have no erasures, so the solver returns
+    them unchanged and the whole sub-batch scatters back (compact.py:94-101).
     """
     b = erased.shape[0]
     sel, is_resid, overflow = residual_order(erased, f_max)
-    v_sub, e_sub, failed_sub = ge_solve_packed(arrays, values[sel], erased[sel], emax=emax)
+    if gf_order == 256:
+        v_sub, e_sub, failed_sub = ge_solve(
+            arrays, values[sel], erased[sel], emax=emax, gf_order=256)
+    else:
+        v_sub, e_sub, failed_sub = ge_solve_packed(arrays, values[sel], erased[sel], emax=emax)
     values = values.index_copy(0, sel, v_sub)
     erased = erased.index_copy(0, sel, torch.where(is_resid[:, None], e_sub, erased[sel]))
     failed = torch.zeros((b,), dtype=torch.bool, device=erased.device)

@@ -1,4 +1,5 @@
-"""Swap-free GF(2) Gauss-Jordan elimination of packed-bit [A | T] cubes.
+"""Swap-free Gauss-Jordan elimination of packed [A | T] cubes, over GF(2)
+(bits) and GF(256) (bytes).
 
 Counterpart of the TPU kernel ``ldpc_erasure_codes_tpu/ops/pallas_elim.py::
 f2_eliminate`` (:252-412), the elimination inside ``ops/ge.py::
@@ -14,12 +15,20 @@ and A words left of the current column are not updated. Pivot rows and
 failure flags are unchanged by the cuts; the cubes of failed frames may
 differ from the uncut elimination (pallas_elim.py:272-287). The kernel and
 the plain version apply the same cuts, so they agree on every output.
+
+:func:`gf256_eliminate` is the counterpart of the TPU kernel
+``pallas_elim.py::gf256_eliminate`` (:75-246), the elimination of
+``ops/ge.py::ge_solve_wide_nb``: the same layout and cuts with byte
+columns (byte ``col & 3`` of word ``col >> 2``), the pivot row normalised
+by the field inverse and written back, and every other row with a nonzero
+byte ``f`` in the column updated by ``row ^= f * pivot_row``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ldpc_erasure_codes_tpu_torch.gf.ops import gf_mul_packed, table
 from ldpc_erasure_codes_tpu_torch.ops import _build
 
 
@@ -134,3 +143,107 @@ def f2_eliminate(
 
 
 f2_eliminate.launches = 0
+
+
+def gf256_eliminate_reference(
+    cube: torch.Tensor, nreal: torch.Tensor, *, emax: int, a_words: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch GF(256) elimination: a Python loop over pivot columns
+    of whole-cube tensor operations, as ge.py's ``step`` (:582-612) with
+    the Pallas kernel's cuts (pallas_elim.py:188-204)."""
+    _check_nb(cube, nreal, emax, a_words)
+    b, m, _ = cube.shape
+    dev = cube.device
+    inv = table("inv", dev)
+    r = cube.clone()
+    used = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    pivrow = torch.zeros((b, emax), dtype=torch.int32, device=dev)
+    failed = torch.zeros((b,), dtype=torch.bool, device=dev)
+    rows = torch.arange(m, device=dev)
+    frames = torch.arange(b, device=dev)
+    ub = emax
+    if a_words:
+        ub = min(int(nreal.max()), emax) if b else 0
+    for col in range(ub):
+        colv = (r[:, :, col >> 2] >> (8 * (col & 3))) & 0xFF  # (B, m)
+        cand = (colv != 0) & ~used
+        has = cand.any(dim=1)
+        piv = torch.where(has, cand.to(torch.uint8).argmax(dim=1), 0)  # first row
+        is_piv = (rows[None, :] == piv[:, None]) & has[:, None]
+        used |= is_piv
+        pivrow[:, col] = piv.to(torch.int32)
+        c0 = min(col >> 2, a_words) if a_words else 0
+        norm = gf_mul_packed(r[frames, piv, c0:], inv[colv[frames, piv].long()][:, None])  # (B, C-c0)
+        factor = torch.where(is_piv | ~has[:, None], 0, colv)  # (B, m)
+        upd = r[:, :, c0:] ^ gf_mul_packed(norm[:, None, :], factor[:, :, None])
+        r[:, :, c0:] = torch.where(is_piv[:, :, None], norm[:, None, :], upd)
+        failed |= ~has & (col < nreal)
+    return r, pivrow, failed
+
+
+def _check_nb(cube, nreal, emax: int, a_words: int) -> None:
+    _check(cube, nreal, 0, a_words)
+    if not 0 <= emax <= 4 * cube.shape[2]:
+        raise ValueError(f"emax={emax} outside 0..{4 * cube.shape[2]} (the cube's byte columns)")
+
+
+def launch_kernel_gf256(cube, nreal, emax: int, a_words: int, in_smem: bool):
+    """Launch the GF(256) kernel with the cube in shared memory
+    (``in_smem``) or in device memory; :func:`gf256_eliminate` picks the
+    mode by size, the card tests force each."""
+    b, m, c = cube.shape
+    out = torch.empty_like(cube)
+    pivrow = torch.empty((b, emax), dtype=torch.int32, device=cube.device)
+    failed = torch.empty((b,), dtype=torch.int32, device=cube.device)
+    ncols = nreal.max().clamp(max=emax).reshape(1) if b else nreal.new_zeros(1)
+    inv = table("inv", cube.device)
+    rc = _build.library().ldpc_gf256_elim_launch(
+        cube.data_ptr(), out.data_ptr(), nreal.data_ptr(), ncols.data_ptr(),
+        pivrow.data_ptr(), failed.data_ptr(), inv.data_ptr(), b, m, c, emax, a_words,
+        int(in_smem), torch.cuda.current_stream(cube.device).cuda_stream,
+    )
+    _build.check(rc, "ldpc_gf256_elim_launch")
+    gf256_eliminate.launches += 1
+    return out, pivrow, failed != 0
+
+
+def fits_shared_memory_gf256(m: int, c: int) -> bool:
+    """Whether a frame's (m, c)-word GF(256) cube fits in one block's
+    shared memory on the current CUDA device."""
+    return bool(_build.library().ldpc_gf256_elim_fits_smem(m, c))
+
+
+def gf256_eliminate(
+    cube: torch.Tensor, nreal: torch.Tensor, *, emax: int, a_words: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GF(256) swap-free elimination of a packed byte cube.
+
+    Args:
+      cube: (B, m, C) int32, the [A | T] rows of each frame, four bytes per
+        word, LSB first: byte ``col`` of a row is byte ``col & 3`` of word
+        ``col >> 2``.
+      nreal: (B,) int32 real erased columns of each frame.
+      emax: the pivot columns to eliminate (byte columns 0..emax-1).
+      a_words: leading words of each row that hold A; > 0 turns on the
+        exact work cuts (module docstring).
+
+    Returns:
+      (cube_out (B, m, C) int32, its pivot rows normalised; pivrow
+      (B, emax) int32, 0 where a column has no pivot; failed (B,) bool).
+
+    CPU tensors take :func:`gf256_eliminate_reference`; CUDA tensors launch
+    the kernel (or raise), with the cube in shared memory when it fits
+    there and in device memory otherwise. ``gf256_eliminate.launches``
+    counts kernel launches.
+    """
+    _check_nb(cube, nreal, emax, a_words)
+    if cube.device.type == "cpu":
+        return gf256_eliminate_reference(cube, nreal, emax=emax, a_words=a_words)
+    if cube.device.type != "cuda":
+        raise ValueError(f"unsupported device {cube.device}")
+    with torch.cuda.device(cube.device):
+        in_smem = fits_shared_memory_gf256(cube.shape[1], cube.shape[2])
+        return launch_kernel_gf256(cube, nreal, emax, a_words, in_smem)
+
+
+gf256_eliminate.launches = 0

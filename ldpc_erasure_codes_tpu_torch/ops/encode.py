@@ -1,79 +1,110 @@
-"""Systematic triangular encode of packed words: (B, k, W) -> (B, n, W).
+"""Systematic triangular encode of packed symbols: (B, k, W) -> (B, n, W).
 
 Counterpart of ``ldpc_erasure_codes_tpu/ops/encode.py::encode_packed``
 (:57-137) and of the TPU kernel ``ops/pallas_encode.py::encode_packed_vmem``
 (:223-379), which compute the same codewords. :func:`encode_packed` launches
 the CUDA kernel ``csrc/encode.cu`` for CUDA tensors and runs
-:func:`encode_packed_reference` for CPU tensors. Binary codes only.
+:func:`encode_packed_reference` for CPU tensors.
+
+Binary codes take int32 words. GF(256) codes take uint8 byte symbols
+(W % 4 == 0), viewed as int32 words of four bytes for the arithmetic, and
+parity row i is ``dinv_i * (sum src_val * src + sum par_val * parity_j)``
+(ErasureCodes_NonBinaryLDPCSim.m:172-182), the function of
+``encode_packed_vmem``'s GF(256) branch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 
 
-def _check(arrays: CodeArrays, source: torch.Tensor, gf_order: int) -> None:
-    if gf_order != 2:
-        raise NotImplementedError(f"gf_order={gf_order}: only binary codes are ported")
-    if source.dtype != torch.int32:
-        raise TypeError(f"source must be torch.int32 words, got {source.dtype}")
+def _check(arrays: CodeArrays, source: torch.Tensor, gf_order: int) -> torch.Tensor:
+    """Validate; returns the int32 word view of ``source``."""
+    if gf_order not in (2, 256):
+        raise ValueError(f"gf_order must be 2 or 256, got {gf_order}")
     if source.dim() != 3 or source.shape[2] < 1:
         raise ValueError(f"source must be (B, k, W) with W >= 1, got {tuple(source.shape)}")
     if source.device != arrays.device:
         raise ValueError(f"source on {source.device}, code tables on {arrays.device}")
+    if gf_order == 256:
+        return as_words(source, "source")
+    if source.dtype != torch.int32:
+        raise TypeError(f"source must be torch.int32 words, got {source.dtype}")
     if not source.is_contiguous():
         raise ValueError("source must be contiguous")
+    return source
 
 
-def encode_packed_reference(arrays: CodeArrays, source: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch encode, as encode.py:111-137: a gather-XOR over each
+def _bytes_out(words: torch.Tensor, gf_order: int) -> torch.Tensor:
+    return words.view(torch.uint8) if gf_order == 256 else words
+
+
+def encode_packed_reference(
+    arrays: CodeArrays, source: torch.Tensor, *, gf_order: int = 2
+) -> torch.Tensor:
+    """Plain PyTorch encode, as encode.py:111-137: a gather-MAC over each
     parity row's source neighbours, then the back-substitution over parity
-    rows in order."""
-    _check(arrays, source, 2)
-    b, k, w = source.shape
+    rows in order (multiplies by coefficients only for GF(256))."""
+    words = _check(arrays, source, gf_order)
+    nb = gf_order == 256
+    b, k, w = words.shape
     m = arrays.m
-    src_p = torch.cat([source, source.new_zeros(b, 1, w)], dim=1)  # pad col k reads zero
+    src_p = torch.cat([words, words.new_zeros(b, 1, w)], dim=1)  # pad col k reads zero
     src_idx = arrays.enc_src_idx.long()
-    t = source.new_zeros(b, m, w)
+    t = words.new_zeros(b, m, w)
     for s in range(src_idx.shape[1]):
-        t ^= src_p[:, src_idx[:, s], :]
-    parity = source.new_zeros(b, m, w)
+        term = src_p[:, src_idx[:, s], :]
+        t ^= gf_mul_packed(term, arrays.enc_src_val[:, s, None]) if nb else term
+    parity = words.new_zeros(b, m, w)
+    par_val = arrays.enc_par_val.tolist()
+    dinv = arrays.enc_diag_inv.tolist()
     for i, row in enumerate(arrays.enc_par_idx.tolist()):
         acc = t[:, i]
-        for p in row:
+        for p, c in zip(row, par_val[i]):
             if p < m:
-                acc = acc ^ parity[:, p]
-        parity[:, i] = acc
-    return torch.cat([source, parity], dim=1)
+                acc = acc ^ (gf_mul_packed(parity[:, p], c) if nb else parity[:, p])
+        parity[:, i] = gf_mul_packed(acc, dinv[i]) if nb else acc
+    return _bytes_out(torch.cat([words, parity], dim=1), gf_order)
 
 
 def encode_packed(
     arrays: CodeArrays, source: torch.Tensor, *, gf_order: int = 2
 ) -> torch.Tensor:
-    """Systematic encode of ``source`` (B, k, W) int32 words -> (B, n, W).
+    """Systematic encode of ``source`` -> (B, n, W).
 
-    CPU tensors take :func:`encode_packed_reference`; CUDA tensors launch
-    the kernel (or raise). ``encode_packed.launches`` counts kernel launches.
+    ``source`` is (B, k, W) int32 words for ``gf_order=2`` and (B, k, W)
+    uint8 bytes (W % 4 == 0) for ``gf_order=256``; the codewords come back
+    in the same type. CPU tensors take :func:`encode_packed_reference`;
+    CUDA tensors launch the kernel (or raise). ``encode_packed.launches``
+    counts binary launches, ``encode_packed.launches_gf256`` GF(256) ones.
     """
-    _check(arrays, source, gf_order)
-    if source.device.type == "cpu":
-        return encode_packed_reference(arrays, source)
-    if source.device.type != "cuda":
-        raise ValueError(f"unsupported device {source.device}")
-    b, k, w = source.shape
+    words = _check(arrays, source, gf_order)
+    if words.device.type == "cpu":
+        return encode_packed_reference(arrays, source, gf_order=gf_order)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    b, k, w = words.shape
     m, pmax = arrays.enc_par_idx.shape
-    out = torch.empty((b, k + m, w), dtype=torch.int32, device=source.device)
+    nb = gf_order == 256
+    out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
     rc = _build.library().ldpc_encode_launch(
-        source.data_ptr(), arrays.enc_src_idx.data_ptr(), arrays.enc_par_idx.data_ptr(),
-        out.data_ptr(), b, k, m, w, arrays.enc_src_idx.shape[1], pmax,
-        torch.cuda.current_stream(source.device).cuda_stream,
+        words.data_ptr(), arrays.enc_src_idx.data_ptr(), arrays.enc_par_idx.data_ptr(),
+        arrays.enc_src_val.data_ptr(), arrays.enc_par_val.data_ptr(),
+        arrays.enc_diag_inv.data_ptr(), out.data_ptr(), b, k, m, w,
+        arrays.enc_src_idx.shape[1], pmax, int(nb),
+        torch.cuda.current_stream(words.device).cuda_stream,
     )
     _build.check(rc, "ldpc_encode_launch")
-    encode_packed.launches += 1
-    return out
+    if nb:
+        encode_packed.launches_gf256 += 1
+    else:
+        encode_packed.launches += 1
+    return _bytes_out(out, gf_order)
 
 
 encode_packed.launches = 0
+encode_packed.launches_gf256 = 0

@@ -1,7 +1,8 @@
 """Hybrid MPA + ML decoder: peel first, Gauss-Jordan the residual.
 
 Counterpart of ``ldpc_erasure_codes_tpu/ops/hybrid.py``: ``hybrid_decode``
-(:42-222) and ``hybrid_decode_escalated`` (:225-308), binary wide frames.
+(:42-222) and ``hybrid_decode_escalated`` (:225-308), wide binary frames
+(int32 words) and GF(256) frames (uint8 bytes).
 Peeling removes the bulk of the erasures; the rare residual stopping set is
 solved exactly by the packed GE (the reference's
 Matlab/My_LDPC_HybridML_Erasure_Decoder.m:3-91). The hybrid beats the
@@ -15,7 +16,7 @@ import torch
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, residual_order
-from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed, ge_solve_wide_nb
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 
 
@@ -61,12 +62,14 @@ def hybrid_decode(
     failed). The knobs are the JAX function's; the port keeps the flat
     layout, so:
 
-    * ``tiled=True`` with ``ge_subbatch`` > 0 takes the flat counterpart of
-      JAX's tile-direct branch (the production one): the solved rows
-      (``ge_solve_packed(return_rows=True)``) are written straight into the
-      decoded frames. Otherwise the residual goes through
-      :func:`.compact.compact_ge_solve` (``ge_subbatch`` > 0) or
-      :func:`.ge.ge_solve_packed` on the whole batch, as JAX's ``ge_flat``.
+    * ``tiled=True`` with ``ge_subbatch`` > 0 on a binary code takes the
+      flat counterpart of JAX's tile-direct branch (the production one):
+      the solved rows (``ge_solve_packed(return_rows=True)``) are written
+      straight into the decoded frames. Otherwise, and for GF(256) always
+      (hybrid.py:158-162 gates that branch on ``gf_order == 2``), the
+      residual goes through :func:`.compact.compact_ge_solve`
+      (``ge_subbatch`` > 0) or the solver on the whole batch
+      (``ge_solve_packed``; ``ge_solve`` for GF(256)), as JAX's ``ge_flat``.
     * ``static_topo=True`` takes the row branch's syndrome through the code's
       topology (``csrc/synd.cu``) instead of the dense product.
 
@@ -78,9 +81,8 @@ def hybrid_decode(
     (residual wider than ``emax``, or spilled past the ``ge_subbatch``
     bucket), the frames :func:`hybrid_decode_escalated` re-dispatches.
     """
-    if gf_order != 2:
-        raise NotImplementedError(f"gf_order={gf_order}: only binary codes are ported")
-    values, erased, iters = peel_decode(arrays, values, erased, max_iters=peel_iters)
+    values, erased, iters = peel_decode(
+        arrays, values, erased, max_iters=peel_iters, gf_order=gf_order)
     b, n = erased.shape
     if not bool(erased.any()):
         z = torch.zeros((b,), dtype=torch.bool, device=erased.device)
@@ -89,14 +91,16 @@ def hybrid_decode(
         overflow = erased.sum(dim=1) > min(emax, n)
         if ge_subbatch > 0:
             overflow |= residual_order(erased, ge_subbatch)[2]
-    if tiled and ge_subbatch > 0:
+    if tiled and ge_subbatch > 0 and gf_order == 2:
         values, erased, failed = _ge_rows(
             arrays, values, erased, emax=emax, ge_subbatch=ge_subbatch, static_topo=static_topo
         )
     elif ge_subbatch > 0:
         values, erased, failed = compact_ge_solve(
-            arrays, values, erased, emax=emax, f_max=ge_subbatch
+            arrays, values, erased, emax=emax, f_max=ge_subbatch, gf_order=gf_order
         )
+    elif gf_order == 256:
+        values, erased, failed = ge_solve(arrays, values, erased, emax=emax, gf_order=256)
     else:
         values, erased, failed = ge_solve_packed(arrays, values, erased, emax=emax)
     if return_overflow:
@@ -123,6 +127,8 @@ def hybrid_decode_escalated(
     (hybrid.py:281-307): ``emax2`` = the largest residual rounded up to a
     multiple of 128, at most n; ``b2`` = a power of two >= 8 frames, padded
     with the first candidate; erased slots re-zeroed before the dispatch.
+    The second dispatch is ``ge_solve_packed``, or ``ge_solve_wide_nb`` for
+    GF(256) (hybrid.py:294-295).
 
     Returns (values, erased, iters, failed, n_escalated), n_escalated the
     frames that entered the second dispatch. Syncs with the host.
@@ -144,7 +150,10 @@ def hybrid_decode_escalated(
     sel = torch.cat([cand, cand[:1].expand(b2 - ncand)])
     e_sub = erased[sel]
     v_sub = values[sel].masked_fill_(e_sub[:, :, None], 0)
-    v2, e2, f2 = ge_solve_packed(arrays, v_sub, e_sub, emax=emax2)
+    if gf_order == 256:
+        v2, e2, f2 = ge_solve_wide_nb(arrays, v_sub, e_sub, emax=emax2)
+    else:
+        v2, e2, f2 = ge_solve_packed(arrays, v_sub, e_sub, emax=emax2)
     values[cand] = v2[:ncand]
     erased[cand] = e2[:ncand]
     failed[cand] = f2[:ncand]

@@ -1,5 +1,5 @@
-"""GF(2) products of packed 0/1 matrices with word rows (the binary part of
-``ldpc_erasure_codes_tpu/ops/pallas_nbmm.py``).
+"""GF(2) and GF(256) products of matrices with wide rows
+(``ldpc_erasure_codes_tpu/ops/pallas_nbmm.py``).
 
 Counterparts of the TPU kernels ``f2_matvec_wide`` (:342-404),
 ``f2_matmul_batched`` (:407-462) and ``f2_apply_scatter`` (:465-553), which
@@ -12,12 +12,23 @@ A GF(2) product acts on each bit position alone, so the bits equal the
 byte-plane MXU form's. All three launch one CUDA body, ``csrc/f2mm.cu``,
 for CUDA tensors and run the plain versions for CPU tensors. Bits of a
 matrix row at or past K are ignored.
+
+The GF(256) counterparts of the TPU kernels ``gf_matvec_wide`` (:132-213)
+and ``gf_apply_scatter`` (:556-651) contract an int8 bit image of a byte
+matrix on the MXU. Here the matrix stays bytes and the payloads are uint8
+(B, K, W) bytes (W % 4 == 0), multiplied four bytes to an int32 word:
+``gf_matvec_wide`` walks each output row's list of nonzero (row, coefficient)
+pairs (:func:`matrix_rows`; the Vlist is that list for H), which serves the
+sparse LDPC H and the dense RS H alike, and ``gf_apply_scatter`` applies a
+per-frame byte matrix and places its rows. Both launch ``csrc/gfmm.cu`` for
+CUDA tensors and run the plain versions for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops.arrays import pack_bits, unpack_bits
 
@@ -178,3 +189,149 @@ def f2_apply_scatter(
 f2_matvec_wide.launches = 0
 f2_matmul_batched.launches = 0
 f2_apply_scatter.launches = 0
+
+
+def matrix_rows(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nonzero lists of the columns of an (n, m) uint8 GF(256) matrix M,
+    for :func:`gf_matvec_wide`: (idx (m, d) int32, coef (m, d) uint8), row
+    i listing the j with M[j, i] != 0 in ascending order, padded with
+    idx = n and coef 0 to the widest column d. Built once per matrix."""
+    if mat.dtype != torch.uint8 or mat.dim() != 2:
+        raise ValueError(f"matrix must be (n, m) uint8, got {tuple(mat.shape)} {mat.dtype}")
+    n = mat.shape[0]
+    nz = mat.t() != 0  # (m, n)
+    d = max(1, int(nz.sum(dim=1).max())) if nz.numel() else 1
+    order = torch.argsort((~nz).to(torch.uint8), dim=1, stable=True)[:, :d]  # nonzeros first
+    keep = nz.gather(1, order)
+    idx = torch.where(keep, order, n).to(torch.int32)
+    coef = torch.where(keep, mat.t().gather(1, order), 0).to(torch.uint8)
+    return idx.contiguous(), coef.contiguous()
+
+
+def _check_rows(values, idx, coef) -> torch.Tensor:
+    words = as_words(values, "values")
+    if words.dim() != 3:
+        raise ValueError(f"values must be (B, n, W) bytes, got {tuple(values.shape)}")
+    if idx.dtype != torch.int32 or coef.dtype != torch.uint8 or idx.dim() != 2:
+        raise ValueError(f"idx must be (m, d) int32 and coef (m, d) uint8, got {idx.dtype}, "
+                         f"{coef.dtype}")
+    if idx.shape != coef.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} and coef {tuple(coef.shape)} differ")
+    if not (values.device == idx.device == coef.device):
+        raise ValueError("values, idx and coef must be on one device")
+    if not (idx.is_contiguous() and coef.is_contiguous()):
+        raise ValueError("idx and coef must be contiguous")
+    return words
+
+
+def gf_matvec_wide_reference(
+    values: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch product: a loop over the list slots, each a gather of
+    one row per output row and a packed multiply by its coefficients."""
+    words = _check_rows(values, idx, coef)
+    b, n, w = words.shape
+    vp = torch.cat([words, words.new_zeros(b, 1, w)], dim=1)  # index n reads zero
+    ix = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    out = words.new_zeros(b, idx.shape[0], w)
+    for s in range(idx.shape[1]):
+        out ^= gf_mul_packed(vp[:, ix[:, s], :], coef[:, s, None])
+    return out.view(torch.uint8)
+
+
+def gf_matvec_wide(values: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """rhs[b, i, :] = sum_s coef[i, s] * values[b, idx[i, s], :] over
+    GF(256): (B, n, W) uint8 -> (B, m, W) uint8, the "mw" layout.
+
+    (idx, coef) are the nonzero lists of the columns of the (n, m) matrix M
+    (:func:`matrix_rows`), so this is ``y . M`` of the TPU kernel; entries
+    with idx outside [0, n) or coef 0 add nothing. With the Vlist
+    (``vlist_idx``, ``vlist_val``) it is the syndrome H . y. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise).
+    ``gf_matvec_wide.launches`` counts kernel launches.
+    """
+    words = _check_rows(values, idx, coef)
+    if words.device.type == "cpu":
+        return gf_matvec_wide_reference(values, idx, coef)
+    b, n, w = words.shape
+    m, d = idx.shape
+    out = torch.empty((b, m, w), dtype=torch.int32, device=words.device)
+    rc = _build.library().ldpc_gf_matvec_launch(
+        words.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), b, n, m, d, w,
+        _stream(words),
+    )
+    _build.check(rc, "ldpc_gf_matvec_launch")
+    gf_matvec_wide.launches += 1
+    return out.view(torch.uint8)
+
+
+def _check_gf_apply(values, rhs, mats, idx) -> tuple[torch.Tensor, torch.Tensor]:
+    words = as_words(values, "values")
+    rw = as_words(rhs, "rhs")
+    if words.dim() != 3 or rw.dim() != 3:
+        raise ValueError(f"values and rhs must be (B, rows, W) bytes, got "
+                         f"{tuple(values.shape)}, {tuple(rhs.shape)}")
+    b, _, w = words.shape
+    if rw.shape[0] != b or rw.shape[2] != w:
+        raise ValueError(f"rhs {tuple(rhs.shape)} does not match values {tuple(values.shape)}")
+    if mats.dtype != torch.uint8 or tuple(mats.shape[::2]) != (b, rw.shape[1]) or mats.dim() != 3:
+        raise ValueError(f"mats must be (B, E, m) uint8 with m = {rw.shape[1]}, got "
+                         f"{tuple(mats.shape)} {mats.dtype}")
+    if idx.dtype != torch.int32 or tuple(idx.shape) != (b, mats.shape[1]):
+        raise ValueError(f"idx must be ({b}, {mats.shape[1]}) int32, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    if not (values.device == rhs.device == mats.device == idx.device):
+        raise ValueError("values, rhs, mats and idx must be on one device")
+    if not (mats.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("mats and idx must be contiguous")
+    return words, rw
+
+
+def gf_apply_scatter_reference(
+    values: torch.Tensor, rhs: torch.Tensor, mats: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch apply: x = T_b . rhs_b by a loop over T's columns, then
+    the rows XORed into their targets."""
+    words, rw = _check_gf_apply(values, rhs, mats, idx)
+    b, n, w = words.shape
+    x = words.new_zeros(b, mats.shape[1], w)
+    for i in range(rw.shape[1]):
+        x ^= gf_mul_packed(rw[:, i : i + 1, :], mats[:, :, i : i + 1])
+    out = words.clone()
+    keep = (idx >= 0) & (idx < n)
+    frames = torch.arange(b, device=words.device)[:, None].expand_as(idx)
+    f, t = frames[keep], idx[keep].long()
+    out[f, t] ^= x[keep]
+    return out.view(torch.uint8)
+
+
+def gf_apply_scatter(
+    values: torch.Tensor, rhs: torch.Tensor, mats: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """``values`` with row e of T_b . rhs_b over GF(256) XORed into symbol
+    idx[b, e]: the solved rows placed in the erased slots (which hold zero).
+
+    values (B, n, W) uint8, rhs (B, m, W) uint8, mats (B, E, m) uint8 (T),
+    idx (B, E) int32; W % 4 == 0. Targets outside [0, n) are dropped (the
+    TPU kernel's dump rows); targets in range must be distinct within a
+    frame. Returns a new (B, n, W) uint8 tensor. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise).
+    ``gf_apply_scatter.launches`` counts kernel launches.
+    """
+    words, rw = _check_gf_apply(values, rhs, mats, idx)
+    if words.device.type == "cpu":
+        return gf_apply_scatter_reference(values, rhs, mats, idx)
+    b, n, w = words.shape
+    _, e, m = mats.shape
+    out = words.clone()
+    rc = _build.library().ldpc_gf_apply_launch(
+        rw.data_ptr(), mats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, m, e, w, n,
+        _stream(words),
+    )
+    _build.check(rc, "ldpc_gf_apply_launch")
+    gf_apply_scatter.launches += 1
+    return out.view(torch.uint8)
+
+
+gf_matvec_wide.launches = 0
+gf_apply_scatter.launches = 0

@@ -1,8 +1,10 @@
-"""Bit-exact checks of binary decodes, on the device that holds them.
+"""Bit-exact checks of decodes, on the device that holds them.
 
 ``check_peel`` is the counterpart of
-``ldpc_erasure_codes_tpu/utils/verify.py::_check_peel`` (:86-119) and
-``check_hybrid`` the contract of ``verify_hybrid`` (:223-297).
+``ldpc_erasure_codes_tpu/utils/verify.py::_check_peel`` (:86-119),
+``check_nb`` the contract of ``verify_nb`` (:154-220), ``check_hybrid``
+that of ``verify_hybrid`` (:223-297) and ``check_rs`` that of ``verify_rs``
+(:300-347).
 
 For the peel, every resolved slot must hold the codeword, every slot still
 erased must hold zero, and no slot may be erased that the channel did not
@@ -33,8 +35,11 @@ def check_peel(
     max_iters: int,
     early_stop_k: int | None,
     n_ref: int = 8,
+    gf_order: int = 2,
 ) -> dict:
-    """Returns the mismatch counts and ``ok`` (all zero)."""
+    """Returns the mismatch counts and ``ok`` (all zero). Binary frames are
+    int32 words, GF(256) frames uint8 bytes; the sample decodes one word
+    (four bytes) per symbol."""
     resolved = ~erased[:, :, None]
     value_bad = int(((values != codewords) & resolved).sum())
     zero_bad = int(((values != 0) & ~resolved).sum())
@@ -42,10 +47,11 @@ def check_peel(
     nr = min(n_ref, codewords.shape[0])
     _, ref_er, ref_iters = peel_decode_reference(
         arrays,
-        codewords[:nr, :, :1].contiguous(),
+        codewords[:nr, :, : (4 if gf_order == 256 else 1)].contiguous(),
         channel_mask[:nr].contiguous(),
         max_iters=max_iters,
         early_stop_k=early_stop_k,
+        gf_order=gf_order,
     )
     mask_bad = int((ref_er != erased[:nr]).sum())
     iter_bad = int((ref_iters != iters[:nr]).sum())
@@ -58,6 +64,54 @@ def check_peel(
         "ref_frames": nr,
         "ref_mask_mismatches": mask_bad,
         "ref_iter_mismatches": iter_bad,
+    }
+
+
+def check_nb(
+    arrays: CodeArrays,
+    codewords: torch.Tensor,
+    channel_mask: torch.Tensor,
+    values: torch.Tensor,
+    erased: torch.Tensor,
+    iters: torch.Tensor,
+    *,
+    max_iters: int,
+    early_stop_k: int | None,
+    n_ref: int = 8,
+) -> dict:
+    """:func:`check_peel` for a GF(256) peel of uint8 byte frames: resolved
+    bytes exact, erased slots zero, and the sample's mask and iteration
+    counts equal to the plain GF(256) decode's (``verify_nb``)."""
+    return check_peel(arrays, codewords, channel_mask, values, erased, iters,
+                      max_iters=max_iters, early_stop_k=early_stop_k, n_ref=n_ref,
+                      gf_order=256)
+
+
+def check_rs(
+    codewords: torch.Tensor,
+    channel_mask: torch.Tensor,
+    values: torch.Tensor,
+    erased: torch.Tensor,
+    failed: torch.Tensor,
+    *,
+    n_minus_k: int,
+) -> dict:
+    """The RS decode's contract (``verify_rs``): a frame fails exactly when
+    it lost more than n - k symbols (the MDS bound; RS has no other rank
+    deficiency), every other frame equals its codeword byte for byte and
+    keeps no erasure."""
+    want_fail = channel_mask.sum(dim=1) > n_minus_k
+    ok_f = ~failed
+    flag_bad = int((failed != want_fail).sum())
+    value_bad = int(((values != codewords) & ok_f[:, None, None]).sum())
+    resid_bad = int((erased & ok_f[:, None]).sum())
+    return {
+        "ok": flag_bad == value_bad == resid_bad == 0,
+        "frames": int(codewords.shape[0]),
+        "failed_frames": int(failed.sum()),
+        "failure_flag_mismatches": flag_bad,
+        "value_mismatches": value_bad,
+        "residual_on_solved": resid_bad,
     }
 
 
@@ -89,17 +143,27 @@ def check_hybrid(
     failed: torch.Tensor,
     *,
     peel_iters: int,
+    gf_order: int = 2,
+    require_ge: bool = True,
 ) -> dict:
     """The hybrid decode's contract: every frame that did not fail equals
-    its codeword bit for bit and keeps no residual; the GE tier had work
-    (``ge_frames``, the frames a ``peel_iters``-sweep peel leaves stuck, by
-    :func:`replay_residual`, > 0); the failed count is reported."""
+    its codeword bit for bit and keeps no residual; with ``require_ge`` the
+    GE tier had work (``ge_frames``, the frames a ``peel_iters``-sweep peel
+    leaves stuck, by :func:`replay_residual`, > 0; the mask evolves alike
+    over both fields), which a point where the GE fires only on a stuck
+    frame cannot promise; the failed count is reported. Frames are int32
+    words for ``gf_order=2`` and uint8 bytes for ``gf_order=256``."""
+    want = torch.uint8 if gf_order == 256 else torch.int32
+    if values.dtype != want or codewords.dtype != want:
+        raise TypeError(f"gf_order={gf_order} frames are {want}, got {values.dtype}, "
+                        f"{codewords.dtype}")
     ok_f = ~failed
     value_bad = int(((values != codewords) & ok_f[:, None, None]).sum())
     resid_bad = int((erased & ok_f[:, None]).sum())
     ge_frames = int(replay_residual(arrays, channel_mask, peel_iters).sum())
     return {
-        "ok": value_bad == 0 and resid_bad == 0 and bool(ok_f.any()) and ge_frames > 0,
+        "ok": (value_bad == 0 and resid_bad == 0 and bool(ok_f.any())
+               and (ge_frames > 0 or not require_ge)),
         "frames": int(codewords.shape[0]),
         "ge_frames": ge_frames,
         "failed_frames": int(failed.sum()),

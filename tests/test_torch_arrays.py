@@ -71,10 +71,13 @@ def test_code_arrays_from_numpy_round_trip():
 
 
 def test_get_code_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        get_code("n2040_k1530_gf256")
+    # The GF(256) lifts are ported (tests/test_torch_nb.py); unknown codes
+    # and their lifts are refused.
+    assert get_code("n2040_k1530_gf256").gf_order == 256
     with pytest.raises(KeyError):
         get_code("n7_k3")
+    with pytest.raises(KeyError):
+        get_code("n7_k3_gf256")
 
 
 def test_tables_are_validated():

@@ -18,7 +18,7 @@ from ldpc_erasure_codes_tpu_torch.ops import elim, nbmm
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve_packed
-from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
+from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from torch_port_cases import cuda_device, random_words, to_torch  # noqa: F401 (fixture)
@@ -235,3 +235,210 @@ def test_hybrid_cuda_matches_cpu(cuda_device, per, peel_iters, tiled):
     torch.testing.assert_close(got[0].cpu()[ok], want[0][ok], rtol=0, atol=0)
     torch.testing.assert_close(got[0].cpu()[ok], cw.cpu()[ok], rtol=0, atol=0)
     _equal([x.cpu() for x in got[1:]], want[1:])
+
+
+# GF(256): byte frames, four bytes to a word in the kernels.
+
+
+def _misaligned_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous uint8 copy of ``t`` whose data pointer is 4 bytes past a
+    16-byte boundary (still a whole word: the kernels' one-word path)."""
+    flat = torch.empty(t.numel() + 4, dtype=torch.uint8, device=t.device)
+    out = flat[4:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+def _random_bytes(rng, shape, dev):
+    return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True)])
+def test_encode_nb_kernel_matches_plain(cuda_device, wb, aligned):
+    code = get_code("n2040_k1530_gf256")
+    arrays = code_arrays(code, cuda_device)
+    src = _random_bytes(np.random.default_rng(4), (8, code.k, wb), cuda_device)
+    if not aligned:
+        src = _misaligned_bytes(src)
+    before = (encode_packed.launches, encode_packed.launches_gf256)
+    got = encode_packed(arrays, src, gf_order=256)
+    torch.cuda.synchronize()
+    assert (encode_packed.launches, encode_packed.launches_gf256) == (before[0], before[1] + 1)
+    assert got.dtype == torch.uint8
+    torch.testing.assert_close(got, encode_packed_reference(arrays, src, gf_order=256),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (20, True)])
+def test_peel_nb_kernel_matches_plain(cuda_device, early_stop, wb, aligned):
+    code = get_code("n2040_k1530_gf256")
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(8)
+    cw = encode_packed(arrays, _random_bytes(rng, (16, code.k, wb), cuda_device), gf_order=256)
+    if not aligned:
+        cw = _misaligned_bytes(cw)
+    mask = torch.from_numpy(rng.random((16, code.n)) < 0.1406).to(cuda_device)
+    kw = dict(max_iters=50, early_stop_k=code.k if early_stop else None, gf_order=256)
+    before = (peel_decode.launches, peel_decode.launches_gf256)
+    got = peel_decode(arrays, cw, mask, **kw)
+    torch.cuda.synchronize()
+    assert (peel_decode.launches, peel_decode.launches_gf256) == (before[0], before[1] + 1)
+    _equal(got, peel_decode_reference(arrays, cw, mask, **kw))
+    assert torch.equal(got[0][~got[1]], cw[~got[1]])
+
+
+def _random_nb_cube(rng, b, m, c, emax, zero_pad_columns):
+    """Sparse random GF(256) byte systems: a third of the frames have zero
+    rows past m - 4, two frames are all zero (they fail); with
+    ``zero_pad_columns`` the A bytes past nreal are zero, as the solver
+    makes them."""
+    by = rng.integers(0, 256, (b, m, 4 * c), dtype=np.uint8)
+    by[rng.random((b, m, 4 * c)) < 0.6] = 0
+    by[: b // 3, m - 4 :] = 0
+    by[-2:] = 0
+    nreal = rng.integers(0, emax + 1, b).astype(np.int32)
+    if zero_pad_columns:
+        cols = np.arange(4 * c)
+        pad = (cols[None, :] >= nreal[:, None]) & (cols[None, :] < emax)  # (B, 4C)
+        by[np.broadcast_to(pad[:, None, :], by.shape)] = 0
+    return torch.from_numpy(by.view(np.int32)), torch.from_numpy(nreal)
+
+
+@pytest.mark.parametrize("a_words", [False, True], ids=["a_words_0", "a_words_wa"])
+@pytest.mark.parametrize("b,m,c,emax,in_smem", [
+    (64, 63, 32, 63, True), (64, 63, 32, 63, False), (8, 510, 160, 128, False),
+    (3, 40, 3, 9, True), (3, 40, 3, 9, False),
+])
+def test_gf256_eliminate_kernel_matches_plain(cuda_device, a_words, b, m, c, emax, in_smem):
+    """Both cube modes, with and without the a_words cuts, at the RS(255,192)
+    cube (63 x 32 words, 8 KB) and the (2040,1530) escalation cube (510 x
+    160 words, 326 KB, which only the device-memory mode can hold)."""
+    rng = np.random.default_rng(m + c)
+    cube, nreal = _random_nb_cube(rng, b, m, c, emax, zero_pad_columns=a_words)
+    cube, nreal = cube.to(cuda_device), nreal.to(cuda_device)
+    aw = -(-emax // 4) if a_words else 0
+    fits = elim.fits_shared_memory_gf256(m, c)
+    assert fits == (m * c < 20000)
+    before = elim.gf256_eliminate.launches
+    got = elim.launch_kernel_gf256(cube, nreal, emax, aw, in_smem)
+    torch.cuda.synchronize()
+    assert elim.gf256_eliminate.launches == before + 1
+    want = elim.gf256_eliminate_reference(cube, nreal, emax=emax, a_words=aw)
+    _equal(got, want)
+    if b >= 8:
+        assert want[2].any() and not want[2].all()
+    if not in_smem and fits:  # the wrapper picks shared memory here
+        _equal(elim.gf256_eliminate(cube, nreal, emax=emax, a_words=aw), want)
+
+
+@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True)])
+@pytest.mark.parametrize("matrix", ["rs_dense", "ldpc_vlist", "random_sparse"])
+def test_gf_matvec_kernel_matches_plain(cuda_device, wb, aligned, matrix):
+    """The RS H (255 x 63, dense: rows staged in shared memory), the
+    (2040,1530) GF(256) Vlist (2040 rows: read from device memory) and a
+    sparse random matrix with zero and out-of-range list entries."""
+    from ldpc_erasure_codes_tpu_torch.rs import rs_code
+
+    rng = np.random.default_rng(wb + len(matrix))
+    if matrix == "random_sparse":
+        n, m = 300, 40
+        mat = rng.integers(0, 256, (n, m), dtype=np.uint8)
+        mat[rng.random((n, m)) < 0.9] = 0
+        idx, coef = nbmm.matrix_rows(torch.from_numpy(mat).to(cuda_device))
+        idx[0, -1] = -1
+    else:
+        arrays = code_arrays(rs_code(255, 192) if matrix == "rs_dense"
+                             else get_code("n2040_k1530_gf256"), cuda_device)
+        n, idx, coef = arrays.n, arrays.vlist_idx, arrays.vlist_val
+    values = _random_bytes(rng, (4, n, wb), cuda_device)
+    if not aligned:
+        values = _misaligned_bytes(values)
+    before = nbmm.gf_matvec_wide.launches
+    got = nbmm.gf_matvec_wide(values, idx, coef)
+    torch.cuda.synchronize()
+    assert nbmm.gf_matvec_wide.launches == before + 1
+    torch.testing.assert_close(got, nbmm.gf_matvec_wide_reference(values, idx, coef),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True)])
+@pytest.mark.parametrize("m,e,n", [(63, 63, 255), (510, 128, 2040), (9, 5, 40)])
+def test_gf_apply_kernel_matches_plain(cuda_device, wb, aligned, m, e, n):
+    """The RS transform (63 x 63) and the escalation's (128 x 510): rows of
+    T . rhs placed at distinct targets, dump targets dropped."""
+    rng = np.random.default_rng(m + wb)
+    b = 4
+    rhs = _random_bytes(rng, (b, m, wb), cuda_device)
+    mats = _random_bytes(rng, (b, e, m), cuda_device)
+    values = _random_bytes(rng, (b, n, wb), cuda_device)
+    if not aligned:
+        rhs, values = _misaligned_bytes(rhs), _misaligned_bytes(values)
+    idx = np.stack([rng.permutation(n + 8)[:e] for _ in range(b)]).astype(np.int32)
+    idx[0, :3] = [-1, n, n + 100]  # dropped targets
+    idx = torch.from_numpy(idx).to(cuda_device)
+    before = nbmm.gf_apply_scatter.launches
+    got = nbmm.gf_apply_scatter(values, rhs, mats, idx)
+    torch.cuda.synchronize()
+    assert nbmm.gf_apply_scatter.launches == before + 1
+    torch.testing.assert_close(got, nbmm.gf_apply_scatter_reference(values, rhs, mats, idx),
+                               rtol=0, atol=0)
+
+
+def test_rs_decode_wide_cuda_matches_cpu(cuda_device):
+    """RS(255,192) with 1 .. 64 erasures: the three kernels' path equals the
+    plain path and the MDS contract."""
+    from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_decode_wide, rs_encode
+    from ldpc_erasure_codes_tpu_torch.utils.verify import check_rs
+
+    code = rs_code(255, 192)
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(3)
+    b = 16
+    cw = rs_encode(arrays, _random_bytes(rng, (b, code.k, 64), cuda_device))
+    mask = np.zeros((b, code.n), bool)
+    for f, e in enumerate(np.linspace(1, 64, b).astype(int)):
+        mask[f, rng.choice(code.n, e, replace=False)] = True
+    mask = torch.from_numpy(mask).to(cuda_device)
+    recv = cw.masked_fill(mask[:, :, None], 0)
+    counts = [elim.gf256_eliminate.launches, nbmm.gf_matvec_wide.launches,
+              nbmm.gf_apply_scatter.launches]
+    got = rs_decode_wide(arrays, recv, mask)
+    torch.cuda.synchronize()
+    assert [elim.gf256_eliminate.launches, nbmm.gf_matvec_wide.launches,
+            nbmm.gf_apply_scatter.launches] == [c + 1 for c in counts]
+    report = check_rs(cw, mask, *got, n_minus_k=code.n - code.k)
+    assert report["ok"] and report["failed_frames"] == 1, report
+    want = rs_decode_wide(code_arrays(code, "cpu"), recv.cpu(), mask.cpu())
+    ok = ~want[2]
+    torch.testing.assert_close(got[0].cpu()[ok], want[0][ok], rtol=0, atol=0)
+    _equal([x.cpu() for x in got[1:]], want[1:])
+
+
+@pytest.mark.parametrize("escalated", [False, True])
+def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
+    """The GF(256) hybrid: the compacted byte GE (production) and, with
+    buckets too small, the escalation through ge_solve_wide_nb with its
+    cube in device memory."""
+    code = get_code("n2040_k1530_gf256")
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(21)
+    cw = encode_packed(arrays, _random_bytes(rng, (16, code.k, 16), cuda_device), gf_order=256)
+    mask = torch.from_numpy(rng.random((16, code.n)) < 0.2031).to(cuda_device)
+    kw = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=4)
+    cpu = code_arrays(code, "cpu")
+    if escalated:
+        before = elim.gf256_eliminate.launches
+        got = hybrid_decode_escalated(arrays, cw, mask, **kw)
+        want = hybrid_decode_escalated(cpu, cw.cpu(), mask.cpu(), **kw)
+        assert got[4] == want[4] > 0 and elim.gf256_eliminate.launches == before + 1
+    else:
+        got = hybrid_decode(arrays, cw, mask, tiled=True, **kw)
+        want = hybrid_decode(cpu, cw.cpu(), mask.cpu(), tiled=True, **kw)
+    torch.cuda.synchronize()
+    ok = ~want[3]
+    assert ok.any()
+    torch.testing.assert_close(got[0].cpu()[ok], want[0][ok], rtol=0, atol=0)
+    torch.testing.assert_close(got[0].cpu()[ok], cw.cpu()[ok], rtol=0, atol=0)
+    _equal([x.cpu() for x in got[1:4]], want[1:4])

@@ -71,6 +71,8 @@ def test_wrapper_validates_and_counts_only_kernel_launches():
         encode_packed(arrays, src[:, :, 0])
     with pytest.raises(ValueError):
         encode_packed(arrays, src.transpose(1, 2).contiguous().transpose(1, 2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # GF(256) frames are uint8 bytes
         encode_packed(arrays, src, gf_order=256)
+    with pytest.raises(ValueError):
+        encode_packed(arrays, src, gf_order=16)
 

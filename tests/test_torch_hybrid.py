@@ -164,6 +164,8 @@ def test_check_hybrid_catches_each_fault(case2040):
     got = check_hybrid(arrays, cw, m, v, e, torch.ones_like(f), peel_iters=10)
     assert not got["ok"] and got["failed_frames"] == 16
     assert not check_hybrid(arrays, cw, torch.zeros_like(m), v, e, f, peel_iters=10)["ok"]
+    assert check_hybrid(arrays, cw, torch.zeros_like(m), v, e, f, peel_iters=10,
+                        require_ge=False)["ok"]
 
 
 def test_hybrid_path_on_cpu():
