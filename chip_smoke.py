@@ -50,7 +50,26 @@ Phases, each fatal on failure:
    systematic legs timed; the three GF(256) GE kernels launch on every
    decode;
 7. each GF(256) kernel's time against its plain version's: encode and peel
-   at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch.
+   at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch;
+8. the ``throughput`` command by peel schedule (``bench.ThroughputPath``,
+   ``utils/cli.py::make_throughput_step``): (2040,1530), B=2048, W=256, PER
+   .1406, first-k early stop, for each of "seq", "unrolled", "counted",
+   "grouped" and "jacobi"; counted and timed per schedule. On one fixed
+   batch the three research kernels (``csrc/peel_sched.cu``) are held
+   against their plain versions on the whole batch, "counted" and
+   "grouped" against the "seq" kernel, "jacobi" against the Jacobi decoder
+   on the first k (``check_schedule``); their GF(256) modes against the
+   plain versions at B=16, 1 KB. The CLI runs once as a subprocess;
+9. the FER simulation at the paper's Table-I point (2040,1530), PER .1875:
+   9a the CLI's pattern-only peel sweep (B=4096, 16 batches per call,
+   VALIDATION.md:9-13), 9b the pattern-only hybrid of the JAX CLI's ``plot``
+   (``run_fer_sweep``: 50 sweeps, emax 256, bucket B/8), both held to the
+   bands of the published FER, RS FER and mean iterations; at emax 256 the
+   hybrid's failures are frames whose residual outgrows the column bucket,
+   so 9b runs again at emax 512, where no frame escalates; 9c value
+   tracking at the FPGA shape (hybrid, W=256, B=2048, the flat handoff with
+   the masking fused in the peel kernel), counted, its FER and escalations
+   reported.
 
 Every kernel's entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and the
@@ -63,15 +82,19 @@ object with one entry per kernel; the last line is ``{"ok": true,
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
+import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from ldpc_erasure_codes_tpu_torch import bench
+from ldpc_erasure_codes_tpu_torch import bench, sim
 from ldpc_erasure_codes_tpu_torch.channel.erasure import iid_erasures
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import _build, elim
@@ -106,11 +129,21 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     gf_matvec_wide,
     gf_matvec_wide_reference,
 )
-from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.peel import SCHEDULES, peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi_reference
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode
+from ldpc_erasure_codes_tpu_torch.utils import cli
 from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
-from ldpc_erasure_codes_tpu_torch.utils.verify import check_hybrid, check_nb, check_peel, check_rs
+from ldpc_erasure_codes_tpu_torch.utils.verify import (
+    check_hybrid,
+    check_nb,
+    check_peel,
+    check_rs,
+    check_schedule,
+)
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
     "encode_packed": dict(
@@ -161,6 +194,18 @@ KERNELS = {
         source="ldpc_erasure_codes_tpu_torch/csrc/gfmm.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:556",
     ),
+    "peel_counted": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel_sched.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:586",
+    ),
+    "peel_grouped": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel_sched.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:1101",
+    ),
+    "peel_jacobi": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel_sched.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:377",
+    ),
 }
 # Where each kernel's launches are counted: (wrapper, attribute). The
 # encode and peel wrappers count their GF(256) mode apart.
@@ -177,7 +222,22 @@ COUNTERS = {
     "gf256_eliminate": (gf256_eliminate, "launches"),
     "gf_matvec_wide": (gf_matvec_wide, "launches"),
     "gf_apply_scatter": (gf_apply_scatter, "launches"),
+    "peel_counted": (peel_decode, "launches_counted"),
+    "peel_grouped": (peel_decode, "launches_grouped"),
+    "peel_jacobi": (peel_decode, "launches_jacobi"),
 }
+# The research schedules' kernel entries; their GF(256) modes are held to
+# the plain versions under the same entry.
+SCHED_KERNELS = {"counted": "peel_counted", "grouped": "peel_grouped", "jacobi": "peel_jacobi"}
+# Phase 9's bands at (2040,1530), PER .1875: VALIDATION.md:19 (peel FER
+# 1.95e-2, +-3 sigma; the paper's 2e-2, tex:207), the analytic RS(255,192)
+# per-window FER 7.34e-3, the Jacobi schedule's mean sweeps with first-k
+# stop (VALIDATION.md:34) and the hybrid's FER (VALIDATION.md:59, 4.72e-3).
+SIM_PER = 0.1875
+PEEL_FER = (1.44e-2, 2.46e-2)
+RS_FER = (6.3e-3, 8.4e-3)
+PEEL_ITERS = (12.6, 13.6)
+HYBRID_FER = (3.3e-3, 6.1e-3)
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory
 # 3.35 TB/s; INT32 16.7e12 operations/s (64 INT32 lanes per SM, half the
@@ -497,7 +557,7 @@ def escalation_phase(path, device) -> dict:
     zero_counts()
     v, e, it, f, n_esc = hybrid_decode_escalated(
         path.arrays, path.codewords, mask, peel_iters=h["peel_iters"], emax=128,
-        ge_subbatch=64,
+        ge_subbatch=64, impl="vmem",
     )
     torch.cuda.synchronize()
     counts = read_counts()
@@ -510,7 +570,7 @@ def escalation_phase(path, device) -> dict:
         require(counts[name] > 0, f"the escalated path never launched the {name} kernel")
     v2, _, _, f2 = hybrid_decode(
         path.arrays, path.codewords, mask, peel_iters=h["peel_iters"], emax=h["emax"],
-        ge_subbatch=h["ge_subbatch"], tiled=True, static_topo=True,
+        ge_subbatch=h["ge_subbatch"], tiled=True, static_topo=True, impl="vmem",
     )
     both = ~f & ~f2
     require(not bool((f & ~f2).any()), "escalation failed a frame the production branch solved")
@@ -811,7 +871,7 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     # 6c: NB escalation: buckets too small, ge_solve_wide_nb on the rest.
     esc = bench.NBPath(code, b=64, wb=nb["wb"], per=0.2031, seed=77, device=device)
     mask = iid_erasures((64, code.n), 0.2031, generator=esc.generator, device=device)
-    kw = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=16)
+    kw = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=16, impl="vmem")
     prod = hybrid_decode(esc.arrays, esc.codewords, mask, return_overflow=True, **kw)
     require(bool(prod[4].any()), "the production branch overflowed no frame")
     zero_counts()
@@ -895,6 +955,160 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
             f"{plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
             f"({bounds[name]['bound_by']}: {bounds[name]['bytes']:.4g} bytes, "
             f"{bounds[name]['ops']:.4g} ops), max abs err {errs[name]} on {card}")
+
+
+def schedule_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict,
+                   launches: dict) -> None:
+    """Phase 8: the throughput command by schedule, counted and timed; the
+    research kernels against their plain versions and their contracts."""
+    code = get_code("n2040_k1530")
+    b, w, per, k = bench.B, bench.W, bench.PER, code.k
+    for schedule in SCHEDULES:
+        path = bench.ThroughputPath(code, b=b, w=w, per=per, seed=2024, device=device,
+                                    schedule=schedule)
+        torch.cuda.synchronize()
+        zero_counts()
+        resid, digest = path.step()
+        require(digest.shape == (w,) and digest.dtype == torch.int32,
+                f"{schedule}: digest {tuple(digest.shape)} {digest.dtype}")
+        ms = path.time_reps(5)
+        counts = read_counts()
+        name = SCHED_KERNELS.get(schedule, "peel_decode")
+        require(counts[name] > 0, f"the {schedule} throughput step never launched {name}")
+        add_counts(launches, counts)
+        log(f"phase 8: schedule {schedule}: {path.gbps(ms):.2f} Gbps_info ({ms:.3f} ms/rep over "
+            f"5 reps, B={b} W={w} PER {per}, first-k early stop); first-k residual of the first "
+            f"rep {int(resid)}; {name} launches {counts[name]}; on {card}")
+        del path, resid, digest
+
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    cw = encode_packed(arrays, bench.random_words((b, k, w), gen, device))
+    mask = iid_erasures((b, code.n), per, generator=gen, device=device)
+    kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=k)
+    seq_ms = cuda_ms(lambda: peel_decode(arrays, cw, mask, **kw), 5)
+    for schedule, name in SCHED_KERNELS.items():
+        got = peel_decode(arrays, cw, mask, schedule=schedule, **kw)
+        report = check_schedule(arrays, cw, mask, schedule, got=got, n_ref=64, **kw)
+        log(f"phase 8: {schedule} contract on the full batch: {json.dumps(report)}")
+        require(report["ok"], f"the {schedule} kernel broke its contract")
+        reference = peel_decode_jacobi_reference if schedule == "jacobi" else peel_decode_reference
+        want, plain[name] = host_ms(lambda: reference(arrays, cw, mask, **kw))
+        e = outputs_err(got, want)
+        errs[name] = max(errs[name], e)
+        require(e == 0, f"{schedule} kernel != plain on the full batch ({e})")
+        del want
+        times[name] = cuda_ms(
+            lambda: peel_decode(arrays, cw, mask, schedule=schedule, **kw), 5)
+        bounds[name] = peel_bound(arrays, mask, got[1], w * 4, gf=False)
+        log(f"phase 8: {name} at B={b} W={w}: kernel {times[name]:.3f} ms (seq {seq_ms:.3f}), "
+            f"plain {plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+            f"({bounds[name]['bound_by']}), sweeps max {int(got[2].max())} mean "
+            f"{float(got[2].float().mean()):.2f}, max abs err {errs[name]} on {card}")
+        del got
+    xla = bench.ThroughputPath(code, b=b, w=w, per=per, seed=2024, device=device, impl="xla")
+    xla.step()
+    xla_ms = xla.time_reps(2)
+    log(f"phase 8: impl xla (peel_decode_jacobi, plain tensors): {xla.gbps(xla_ms):.2f} "
+        f"Gbps_info ({xla_ms:.3f} ms/rep over 2 reps) on {card}")
+    del xla, cw, mask
+
+    nb_code = get_code("n2040_k1530_gf256")
+    nb_arrays = code_arrays(nb_code, device)
+    nb_cw = encode_packed(nb_arrays, random_bytes((16, k, 1024), 19, device), gf_order=256)
+    nb_mask = iid_erasures((16, nb_code.n), per, generator=gen, device=device)
+    for schedule, name in SCHED_KERNELS.items():
+        reference = peel_decode_jacobi_reference if schedule == "jacobi" else peel_decode_reference
+        for esk in (None, k):
+            kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=esk, gf_order=256)
+            e = outputs_err(peel_decode(nb_arrays, nb_cw, nb_mask, schedule=schedule, **kw),
+                            reference(nb_arrays, nb_cw, nb_mask, **kw))
+            errs[name] = max(errs[name], e)
+            require(e == 0, f"GF(256) {schedule} kernel != plain (early_stop_k={esk}, {e})")
+    log("phase 8: n2040_k1530_gf256 B=16, 1024-byte symbols: the GF(256) modes of counted, "
+        "grouped and jacobi (early_stop_k None, k) bit-exact against the plain versions")
+
+    cmd = [sys.executable, "-m", "ldpc_erasure_codes_tpu_torch.utils.cli", "throughput",
+           "--schedule", "counted", "--batch", str(b), "--per", str(per)]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0, f"the throughput command failed: {res.stderr[-2000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    require(out["info_gbps"] > 0 and out["symbol_bits"] == 32 * w, f"throughput output {out}")
+    log(f"phase 8: `{' '.join(cmd[1:])}` printed {json.dumps(out)} on {card}")
+
+
+def run_cli(argv: list[str]) -> list[dict]:
+    """Run the port's CLI in this process; log its report and return its
+    JSON lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    require(rc == 0, f"cli {' '.join(argv)} returned {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    return [json.loads(x) for x in lines if x.startswith("{")]
+
+
+def in_band(x: float, band: tuple) -> bool:
+    return band[0] <= x <= band[1]
+
+
+def sim_phase(device, card: str, launches: dict) -> None:
+    """Phase 9: the FER simulation at (2040,1530), PER .1875."""
+    common = ["--code", "n2040_k1530", "--pers", str(SIM_PER), "--json"]
+    argv = ["sim", "--decoder", "peel", "--pattern-only", "--early-stop-k", "--batch", "4096",
+            "--steps-per-call", "16", "--target-errors", "150", *common]
+    log(f"phase 9a: cli {' '.join(argv)}")
+    (p,) = run_cli(argv)
+    log(f"phase 9a: peel FER {p['fer']:.4e} (band {PEEL_FER}), RS FER {p['rs_fer']:.4e} "
+        f"(band {RS_FER}), mean iterations {p['mean_iters']:.3f} (band {PEEL_ITERS}), "
+        f"escalations {p['escalations']}, {p['frames']} frames, "
+        f"{p['frames_per_sec']:.1f} frames/s on {card}")
+    require(in_band(p["fer"], PEEL_FER), f"9a peel FER {p['fer']} outside {PEEL_FER}")
+    require(in_band(p["rs_fer"], RS_FER), f"9a RS FER {p['rs_fer']} outside {RS_FER}")
+    require(in_band(p["mean_iters"], PEEL_ITERS),
+            f"9a mean iterations {p['mean_iters']} outside {PEEL_ITERS}")
+
+    code = get_code("n2040_k1530")
+    cfg = sim.SimConfig(code=code.name, batch=4096, track_values=False, steps_per_call=16,
+                        decoder=sim.DecoderConfig(kind="hybrid", max_iters=50, emax=256,
+                                                  ge_subbatch=4096 // 8))
+    (h,) = sim.run_fer_sweep(code, cfg, [SIM_PER], target_errors=150, device=device)
+    log(sim.format_report(f"{code.name} hybrid", cfg, [h]))
+    log(f"phase 9b: hybrid FER {h.fer:.4e} (band {HYBRID_FER}), RS FER {h.rs_fer:.4e}, mean "
+        f"iterations {h.mean_iters:.3f}, ml_failed {h.ml_failed}, escalations {h.escalations}, "
+        f"{h.frames} frames, {h.frames_per_sec:.1f} frames/s on {card}")
+    require(in_band(h.fer, HYBRID_FER), f"9b hybrid FER {h.fer} outside {HYBRID_FER}")
+    require(h.escalations <= h.ml_failed, "9b: a frame failed by bucket size was not failed")
+    # The same sweep with a column bucket no residual outgrows: what is left
+    # is rank deficiency alone (the ML decoder's FER), with no escalation.
+    ml_cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, emax=512))
+    (ml,) = sim.run_fer_sweep(code, ml_cfg, [SIM_PER], target_errors=150, max_frames=65536,
+                              device=device)
+    log(f"phase 9b: emax 512: hybrid FER {ml.fer:.4e} ({ml.block_errors}/{ml.frames}), "
+        f"ml_failed {ml.ml_failed}, escalations {ml.escalations}, {ml.frames_per_sec:.1f} "
+        f"frames/s on {card}")
+    require(ml.escalations == 0, f"9b emax 512: {ml.escalations} frames failed by bucket size")
+    require(ml.fer <= h.fer, "9b: a wider column bucket raised the FER")
+
+    argv = ["sim", "--decoder", "hybrid", "--symbol-words", "256", "--batch", "2048",
+            "--tiled-pipeline", "--max-frames", "8192", *common]
+    log(f"phase 9c: cli {' '.join(argv)}")
+    torch.cuda.synchronize()
+    zero_counts()
+    (v,) = run_cli(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name in ("encode_packed", "peel_decode", "f2_eliminate"):
+        require(counts[name] > 0, f"the value-tracking sim never launched the {name} kernel")
+    add_counts(launches, counts)
+    require(v["frames"] >= 8192 and 0 <= v["fer"] <= 1, f"9c point {v}")
+    log(f"phase 9c: value-tracking hybrid FER {v['fer']:.4e}, RS FER {v['rs_fer']:.4e}, "
+        f"escalations {v['escalations']}, ml_failed {v['ml_failed']}, mean iterations "
+        f"{v['mean_iters']:.3f}, {v['frames']} frames, {v['frames_per_sec']:.1f} frames/s "
+        f"({v['info_gbps']:.3f} Gbps_info); launches {counts}; on {card}")
 
 
 def add_counts(launches: dict, counts: dict) -> None:
@@ -1001,6 +1215,8 @@ def main() -> None:
     del hybrid
 
     gf_phases(device, card, errs, times, plain, bounds, launches)
+    schedule_phase(device, card, errs, times, plain, bounds, launches)
+    sim_phase(device, card, launches)
 
     for name, count in launches.items():
         require(count > 0, f"no path launched the {name} kernel")

@@ -21,6 +21,12 @@ outside the timed region, and per rep a fresh mask, the hybrid decode
 (peel, then the compacted GE) and the consumed values; ``chip_smoke.py``
 times it at the GE-hot point ``HYBRID``.
 
+:class:`ThroughputPath` is the CLI's ``throughput`` command
+(``utils/cli.py::make_throughput_step``) at one peel schedule: per rep a
+fresh mask, the decode by that schedule's kernel (or the Jacobi decoder,
+``impl="xla"``) with first-k early stop, and an XOR digest of every decoded
+symbol.
+
 :class:`NBPath` is the GF(256) chain of ``scripts/bench_nb_stages.py``
 (``enc_dec``, :111-124) and, with ``hybrid``, of
 ``scripts/bench_nb_pipeline.py`` (:37-57): ``n2040_k1530_gf256``, 1024-byte
@@ -46,6 +52,7 @@ from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 from ldpc_erasure_codes_tpu_torch.rs.code import rs_code
 from ldpc_erasure_codes_tpu_torch.rs.decode import rs_decode_wide, rs_encode
+from ldpc_erasure_codes_tpu_torch.utils.cli import make_throughput_step, xor_fold
 from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
 
 BASELINE_GBPS = 36.3
@@ -70,12 +77,7 @@ def random_words(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 def xor_reduce(x: torch.Tensor) -> torch.Tensor:
     """XOR of all elements of an int32 tensor, as a 0-d tensor."""
-    x = x.reshape(-1)
-    while x.numel() > 1:
-        if x.numel() % 2:
-            x = torch.cat([x, x.new_zeros(1)])
-        x = x[0::2] ^ x[1::2]
-    return x.reshape(())
+    return xor_fold(x.reshape(-1), 0)
 
 
 class MainPath:
@@ -148,7 +150,7 @@ class HybridPath(MainPath):
         )
         values, erased, iters, failed = hybrid_decode(
             self.arrays, self.codewords, mask, peel_iters=self.peel_iters, emax=self.emax,
-            ge_subbatch=self.ge_subbatch, tiled=True, static_topo=True,
+            ge_subbatch=self.ge_subbatch, tiled=True, static_topo=True, impl="vmem",
         )
         consumed = (failed.sum(), erased.any(dim=1).sum(), xor_reduce(values[:, :2]))
         self.failed_frames += int(consumed[0])
@@ -158,6 +160,25 @@ class HybridPath(MainPath):
     def fer(self) -> float:
         """Frames failed over frames decoded since construction."""
         return self.failed_frames / max(self.frames, 1)
+
+
+class ThroughputPath(MainPath):
+    """The ``throughput`` command's step at one ``schedule`` (``impl``
+    "pallas": the peel kernel of that schedule; "xla": the Jacobi
+    decoder), on codewords encoded once at construction."""
+
+    def __init__(self, code: LDPCCode, *, b: int, w: int, per: float, seed: int, device,
+                 schedule: str = "seq", impl: str = "pallas"):
+        super().__init__(code, b=b, w=w, per=per, seed=seed, device=device)
+        self.schedule = schedule
+        self.throughput_step = make_throughput_step(
+            code, self.arrays, batch=b, per=per, max_iters=MAX_ITERS, impl=impl,
+            schedule=schedule,
+        )
+
+    def step(self):
+        """One rep: returns (first-k residual, digest (W,) words)."""
+        return self.throughput_step(self.generator, self.codewords)
 
 
 def random_bytes(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -201,7 +222,8 @@ class NBPath(MainPath):
             first = erased[:, : code.k].sum()
         else:
             values, erased, iters, failed = hybrid_decode(
-                self.arrays, self.codewords, mask, gf_order=256, tiled=True, **self.hybrid)
+                self.arrays, self.codewords, mask, gf_order=256, tiled=True, impl="vmem",
+                **self.hybrid)
             first = failed.sum()
             self.failed_frames += int(first)
             self.frames += self.b

@@ -1,5 +1,21 @@
 """Erasure channels."""
 
-from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
+from ldpc_erasure_codes_tpu_torch.channel.erasure import (
+    GilbertElliottParams,
+    apply_erasures,
+    gilbert_elliott_chain,
+    gilbert_elliott_erasures,
+    gilbert_elliott_steady_state,
+    iid_erasures,
+    iid_erasures_per64,
+)
 
-__all__ = ["apply_erasures", "iid_erasures"]
+__all__ = [
+    "GilbertElliottParams",
+    "apply_erasures",
+    "gilbert_elliott_chain",
+    "gilbert_elliott_erasures",
+    "gilbert_elliott_steady_state",
+    "iid_erasures",
+    "iid_erasures_per64",
+]

@@ -46,6 +46,11 @@ LAUNCHERS = {
     # values_out, erased_out, iters_out, B, n, m, dmax, W, k_stop,
     # max_iters, nb, stream
     "ldpc_peel_launch": [*[_P] * 9, *[_I] * 8, _P],
+    # schedule, values, erased, vlist_idx, vlist_len, vlist_val,
+    # vlist_inv_val, clist_idx, clist_len, check_groups, values_out,
+    # erased_out, iters_out, B, n, m, dmax, cmax, ngroups, W, k_stop,
+    # max_iters, nb, stream
+    "ldpc_peel_sched_launch": [_I, *[_P] * 12, *[_I] * 10, _P],
     # in, out, nreal, ncols, pivrow, failed, B, m, C, emax, a_words,
     # in_smem, stream
     "ldpc_elim_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

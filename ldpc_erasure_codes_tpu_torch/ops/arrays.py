@@ -21,7 +21,10 @@ import torch
 from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode
 from ldpc_erasure_codes_tpu_torch.gf.tables import build_tables
 
-FIELDS = ("vlist_idx", "vlist_len", "enc_src_idx", "enc_par_idx")
+FIELDS = (
+    "vlist_idx", "vlist_len", "clist_idx", "clist_len", "enc_src_idx", "enc_par_idx",
+    "check_groups",
+)
 # GF(256) coefficient tables, uint8, on the supports of the index tables.
 NB_FIELDS = ("h_nb", "vlist_val", "vlist_inv_val", "enc_src_val", "enc_par_val", "enc_diag_inv")
 
@@ -57,6 +60,9 @@ class CodeArrays:
       vlist_len: (m,) check degrees.
       vlist_val: (m, dmax) uint8 coefficients of the neighbours, pad 0.
       vlist_inv_val: (m, dmax) uint8 their inverses, pad 0.
+      clist_idx: (n, cmax) the checks of each symbol, in check order, pad = m
+        (``code.clist``, registry.py:98-121).
+      clist_len: (n,) symbol degrees.
       enc_src_idx: (m, dmax) per parity row, its neighbours in the source
         region (col < k), pad = k.
       enc_src_val: (m, dmax) uint8 their coefficients, pad 0.
@@ -64,6 +70,9 @@ class CodeArrays:
         strictly-lower parity neighbours (k <= col < k + i), pad = m.
       enc_par_val: (m, pmax) uint8 their coefficients, pad 0.
       enc_diag_inv: (m,) uint8 inverse of each row's diagonal coefficient.
+      check_groups: (ngroups, 4) consecutive checks grouped greedily into
+        pairwise-disjoint runs of at most 4 (no shared symbol), pad = m: the
+        "grouped" peel schedule's visit order (arrays.py:132-150).
       min_n: one more than the largest neighbour column; the peel wrapper
         refuses codewords shorter than this, so the kernel never indexes
         past a frame.
@@ -76,11 +85,14 @@ class CodeArrays:
     vlist_len: torch.Tensor
     vlist_val: torch.Tensor
     vlist_inv_val: torch.Tensor
+    clist_idx: torch.Tensor
+    clist_len: torch.Tensor
     enc_src_idx: torch.Tensor
     enc_src_val: torch.Tensor
     enc_par_idx: torch.Tensor
     enc_par_val: torch.Tensor
     enc_diag_inv: torch.Tensor
+    check_groups: torch.Tensor
     min_n: int
 
     @property
@@ -148,6 +160,7 @@ def host_arrays(code: LDPCCode) -> dict[str, np.ndarray]:
             enc_par_idx[r, j] = c
             enc_par_val[r, j] = v
     vlist_val = np.asarray(code.vlist_val, dtype=np.uint8)
+    clist_idx, clist_len = clist(code.vlist_idx, code.vlist_len, code.n)
     return dict(
         h=_support(code.vlist_idx, code.vlist_len, code.n),
         h_nb=code.h_dense_nb,
@@ -155,12 +168,51 @@ def host_arrays(code: LDPCCode) -> dict[str, np.ndarray]:
         vlist_len=np.asarray(code.vlist_len, dtype=np.int32),
         vlist_val=vlist_val,
         vlist_inv_val=inv[vlist_val],
+        clist_idx=clist_idx,
+        clist_len=clist_len,
+        check_groups=check_groups(code.vlist_idx, code.vlist_len),
         enc_src_idx=enc_src_idx,
         enc_src_val=enc_src_val,
         enc_par_idx=enc_par_idx,
         enc_par_val=enc_par_val,
         enc_diag_inv=inv[diag],
     )
+
+
+def clist(vlist_idx: np.ndarray, vlist_len: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The symbol -> checks adjacency: (clist_idx (n, cmax) int32, each
+    symbol's checks in ascending order, pad = m; clist_len (n,) int32), as
+    ``LDPCCode.clist`` (registry.py:98-121; cmax >= 1)."""
+    m = vlist_idx.shape[0]
+    real = np.arange(vlist_idx.shape[1])[None, :] < np.asarray(vlist_len)[:, None]
+    rows, slots = np.nonzero(real)  # row-major: ascending check within each symbol
+    cols = np.asarray(vlist_idx)[rows, slots]
+    deg = np.bincount(cols, minlength=n)
+    order = np.argsort(cols, kind="stable")
+    pos = np.arange(cols.size) - np.repeat(np.cumsum(deg) - deg, deg)
+    idx = np.full((n, int(deg.max(initial=1))), m, dtype=np.int32)
+    idx[cols[order], pos] = rows[order]
+    return idx, deg.astype(np.int32)
+
+
+def check_groups(vlist_idx: np.ndarray, vlist_len: np.ndarray) -> np.ndarray:
+    """Consecutive checks grouped greedily into pairwise-disjoint runs of at
+    most 4, (ngroups, 4) int32, pad = m (arrays.py:132-150)."""
+    m = vlist_idx.shape[0]
+    sets = [set(vlist_idx[r, : int(vlist_len[r])].tolist()) for r in range(m)]
+    groups: list[list[int]] = []
+    syms: set[int] = set()
+    for c in range(m):
+        if groups and len(groups[-1]) < 4 and not (sets[c] & syms):
+            groups[-1].append(c)
+            syms |= sets[c]
+        else:
+            groups.append([c])
+            syms = set(sets[c])
+    out = np.full((len(groups), 4), m, dtype=np.int32)
+    for i, grp in enumerate(groups):
+        out[i, : len(grp)] = grp
+    return out
 
 
 def _support(vlist_idx: np.ndarray, vlist_len: np.ndarray, n: int) -> np.ndarray:
@@ -194,6 +246,11 @@ def code_arrays_from_numpy(host: dict, device: torch.device | str) -> CodeArrays
     h = (h != 0).astype(np.int8)
     if not np.array_equal(h, _support(idx, ln, h.shape[1])):
         raise ValueError("h is not the support of the Vlist")
+    cl_idx, cl_len = clist(idx, ln, h.shape[1])
+    if not (np.array_equal(tabs["clist_idx"], cl_idx) and np.array_equal(tabs["clist_len"], cl_len)):
+        raise ValueError("clist_idx/clist_len are not the Vlist's symbol -> checks adjacency")
+    if tabs["check_groups"].ndim != 2 or tabs["check_groups"].shape[1] != 4:
+        raise ValueError(f"check_groups shape {tabs['check_groups'].shape} != (ngroups, 4)")
     nb = {f: np.ascontiguousarray(host[f], dtype=np.uint8) for f in NB_FIELDS}
     if nb["h_nb"].shape != h.shape or not np.array_equal(nb["h_nb"] != 0, h != 0):
         raise ValueError("h_nb does not have the support of h")

@@ -1,7 +1,7 @@
 """Residual-frame compaction for the Gauss-Jordan fallback.
 
 Counterpart of ``ldpc_erasure_codes_tpu/ops/compact.py``: ``residual_order``
-(:25-37) and ``compact_ge_solve`` (:58-106). After
+(:25-37), ``compact_ge_rank`` (:40-55) and ``compact_ge_solve`` (:58-106). After
 peeling, only the frames stuck in a stopping set need elimination; they are
 gathered into a bucket of ``f_max`` frames, solved there and scattered
 back. Residual frames beyond the bucket are flagged failed (overflow).
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
-from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_solve, ge_solve_packed
 
 
 def residual_order(
@@ -33,6 +33,18 @@ def residual_order(
     return sel, is_resid, overflow
 
 
+def compact_ge_rank(
+    arrays: CodeArrays, erased: torch.Tensor, *, emax: int, f_max: int, gf_order: int = 2
+) -> torch.Tensor:
+    """:func:`.ge.ge_rank_check` on the residual sub-batch only; returns
+    failed (B,), overflow included."""
+    sel, is_resid, overflow = residual_order(erased, f_max)
+    failed_sub = ge_rank_check(arrays, erased[sel], emax=emax, gf_order=gf_order)
+    failed = torch.zeros((erased.shape[0],), dtype=torch.bool, device=erased.device)
+    failed[sel] = failed_sub & is_resid
+    return failed | overflow
+
+
 def compact_ge_solve(
     arrays: CodeArrays,
     values: torch.Tensor,
@@ -47,16 +59,16 @@ def compact_ge_solve(
     Binary frames (int32 words) take :func:`.ge.ge_solve_packed`, with the
     dense ``f2_matvec_wide`` syndrome and the ``f2_apply_scatter``
     placement, as the JAX function calls the solver without a topology;
-    GF(256) frames (uint8 bytes) take :func:`.ge.ge_solve`, as
-    compact.py:77-93 routes them. Returns new (values, erased, failed). The
+    GF(256) frames (uint8 bytes) and scalar (B, n) symbols take
+    :func:`.ge.ge_solve`, as compact.py:77-93 routes them. Returns new (values, erased, failed). The
     filler frames of the bucket have no erasures, so the solver returns
     them unchanged and the whole sub-batch scatters back (compact.py:94-101).
     """
     b = erased.shape[0]
     sel, is_resid, overflow = residual_order(erased, f_max)
-    if gf_order == 256:
+    if gf_order == 256 or values.dim() == 2:
         v_sub, e_sub, failed_sub = ge_solve(
-            arrays, values[sel], erased[sel], emax=emax, gf_order=256)
+            arrays, values[sel], erased[sel], emax=emax, gf_order=gf_order)
     else:
         v_sub, e_sub, failed_sub = ge_solve_packed(arrays, values[sel], erased[sel], emax=emax)
     values = values.index_copy(0, sel, v_sub)

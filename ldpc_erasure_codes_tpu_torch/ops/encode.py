@@ -108,3 +108,50 @@ def encode_packed(
 
 encode_packed.launches = 0
 encode_packed.launches_gf256 = 0
+
+
+def scalar_words(symbols: torch.Tensor, gf_order: int) -> torch.Tensor:
+    """Scalar uint8 symbols (..., n) as one-symbol packed frames
+    (..., n, 1) int32: the symbol itself as a word (binary), or its byte
+    zero-padded to four (GF(256), byte 0 of the word)."""
+    if symbols.dtype != torch.uint8:
+        raise TypeError(f"scalar symbols must be torch.uint8, got {symbols.dtype}")
+    if gf_order == 256:
+        return torch.nn.functional.pad(symbols[..., None], (0, 3)).contiguous().view(torch.int32)
+    return symbols.to(torch.int32)[..., None].contiguous()
+
+
+def from_scalar_words(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`scalar_words`: the low byte of each one-word
+    symbol, (..., n, 1) int32 -> (..., n) uint8."""
+    return (words[..., 0] & 0xFF).to(torch.uint8)
+
+
+def _encode_scalar(arrays: CodeArrays, source: torch.Tensor, gf_order: int) -> torch.Tensor:
+    lead = source.shape[:-1]
+    words = scalar_words(source.reshape(-1, source.shape[-1]), gf_order)
+    if gf_order == 256:
+        cw = encode_packed(arrays, words.view(torch.uint8), gf_order=256).view(torch.int32)
+    else:
+        cw = encode_packed(arrays, words)
+    cw = from_scalar_words(cw)
+    return cw.reshape(*lead, cw.shape[-1])
+
+
+def encode(arrays: CodeArrays, source: torch.Tensor) -> torch.Tensor:
+    """Binary systematic encode of scalar symbols: (..., k) uint8 -> (..., n)
+    uint8, as ``ops/encode.py::encode`` (:26-32). A systematic codeword is
+    unique, so the bits ride through the triangular encoder as one-word
+    symbols; the parity is taken mod 2 (the low bit), as JAX's mod-2
+    product is, and the source part is returned as given."""
+    cw = _encode_scalar(arrays, source, 2)
+    k = source.shape[-1]
+    return torch.cat([source, cw[..., k:] & 1], dim=-1)
+
+
+def encode_nb(arrays: CodeArrays, source: torch.Tensor) -> torch.Tensor:
+    """GF(256) systematic encode of scalar byte symbols: (..., k) uint8 ->
+    (..., n) uint8, as ``ops/encode.py::encode_nb`` (:35-43). Each byte
+    rides through the triangular encoder as a zero-padded four-byte symbol
+    (the GF(256) word mode, whose other three bytes stay zero)."""
+    return _encode_scalar(arrays, source, 256)

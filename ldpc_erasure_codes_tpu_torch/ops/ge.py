@@ -2,8 +2,8 @@
 erasure solver of the hybrid decoder and of Reed-Solomon.
 
 Counterpart of ``ldpc_erasure_codes_tpu/ops/ge.py``: ``erased_indices``
-(:49-60), ``ge_solve_packed`` (:162-443), ``ge_solve_wide_nb`` (:487-745)
-and ``ge_solve`` (:748-870). The binary solver solves
+(:49-60), ``ge_solve_packed`` (:162-443), ``ge_solve_wide_nb`` (:487-745),
+``ge_solve`` (:748-870) and ``ge_rank_check`` (:77-141). The binary solver solves
 ``H_erased . x = H_known . y_known`` per frame
 (Matlab/My_LDPC_HybridML_Erasure_Decoder.m:48-88) in three steps:
 
@@ -27,7 +27,9 @@ and placed by :func:`.nbmm.gf_apply_scatter` (``csrc/gfmm.cu``), the
 structure of the JAX function's Pallas branch (:615-640, :668-709).
 :func:`ge_solve` is the byte Gauss-Jordan with physical row swaps that the
 JAX package runs outside any Pallas kernel (the NB hybrid's compacted GE
-and ``rs_decode``); here it is plain PyTorch.
+and ``rs_decode``); here it is plain PyTorch, as is
+:func:`ge_rank_check`, its pivot loop on the pattern alone (the FER
+simulation's rank test).
 
 Pivot order, failure flags and solved values equal the JAX package's;
 values of failed frames are garbage in both, and callers gate on
@@ -41,6 +43,7 @@ import torch
 from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_inv, gf_mul, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, pack_bits
 from ldpc_erasure_codes_tpu_torch.ops.elim import f2_eliminate, gf256_eliminate
+from ldpc_erasure_codes_tpu_torch.ops.encode import from_scalar_words, scalar_words
 from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_apply_scatter,
     f2_matmul_batched,
@@ -206,7 +209,10 @@ def ge_solve(
 
     Args:
       values: (B, n, W) frames, erased slots zero: int32 words for
-        ``gf_order=2``, uint8 bytes (W % 4 == 0) for ``gf_order=256``.
+        ``gf_order=2``, uint8 bytes (W % 4 == 0) for ``gf_order=256``; or
+        scalar (B, n) uint8 symbols, carried as one-word frames
+        (:func:`.encode.scalar_words`), as JAX's ``ge_flat`` sends them here
+        (hybrid.py:133-141).
       erased: (B, n) bool residual mask.
       emax: column bucket; frames with more erasures fail (overflow).
 
@@ -222,6 +228,12 @@ def ge_solve(
 
     Returns (values, erased, failed) as :func:`ge_solve_packed`.
     """
+    if values.dim() == 2:
+        words = scalar_words(values, gf_order)
+        if gf_order == 256:
+            words = words.view(torch.uint8)
+        out, erased, failed = ge_solve(arrays, words, erased, emax=emax, gf_order=gf_order)
+        return from_scalar_words(out.view(torch.int32)), erased, failed
     words = _solver_words(values, gf_order)
     _check(arrays, words, erased)
     b, n = erased.shape
@@ -270,6 +282,54 @@ def ge_solve(
     out = out[:, :n].contiguous()
     erased = erased & failed[:, None]
     return (out.view(torch.uint8) if gf_order == 256 else out), erased, failed
+
+
+def ge_rank_check(
+    arrays: CodeArrays, erased: torch.Tensor, *, emax: int, gf_order: int = 2
+) -> torch.Tensor:
+    """Pattern-only solvability (ge.py:77-141): would the Gauss-Jordan on
+    the residual succeed? :func:`ge_solve`'s pivot loop (row swaps, pad
+    slots on their own identity rows) on the erased columns of H (their
+    GF(256) coefficients for ``gf_order=256``) alone. Returns ``failed``
+    (B,) bool: rank deficient or more than ``emax`` erasures.
+
+    The loop stops after the batch's widest residual, as :func:`ge_solve`'s:
+    later columns are pad columns, which only swap a frame's identity row
+    up and change no failure flag."""
+    if erased.dtype != torch.bool or erased.dim() != 2 or erased.shape[1] != arrays.n:
+        raise ValueError(f"erased must be (B, {arrays.n}) bool, got "
+                         f"{tuple(erased.shape)} {erased.dtype}")
+    b, n = erased.shape
+    emax = min(emax, n)
+    m = arrays.m
+    dev = erased.device
+    er_idx, real, nreal = erased_indices(erased, emax)
+    src = arrays.h_nb if gf_order == 256 else arrays.h.to(torch.uint8)
+    a_top = src[:, er_idx.long()].permute(1, 0, 2) * real[:, None, :]
+    eye = torch.eye(emax, dtype=torch.uint8, device=dev)[None] * (~real)[:, None, :]
+    a = torch.cat([a_top, eye], dim=1)  # (B, m + emax, emax)
+    row_iota = torch.arange(m + emax, device=dev)[None, :]
+    frames = torch.arange(b, device=dev)
+    failed = nreal > emax
+    ub = min(int(nreal.max()), emax) if b else 0
+    for col in range(ub):
+        cand = (a[:, :, col] != 0) & (row_iota >= col)
+        has = cand.any(dim=1)
+        piv = torch.where(has, cand.to(torch.uint8).argmax(dim=1), col)
+        a_col, a_piv = a[:, col].clone(), a[frames, piv]
+        a[frames, piv] = a_col
+        a[:, col] = a_piv
+        keep = (row_iota != col) & has[:, None]
+        if gf_order == 256:
+            prow = gf_mul(a_piv, gf_inv(a_piv[:, col])[:, None])
+            a[:, col] = prow
+            factor = torch.where(keep, a[:, :, col], 0)
+            a ^= gf_mul(factor[:, :, None], prow[:, None, :])
+        else:
+            elim = keep & (a[:, :, col] != 0)
+            a ^= elim[:, :, None] * a_piv[:, None, :]
+        failed |= ~has & (col < nreal)
+    return failed
 
 
 def coefficient_cube_nb(

@@ -2,7 +2,8 @@
 
 Counterpart of ``ldpc_erasure_codes_tpu/ops/hybrid.py``: ``hybrid_decode``
 (:42-222) and ``hybrid_decode_escalated`` (:225-308), wide binary frames
-(int32 words) and GF(256) frames (uint8 bytes).
+(int32 words), GF(256) frames (uint8 bytes) and scalar (B, n) uint8
+symbols of either field.
 Peeling removes the bulk of the erasures; the rare residual stopping set is
 solved exactly by the packed GE (the reference's
 Matlab/My_LDPC_HybridML_Erasure_Decoder.m:3-91). The hybrid beats the
@@ -18,6 +19,22 @@ from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, residual_order
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed, ge_solve_wide_nb
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi
+
+IMPLS = ("gather", "matmul", "vmem")
+
+
+def _peel(arrays, values, erased, *, gf_order, peel_iters, impl, tiled):
+    """The peel stage (hybrid.py:84-123): ``impl="vmem"`` on wide frames is
+    the sequential peel kernel (``peel_decode``); everything else is the
+    Jacobi decoder, as JAX's gather/matmul paths and its scalar fallback."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}: expected one of {IMPLS}")
+    if tiled and impl != "vmem":
+        raise ValueError("tiled=True requires impl='vmem'")
+    if values.dim() == 3 and impl == "vmem":
+        return peel_decode(arrays, values, erased, max_iters=peel_iters, gf_order=gf_order)
+    return peel_decode_jacobi(arrays, values, erased, max_iters=peel_iters, gf_order=gf_order)
 
 
 def _ge_rows(arrays, values, erased, *, emax, ge_subbatch, static_topo):
@@ -48,6 +65,7 @@ def hybrid_decode(
     gf_order: int = 2,
     peel_iters: int = 10,
     emax: int = 128,
+    impl: str = "gather",
     ge_subbatch: int = 0,
     tiled: bool = False,
     static_topo: bool = False,
@@ -55,8 +73,14 @@ def hybrid_decode(
 ) -> tuple[torch.Tensor, ...]:
     """Peel up to ``peel_iters`` sweeps, then GE-solve the residual.
 
-    ``values`` (B, n, W) int32 may be the un-erased channel output: the peel
-    fuses the masking. ``emax`` buckets the residual GE width; frames whose
+    ``values`` (B, n, W) int32 words (binary), uint8 bytes (GF(256)) or
+    scalar (B, n) uint8 symbols may be the un-erased channel output: the
+    peel zeroes the erased slots. ``impl`` picks the peel as JAX does
+    (hybrid.py:84-123): ``"vmem"`` takes the sequential peel kernel for wide
+    frames (and ``tiled=True`` requires it); ``"gather"`` (JAX's default)
+    and ``"matmul"``, and every scalar frame, take the Jacobi decoder
+    :func:`.peel_jacobi.peel_decode_jacobi`, whose iteration counts are the
+    Jacobi schedule's. ``emax`` buckets the residual GE width; frames whose
     residual exceeds it fail. ``ge_subbatch`` > 0 compacts the frames that
     still hold erasures into a bucket of that many frames (overflow ->
     failed). The knobs are the JAX function's; the port keeps the flat
@@ -81,8 +105,8 @@ def hybrid_decode(
     (residual wider than ``emax``, or spilled past the ``ge_subbatch``
     bucket), the frames :func:`hybrid_decode_escalated` re-dispatches.
     """
-    values, erased, iters = peel_decode(
-        arrays, values, erased, max_iters=peel_iters, gf_order=gf_order)
+    values, erased, iters = _peel(arrays, values, erased, gf_order=gf_order,
+                                  peel_iters=peel_iters, impl=impl, tiled=tiled)
     b, n = erased.shape
     if not bool(erased.any()):
         z = torch.zeros((b,), dtype=torch.bool, device=erased.device)
@@ -99,8 +123,8 @@ def hybrid_decode(
         values, erased, failed = compact_ge_solve(
             arrays, values, erased, emax=emax, f_max=ge_subbatch, gf_order=gf_order
         )
-    elif gf_order == 256:
-        values, erased, failed = ge_solve(arrays, values, erased, emax=emax, gf_order=256)
+    elif gf_order == 256 or values.dim() == 2:
+        values, erased, failed = ge_solve(arrays, values, erased, emax=emax, gf_order=gf_order)
     else:
         values, erased, failed = ge_solve_packed(arrays, values, erased, emax=emax)
     if return_overflow:
@@ -116,6 +140,7 @@ def hybrid_decode_escalated(
     gf_order: int = 2,
     peel_iters: int = 10,
     emax: int = 128,
+    impl: str = "gather",
     ge_subbatch: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """:func:`hybrid_decode` (flat branch) with bucket-overflow escalation.
@@ -127,15 +152,15 @@ def hybrid_decode_escalated(
     (hybrid.py:281-307): ``emax2`` = the largest residual rounded up to a
     multiple of 128, at most n; ``b2`` = a power of two >= 8 frames, padded
     with the first candidate; erased slots re-zeroed before the dispatch.
-    The second dispatch is ``ge_solve_packed``, or ``ge_solve_wide_nb`` for
-    GF(256) (hybrid.py:294-295).
+    The second dispatch is ``ge_solve_packed``, ``ge_solve_wide_nb`` for
+    GF(256) and ``ge_solve`` for scalar symbols (hybrid.py:294-301).
 
     Returns (values, erased, iters, failed, n_escalated), n_escalated the
     frames that entered the second dispatch. Syncs with the host.
     """
     values, erased, iters, failed = hybrid_decode(
         arrays, values, erased, gf_order=gf_order, peel_iters=peel_iters, emax=emax,
-        ge_subbatch=ge_subbatch,
+        impl=impl, ge_subbatch=ge_subbatch,
     )
     if not bool(failed.any()):
         return values, erased, iters, failed, 0
@@ -149,8 +174,10 @@ def hybrid_decode_escalated(
     b2 = max(8, 1 << (ncand - 1).bit_length())
     sel = torch.cat([cand, cand[:1].expand(b2 - ncand)])
     e_sub = erased[sel]
-    v_sub = values[sel].masked_fill_(e_sub[:, :, None], 0)
-    if gf_order == 256:
+    v_sub = values[sel].masked_fill_(e_sub if values.dim() == 2 else e_sub[:, :, None], 0)
+    if values.dim() == 2:
+        v2, e2, f2 = ge_solve(arrays, v_sub, e_sub, emax=emax2, gf_order=gf_order)
+    elif gf_order == 256:
         v2, e2, f2 = ge_solve_wide_nb(arrays, v_sub, e_sub, emax=emax2)
     else:
         v2, e2, f2 = ge_solve_packed(arrays, v_sub, e_sub, emax=emax2)

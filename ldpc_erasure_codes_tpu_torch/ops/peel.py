@@ -1,12 +1,23 @@
-"""Sequential (Gauss-Seidel) peeling decode of packed words.
+"""Peeling decode of packed words, in the schedules of the TPU kernel.
 
 Counterpart of the TPU kernel ``ldpc_erasure_codes_tpu/ops/pallas_peel.py::
-peel_decode_vmem`` (:1281-1786) with its production schedules "unrolled"
-(+ fence gate) and "seq", which compute the same function. The TPU's
-tile-major layout exists only for its VMEM; the port keeps the plain
-(B, n, W) layout end to end. :func:`peel_decode` launches the CUDA kernel
-``csrc/peel.cu`` for CUDA tensors and runs :func:`peel_decode_reference`
-for CPU tensors.
+peel_decode_vmem`` (:1281-1786) and its ``schedule`` argument
+(:1456-1464). The TPU's tile-major layout exists only for its VMEM; the
+port keeps the plain (B, n, W) layout end to end. For CUDA tensors
+:func:`peel_decode` launches, per schedule:
+
+* "seq" and "unrolled" (+ fence gate; the production schedules, one
+  function): ``csrc/peel.cu``, the sequential (Gauss-Seidel) sweep;
+* "counted" and "grouped": ``csrc/peel_sched.cu``, the same sequential
+  function with live per-check counts, or with disjoint check groups whose
+  loads are issued together;
+* "jacobi": ``csrc/peel_sched.cu``, the Jacobi sweep with sweep-start
+  detection (the XLA decoders' schedule, :mod:`.peel_jacobi`).
+
+For CPU tensors it runs the plain versions: :func:`peel_decode_reference`
+for the four sequential schedules, which compute one function bit for bit,
+iteration counts included, and
+:func:`.peel_jacobi.peel_decode_jacobi_reference` for "jacobi".
 
 GF(256) codes (``gf_order=256``) take uint8 byte symbols (W % 4 == 0),
 viewed as int32 words of four bytes. A degree-1 check's weighted sum
@@ -31,6 +42,10 @@ import torch
 from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi_reference
+
+SCHEDULES = ("seq", "unrolled", "counted", "grouped", "jacobi")
+_SCHED_CODE = {"counted": 0, "grouped": 1, "jacobi": 2}
 
 
 def _words(values: torch.Tensor, gf_order: int) -> torch.Tensor:
@@ -140,24 +155,30 @@ def peel_decode(
     max_iters: int = 50,
     early_stop_k: int | None = None,
     gf_order: int = 2,
+    schedule: str = "seq",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Peeling decode. Returns (values (B, n, W), erased (B, n) bool,
     iters (B,) int32), values in the input's type: int32 words for
     ``gf_order=2``, uint8 bytes (W % 4 == 0) for ``gf_order=256``.
 
     ``values`` may be the un-erased channel output: the masking is fused
-    into the decode, and erased output slots hold zero. CPU tensors take
-    :func:`peel_decode_reference`; CUDA tensors launch the kernel (or
-    raise). ``peel_decode.launches`` counts binary kernel launches,
-    ``peel_decode.launches_gf256`` GF(256) ones.
+    into the decode, and erased output slots hold zero. ``schedule`` is one
+    of :data:`SCHEDULES` (the module docstring says which kernel runs
+    each). CPU tensors take the plain versions; CUDA tensors launch the
+    kernel (or raise). ``peel_decode.launches`` counts binary launches of
+    ``csrc/peel.cu``, ``peel_decode.launches_gf256`` its GF(256) ones, and
+    ``launches_<schedule>`` / ``launches_<schedule>_gf256`` those of
+    ``csrc/peel_sched.cu``'s schedules.
     """
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
     words = _words(values, gf_order)
     k_stop = _check(arrays, words, erased, max_iters, early_stop_k)
+    kw = dict(max_iters=max_iters, early_stop_k=early_stop_k, gf_order=gf_order)
     if words.device.type == "cpu":
-        return peel_decode_reference(
-            arrays, values, erased, max_iters=max_iters, early_stop_k=early_stop_k,
-            gf_order=gf_order,
-        )
+        if schedule == "jacobi":
+            return peel_decode_jacobi_reference(arrays, values, erased, **kw)
+        return peel_decode_reference(arrays, values, erased, **kw)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     nb = gf_order == 256
@@ -165,20 +186,36 @@ def peel_decode(
     out = torch.empty_like(words)
     er_out = torch.empty((b, n), dtype=torch.bool, device=words.device)
     iters = torch.empty((b,), dtype=torch.int32, device=words.device)
-    rc = _build.library().ldpc_peel_launch(
-        words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
-        arrays.vlist_len.data_ptr(), arrays.vlist_val.data_ptr(),
-        arrays.vlist_inv_val.data_ptr(), out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
-        b, n, arrays.m, arrays.dmax, w, k_stop, max_iters, int(nb),
-        torch.cuda.current_stream(words.device).cuda_stream,
-    )
-    _build.check(rc, "ldpc_peel_launch")
-    if nb:
-        peel_decode.launches_gf256 += 1
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    tables = (arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
+              arrays.vlist_val.data_ptr(), arrays.vlist_inv_val.data_ptr())
+    outs = (out.data_ptr(), er_out.data_ptr(), iters.data_ptr())
+    if schedule in ("seq", "unrolled"):
+        rc = _build.library().ldpc_peel_launch(
+            words.data_ptr(), erased.data_ptr(), *tables, *outs,
+            b, n, arrays.m, arrays.dmax, w, k_stop, max_iters, int(nb), stream,
+        )
+        _build.check(rc, "ldpc_peel_launch")
+        counter = "launches"
     else:
-        peel_decode.launches += 1
+        if schedule == "counted" and arrays.dmax > 255:
+            raise ValueError(f"schedule 'counted' keeps byte counts: dmax={arrays.dmax} > 255")
+        rc = _build.library().ldpc_peel_sched_launch(
+            _SCHED_CODE[schedule], words.data_ptr(), erased.data_ptr(), *tables,
+            arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(),
+            arrays.check_groups.data_ptr(), *outs, b, n, arrays.m, arrays.dmax,
+            arrays.clist_idx.shape[1], arrays.check_groups.shape[0], w, k_stop, max_iters,
+            int(nb), stream,
+        )
+        _build.check(rc, "ldpc_peel_sched_launch")
+        counter = f"launches_{schedule}"
+    counter += "_gf256" if nb else ""
+    setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
     return (out.view(torch.uint8) if nb else out), er_out, iters
 
 
 peel_decode.launches = 0
 peel_decode.launches_gf256 = 0
+for _s in ("counted", "grouped", "jacobi"):
+    setattr(peel_decode, f"launches_{_s}", 0)
+    setattr(peel_decode, f"launches_{_s}_gf256", 0)

@@ -1,0 +1,316 @@
+"""End-to-end Monte-Carlo FER simulation driver.
+
+Counterpart of ``ldpc_erasure_codes_tpu/sim/driver.py`` (the reference's
+simulation loops, Matlab/LDPCErasureCodes_MessagePassingAlgSim.m:134-243
+binary, Matlab/ErasureCodes_NonBinaryLDPCSim.m:154-243 GF(256)): encode ->
+channel -> decode -> counters, per batch on the device, with the error-count
+stopping rule on the host. The branch structure of ``_draw_source``,
+``_encode``, ``_erasure_mask``, ``_decode`` and ``_decode_mask`` (:43-199)
+is kept:
+
+* ``impl="vmem"`` on wide symbols runs the peel kernel (``peel_decode``,
+  ``DecoderConfig.schedule``); every other peel runs the Jacobi decoder
+  ``peel_decode_jacobi``, as the JAX driver maps them (:89-125);
+* the pattern-only hybrid peels to convergence, then rank-checks the
+  residual (:158-191);
+* ``steps_per_call`` batches per call of the step, their statistics summed
+  on the device and read by the host once per call (:283-297).
+
+Each batch draws from its own ``torch.Generator``, seeded from
+(``SimConfig.seed``, call, batch), so a run can be repeated. The channel
+operating point is an argument of the step, so one step serves a sweep.
+The step runs on one device (the CUDA card unless the caller passes
+another); the JAX driver's ``mesh`` sharding waits for the parallel slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+
+from ldpc_erasure_codes_tpu_torch.bench import random_words
+from ldpc_erasure_codes_tpu_torch.channel import erasure as ch
+from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode, get_code
+from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
+from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_rank, residual_order
+from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_nb, encode_packed
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_solve
+from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
+from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi, peel_decode_mask
+from ldpc_erasure_codes_tpu_torch.sim.config import SimConfig
+from ldpc_erasure_codes_tpu_torch.sim.stats import Accumulator, SimStats, batch_stats
+from ldpc_erasure_codes_tpu_torch.utils.device import cuda_device
+
+WARMUP_CALL = 0xFFFFFFF
+
+
+def batch_generator(seed: int, call: int, j: int, device) -> torch.Generator:
+    """The generator of batch ``j`` of call ``call`` of a run seeded ``seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((seed * 0x9E3779B1 + call) * 0x85EBCA77 + j) % 2**63)
+    return g
+
+
+def source_width(cfg: SimConfig) -> int:
+    """Words (binary) or bytes (GF(256)) per symbol as drawn: GF(256) byte
+    symbols are drawn a whole number of words wide (the kernels take four
+    bytes to a word); the statistics are mask-derived and do not change."""
+    w = cfg.symbol_words
+    return -(-w // 4) * 4 if (cfg.gf_order == 256 and w > 0) else w
+
+
+def _draw_source(gen: torch.Generator, cfg: SimConfig, k: int, device) -> torch.Tensor:
+    w = source_width(cfg)
+    if cfg.gf_order == 2:
+        if w == 0:
+            return torch.randint(0, 2, (cfg.batch, k), dtype=torch.uint8, generator=gen,
+                                 device=device)
+        return random_words((cfg.batch, k, w), gen, device)
+    if w == 0:
+        return torch.randint(0, 256, (cfg.batch, k), dtype=torch.uint8, generator=gen,
+                             device=device)
+    return random_words((cfg.batch, k, w // 4), gen, device).view(torch.uint8)
+
+
+def _encode(arrays: CodeArrays, cfg: SimConfig, source: torch.Tensor) -> torch.Tensor:
+    if cfg.symbol_words > 0:
+        return encode_packed(arrays, source, gf_order=cfg.gf_order)
+    if cfg.gf_order == 2:
+        return encode(arrays, source)
+    return encode_nb(arrays, source)
+
+
+def _erasure_mask(gen: torch.Generator, cfg: SimConfig, n: int, per, device) -> torch.Tensor:
+    c = cfg.channel
+    shape = (cfg.batch, n)
+    if c.kind == "iid":
+        return ch.iid_erasures(shape, per, generator=gen, device=device)
+    if c.kind == "per64":
+        return ch.iid_erasures_per64(shape, int(per), generator=gen, device=device)
+    params = ch.GilbertElliottParams(c.ge_alpha, c.ge_beta, c.ge_transition, c.ge_bias)
+    init = None
+    if c.carry_state:
+        # Statistically the reference's carrying of the Markov state across
+        # codewords (ErasureCodes_NonBinaryLDPCSim.m:191-198): each frame's
+        # chain starts in the steady-state distribution.
+        p_bad = (1.0 / c.ge_bias) / (1.0 + 1.0 / c.ge_bias)
+        init = (torch.rand((cfg.batch,), generator=gen, device=device) < p_bad).to(torch.int32)
+    mask, _ = ch.gilbert_elliott_erasures(cfg.batch, n, params, init, generator=gen,
+                                          device=device)
+    return mask
+
+
+def _decode(arrays: CodeArrays, cfg: SimConfig, values: torch.Tensor, erased: torch.Tensor,
+            k: int):
+    """Value decode: (values, erased, iters, failed, overflow); failed and
+    overflow are None for the peel."""
+    d = cfg.decoder
+    early = k if d.early_stop_k else None
+    if d.kind == "peel":
+        kw = dict(gf_order=cfg.gf_order, max_iters=d.max_iters, early_stop_k=early)
+        if d.impl == "vmem" and values.dim() == 3:
+            v, e, iters = peel_decode(arrays, values, erased, schedule=d.schedule, **kw)
+        else:
+            v, e, iters = peel_decode_jacobi(arrays, values, erased, **kw)
+        return v, e, iters, None, None
+    if d.kind == "hybrid":
+        return hybrid_decode(
+            arrays, values, erased, gf_order=cfg.gf_order, peel_iters=d.peel_iters,
+            emax=d.emax, impl=d.impl, ge_subbatch=d.ge_subbatch, tiled=cfg.tiled_pipeline,
+            static_topo=d.schedule == "unrolled", return_overflow=True,
+        )
+    v, e, failed = ge_solve(arrays, values, erased, emax=d.emax, gf_order=cfg.gf_order)
+    ov = erased.sum(dim=1) > min(d.emax, erased.shape[1])
+    return v, e, torch.zeros_like(failed, dtype=torch.int32), failed, ov
+
+
+def _decode_mask(arrays: CodeArrays, cfg: SimConfig, erased: torch.Tensor, k: int):
+    """Pattern-only decode: (residual mask, iters, failed, overflow)."""
+    d = cfg.decoder
+    early = k if d.early_stop_k else None
+    if d.kind == "peel":
+        e, iters = peel_decode_mask(arrays, erased, max_iters=d.max_iters, early_stop_k=early)
+        return e, iters, None, None
+    if d.kind == "hybrid":
+        # Peel to convergence before the rank check: ML solvability does
+        # not depend on how much peeling precedes the elimination (peeling
+        # is partial elimination of the same system), so the FER equals the
+        # reference's peel-10-then-GE at a far smaller residual. The bucket
+        # overflow flags are another matter: the value path eliminates after
+        # only peel_iters sweeps, so its residuals are larger (:161-168).
+        e, iters = peel_decode_mask(arrays, erased, max_iters=d.max_iters)
+        failed = torch.zeros((e.shape[0],), dtype=torch.bool, device=e.device)
+        if bool(e.any()):
+            if d.ge_subbatch > 0:
+                failed = compact_ge_rank(arrays, e, emax=d.emax, f_max=d.ge_subbatch,
+                                         gf_order=cfg.gf_order)
+            else:
+                failed = ge_rank_check(arrays, e, emax=d.emax, gf_order=cfg.gf_order)
+        ov = e.sum(dim=1) > min(d.emax, e.shape[1])
+        if d.ge_subbatch > 0:
+            ov |= residual_order(e, d.ge_subbatch)[2]
+        return e & failed[:, None], iters, failed, ov
+    failed = ge_rank_check(arrays, erased, emax=d.emax, gf_order=cfg.gf_order)
+    ov = erased.sum(dim=1) > min(d.emax, erased.shape[1])
+    iters = torch.zeros((erased.shape[0],), dtype=torch.int32, device=erased.device)
+    return erased & failed[:, None], iters, failed, ov
+
+
+def make_sim_step(
+    code: LDPCCode | str, cfg: SimConfig, *, device: torch.device | str | None = None
+) -> Callable[[int, float], SimStats]:
+    """The simulation step ``step(call, per) -> SimStats``: ``steps_per_call``
+    batches, their statistics summed on the device.
+
+    ``per`` is the erasure probability (iid) or the /64 numerator (per64);
+    the Gilbert-Elliott channel ignores it (its point lives in the config).
+    ``device`` defaults to the CUDA card (raises where there is none).
+    """
+    if isinstance(code, str):
+        code = get_code(code)
+    if cfg.gf_order == 256 and code.gf_order != 256:
+        code = code.lift_to_gf256(seed=cfg.seed)
+    device = cuda_device() if device is None else torch.device(device)
+    arrays = code_arrays(code, device)
+    n, k = code.n, code.k
+    max_hist = cfg.decoder.max_iters if cfg.decoder.kind == "peel" else cfg.decoder.peel_iters
+
+    def step_once(gen: torch.Generator, per) -> SimStats:
+        mask = _erasure_mask(gen, cfg, n, per, device)
+        if cfg.track_values:
+            cw = _encode(arrays, cfg, _draw_source(gen, cfg, k, device))
+            # The flat handoff of the tiled pipeline: the peel kernel fuses
+            # the masking, so the zeroing pass is skipped.
+            recv = cw if cfg.tiled_pipeline else ch.apply_erasures(cw, mask)
+            _, e_out, iters, failed, overflow = _decode(arrays, cfg, recv, mask, k)
+        else:
+            e_out, iters, failed, overflow = _decode_mask(arrays, cfg, mask, k)
+        return batch_stats(
+            mask, e_out, iters, failed, k, code.rs_n, code.rs_k, max_hist,
+            count_all_symbols=cfg.decoder.count_all_symbols, overflow=overflow,
+        )
+
+    def step(call: int, per) -> SimStats:
+        acc = None
+        for j in range(max(cfg.steps_per_call, 1)):
+            s = step_once(batch_generator(cfg.seed, call, j, device), per)
+            acc = s if acc is None else acc + s
+        return acc
+
+    return step
+
+
+@dataclasses.dataclass
+class FERPoint:
+    """One operating point of a FER sweep (one row of the paper's Table I,
+    Latex/Milcom_2022_ErasureCodes.tex:195-210). ``escalations`` (frames
+    failed by the GE buckets' size) is the port's addition."""
+
+    per: float
+    frames: int
+    block_errors: int
+    rs_block_errors: int
+    fer: float
+    rs_fer: float
+    measured_per: float
+    mean_iters: float
+    ml_failed: int
+    seconds: float
+    frames_per_sec: float
+    info_gbps: float
+    escalations: int = 0
+
+
+def symbol_bits(cfg: SimConfig) -> int:
+    if cfg.symbol_words == 0:
+        return 1 if cfg.gf_order == 2 else 8
+    return cfg.symbol_words * (32 if cfg.gf_order == 2 else 8)
+
+
+def run_fer_point(
+    code: LDPCCode | str,
+    cfg: SimConfig,
+    per: float,
+    *,
+    target_errors: int = 100,
+    max_frames: int = 1_000_000,
+    step=None,
+    warmup: bool = True,
+    device: torch.device | str | None = None,
+) -> FERPoint:
+    """Simulate one operating point with error-count-targeted stopping:
+    calls run while fewer than ``max_frames`` frames and fewer than
+    ``target_errors`` block errors are counted. The time covers the calls
+    after the warm-up, each ending in its host read."""
+    if isinstance(code, str):
+        code = get_code(code)
+    if step is None:
+        step = make_sim_step(code, cfg, device=device)
+    per_arg = int(round(per * 64)) if cfg.channel.kind == "per64" else float(per)
+    acc = Accumulator()
+    if warmup:
+        step(WARMUP_CALL, per_arg).to_host()
+    t0 = time.perf_counter()
+    i = 0
+    while acc.frames < max_frames and acc.block_errors < target_errors:
+        acc.add(step(i, per_arg))
+        i += 1
+    dt = time.perf_counter() - t0
+    fps = acc.frames / dt if dt > 0 else 0.0
+    return FERPoint(
+        per=float(per),
+        frames=acc.frames,
+        block_errors=acc.block_errors,
+        rs_block_errors=acc.rs_block_errors,
+        fer=acc.fer,
+        rs_fer=acc.rs_fer,
+        measured_per=acc.erased_symbols / max(acc.frames * code.n, 1),
+        mean_iters=acc.mean_iters,
+        ml_failed=acc.ml_failed,
+        seconds=dt,
+        frames_per_sec=fps,
+        info_gbps=fps * code.k * symbol_bits(cfg) / 1e9,
+        escalations=acc.escalations,
+    )
+
+
+def run_fer_sweep(
+    code: LDPCCode | str,
+    cfg: SimConfig,
+    pers: list[float],
+    *,
+    target_errors: int = 100,
+    max_frames: int = 1_000_000,
+    device: torch.device | str | None = None,
+) -> list[FERPoint]:
+    """Sweep PER operating points with one step."""
+    if isinstance(code, str):
+        code = get_code(code)
+    step = make_sim_step(code, cfg, device=device)
+    return [
+        run_fer_point(code, cfg, p, target_errors=target_errors, max_frames=max_frames,
+                      step=step)
+        for p in pers
+    ]
+
+
+def format_report(code_name: str, cfg: SimConfig, points: list[FERPoint]) -> str:
+    """Render a sweep in the paper's Table-I format
+    (Latex/Milcom_2022_ErasureCodes.tex:195-210)."""
+    lines = [
+        f"# FER sweep — code={code_name} gf={cfg.gf_order} decoder={cfg.decoder.kind} "
+        f"channel={cfg.channel.kind} batch={cfg.batch} symbol_bits={symbol_bits(cfg)}",
+        f"{'PER':>8} {'frames':>12} {'errs':>7} {'FER':>10} {'RS FER':>10} "
+        f"{'meas PER':>9} {'iters':>6} {'fps':>12} {'Gbps':>8}",
+    ]
+    for p in points:
+        lines.append(
+            f"{p.per:8.4f} {p.frames:12d} {p.block_errors:7d} {p.fer:10.3e} "
+            f"{p.rs_fer:10.3e} {p.measured_per:9.4f} {p.mean_iters:6.2f} "
+            f"{p.frames_per_sec:12.1f} {p.info_gbps:8.3f}"
+        )
+    return "\n".join(lines)

@@ -1,6 +1,9 @@
 """Bit-exact checks of decodes, on the device that holds them.
 
-``check_peel`` is the counterpart of
+``check_schedule`` holds the research peel schedules to their contracts
+(tests/test_pallas_peel.py:71-98, :288-307, :702-723): "counted" and
+"grouped" equal "seq" bit for bit, "jacobi" equals its plain version and,
+on the first k, the Jacobi decoder. ``check_peel`` is the counterpart of
 ``ldpc_erasure_codes_tpu/utils/verify.py::_check_peel`` (:86-119),
 ``check_nb`` the contract of ``verify_nb`` (:154-220), ``check_hybrid``
 that of ``verify_hybrid`` (:223-297) and ``check_rs`` that of ``verify_rs``
@@ -21,7 +24,11 @@ import numpy as np
 import torch
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
-from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
+    peel_decode_jacobi,
+    peel_decode_jacobi_reference,
+)
 
 
 def check_peel(
@@ -113,6 +120,69 @@ def check_rs(
         "value_mismatches": value_bad,
         "residual_on_solved": resid_bad,
     }
+
+
+def _mismatch(got, want) -> int:
+    """Largest |got - want| over a tuple of outputs (0 when equal)."""
+    worst = 0
+    for g, w in zip(got, want):
+        diff = g != w
+        if bool(diff.any()):
+            worst = max(worst, int((g[diff].long() - w[diff].long()).abs().max()))
+    return worst
+
+
+def check_schedule(
+    arrays: CodeArrays,
+    codewords: torch.Tensor,
+    channel_mask: torch.Tensor,
+    schedule: str,
+    *,
+    max_iters: int,
+    early_stop_k: int | None,
+    n_ref: int = 64,
+    gf_order: int = 2,
+    got=None,
+) -> dict:
+    """The contract of a peel kernel schedule on one batch. ``got`` is the
+    kernel's (values, erased, iters) for these inputs (decoded here when
+    None). "counted" and "grouped": equal to the "seq" kernel on the whole
+    batch and to the plain sequential decode on the first ``n_ref`` frames.
+    "jacobi": equal to its plain version on the first ``n_ref`` frames, at
+    full width, and there to ``peel_decode_jacobi`` on the iteration counts,
+    the first-k mask and every value both resolved. Always: resolved slots
+    hold the codeword, erased slots zero. Returns the mismatch counts,
+    ``max_abs_err`` (against the plain version) and ``ok``."""
+    kw = dict(max_iters=max_iters, early_stop_k=early_stop_k, gf_order=gf_order)
+    if got is None:
+        got = peel_decode(arrays, codewords, channel_mask, schedule=schedule, **kw)
+    values, erased, _ = got
+    wide = ~erased[:, :, None]
+    report = {
+        "schedule": schedule,
+        "frames": int(codewords.shape[0]),
+        "value_mismatches": int(((values != codewords) & wide).sum()),
+        "erased_nonzero": int(((values != 0) & ~wide).sum()),
+    }
+    nr = min(n_ref, codewords.shape[0])
+    cw_r, mask_r = codewords[:nr].contiguous(), channel_mask[:nr].contiguous()
+    sub = tuple(x[:nr] for x in got)
+    if schedule == "jacobi":
+        plain = peel_decode_jacobi_reference(arrays, cw_r, mask_r, **kw)
+        jv, je, ji = peel_decode_jacobi(arrays, cw_r, mask_r, **kw)
+        k = codewords.shape[1] if early_stop_k is None else early_stop_k
+        both = ~je & ~sub[1]
+        report["decoder_mismatches"] = int((ji != sub[2]).sum()) + int(
+            (je[:, :k] != sub[1][:, :k]).sum()) + int((jv != sub[0])[both].sum())
+    else:
+        plain = peel_decode_reference(arrays, cw_r, mask_r, **kw)
+        seq = peel_decode(arrays, codewords, channel_mask, schedule="seq", **kw)
+        report["seq_mismatch"] = _mismatch(got, seq)
+    report["ref_frames"] = nr
+    report["max_abs_err"] = _mismatch(sub, plain)
+    report["ok"] = all(v == 0 for f, v in report.items()
+                       if f not in ("schedule", "frames", "ref_frames"))
+    return report
 
 
 def replay_residual(arrays: CodeArrays, channel_mask: torch.Tensor, sweeps: int) -> np.ndarray:

@@ -20,6 +20,10 @@ from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve_packed
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
+    peel_decode_jacobi,
+    peel_decode_jacobi_reference,
+)
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from torch_port_cases import cuda_device, random_words, to_torch  # noqa: F401 (fixture)
 
@@ -223,7 +227,7 @@ def test_hybrid_cuda_matches_cpu(cuda_device, per, peel_iters, tiled):
     arrays = code_arrays(code, cuda_device)
     cw, mask = _peeled(code, arrays, 16, 4, per, peel_iters, 12)
     kw = dict(peel_iters=peel_iters, emax=512, ge_subbatch=8, tiled=tiled, static_topo=True,
-              return_overflow=True)
+              return_overflow=True, impl="vmem")
     before = elim.f2_eliminate.launches
     got = hybrid_decode(arrays, cw, mask, **kw)
     torch.cuda.synchronize()
@@ -426,7 +430,7 @@ def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
     rng = np.random.default_rng(21)
     cw = encode_packed(arrays, _random_bytes(rng, (16, code.k, 16), cuda_device), gf_order=256)
     mask = torch.from_numpy(rng.random((16, code.n)) < 0.2031).to(cuda_device)
-    kw = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=4)
+    kw = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=4, impl="vmem")
     cpu = code_arrays(code, "cpu")
     if escalated:
         before = elim.gf256_eliminate.launches
@@ -442,3 +446,60 @@ def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
     torch.testing.assert_close(got[0].cpu()[ok], want[0][ok], rtol=0, atol=0)
     torch.testing.assert_close(got[0].cpu()[ok], cw.cpu()[ok], rtol=0, atol=0)
     _equal([x.cpu() for x in got[1:4]], want[1:4])
+
+
+# The research schedules of csrc/peel_sched.cu. "counted" and "grouped" are
+# the sequential function (csrc/peel.cu's, peel_decode_reference's);
+# "jacobi" is peel_decode_jacobi_reference's. W=200 is ragged (not a
+# multiple of 128 words), W=5 takes the one-word path; n4000_k2000 sizes the
+# shared memory (counted n + m, jacobi n + 4m bytes per warp).
+def _sched_plain(schedule):
+    return peel_decode_jacobi_reference if schedule == "jacobi" else peel_decode_reference
+
+
+@pytest.mark.parametrize("schedule", ["counted", "grouped", "jacobi"])
+@pytest.mark.parametrize("name", ["n2040_k1530", "n4000_k2000"])
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("w,aligned", [(256, True), (256, False), (200, True), (5, True)])
+def test_peel_schedule_kernel_matches_plain(cuda_device, schedule, name, early_stop, w, aligned):
+    code = get_code(name)
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(17)
+    cw = encode_packed(arrays, to_torch(random_words(rng, (16, code.k, w))).to(cuda_device))
+    if not aligned:
+        cw = _misaligned(cw)
+    mask = torch.from_numpy(rng.random((16, code.n)) < 0.1406).to(cuda_device)
+    kw = dict(max_iters=50, early_stop_k=code.k if early_stop else None)
+    counter = f"launches_{schedule}"
+    before = getattr(peel_decode, counter)
+    got = peel_decode(arrays, cw, mask, schedule=schedule, **kw)
+    torch.cuda.synchronize()
+    assert getattr(peel_decode, counter) == before + 1
+    _equal(got, _sched_plain(schedule)(arrays, cw, mask, **kw))
+    assert torch.equal(got[0][~got[1]], cw[~got[1]]) and not got[0][got[1]].any()
+    if schedule != "jacobi":
+        _equal(got, peel_decode(arrays, cw, mask, **kw))
+    else:
+        v, e, it = peel_decode_jacobi(arrays, cw, mask, **kw)
+        _equal((got[1][:, : code.k], got[2]), (e[:, : code.k], it))
+
+
+@pytest.mark.parametrize("schedule", ["counted", "grouped", "jacobi"])
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (20, True)])
+def test_peel_schedule_nb_kernel_matches_plain(cuda_device, schedule, early_stop, wb, aligned):
+    code = get_code("n2040_k1530_gf256")
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(18)
+    cw = encode_packed(arrays, _random_bytes(rng, (16, code.k, wb), cuda_device), gf_order=256)
+    if not aligned:
+        cw = _misaligned_bytes(cw)
+    mask = torch.from_numpy(rng.random((16, code.n)) < 0.1406).to(cuda_device)
+    kw = dict(max_iters=50, early_stop_k=code.k if early_stop else None, gf_order=256)
+    counter = f"launches_{schedule}_gf256"
+    before = getattr(peel_decode, counter)
+    got = peel_decode(arrays, cw, mask, schedule=schedule, **kw)
+    torch.cuda.synchronize()
+    assert getattr(peel_decode, counter) == before + 1
+    _equal(got, _sched_plain(schedule)(arrays, cw, mask, **kw))
+    assert torch.equal(got[0][~got[1]], cw[~got[1]])

@@ -238,7 +238,8 @@ def test_hybrid_nb_matches_jax(tiled, ge_subbatch):
         device_arrays(jcode), jnp.asarray(values.numpy()), jnp.asarray(mask.numpy()),
         impl="vmem", b_tile=1, return_overflow=True, **kw))
     v, e, it, f, ov = (x.numpy() for x in hybrid_decode(
-        code_arrays(code, "cpu"), values, mask, tiled=tiled, return_overflow=True, **kw))
+        code_arrays(code, "cpu"), values, mask, tiled=tiled, return_overflow=True, impl="vmem",
+        **kw))
     np.testing.assert_array_equal(it, jit)
     np.testing.assert_array_equal(ov, jov)
     _assert_solver_equal([torch.from_numpy(x) for x in (v, e, f)], (jv, je, jf), cw)
@@ -255,9 +256,9 @@ def test_hybrid_escalated_nb_matches_jax():
         device_arrays(jcode), jnp.asarray(values.numpy()), jnp.asarray(mask.numpy()),
         impl="vmem", b_tile=1, **kw)
     arrays = code_arrays(code, "cpu")
-    first = hybrid_decode(arrays, values, mask, **kw)
+    first = hybrid_decode(arrays, values, mask, impl="vmem", **kw)
     counts = gf256_eliminate.launches
-    v, e, it, f, n_esc = hybrid_decode_escalated(arrays, values, mask, **kw)
+    v, e, it, f, n_esc = hybrid_decode_escalated(arrays, values, mask, impl="vmem", **kw)
     assert gf256_eliminate.launches == counts
     assert n_esc == jn > 0
     assert int(first[3].sum()) > int(f.sum())  # escalation solved frames

@@ -79,7 +79,8 @@ def test_hybrid_matches_jax_2040(case2040, emax, ge_subbatch):
     assert peel_decode(arrays, cw, m, max_iters=10)[1].any()  # the GE has work
     assert (ge_subbatch == 8) == (not want[4].any())
     for tiled in (True, False):  # row writeback (topology syndrome) / compact_ge_solve
-        got = hybrid_decode(arrays, cw, m, tiled=tiled, static_topo=True, return_overflow=True, **kw)
+        got = hybrid_decode(arrays, cw, m, tiled=tiled, static_topo=True, return_overflow=True,
+                            impl="vmem", **kw)
         _assert_same(got, want, cw)
 
 
@@ -92,7 +93,7 @@ def test_hybrid_matches_jax_unrolled_small():
     want = _jax_tiled(jarr, cw, mask, 4, static_topo=static_topology(jarr), **kw)
     assert want[3].any() and not want[3].all()
     got = hybrid_decode(arrays, cw, torch.from_numpy(mask), tiled=True, static_topo=True,
-                        return_overflow=True, **kw)
+                        return_overflow=True, impl="vmem", **kw)
     _assert_same(got, want, cw)
 
 
@@ -110,9 +111,10 @@ def test_escalation_matches_jax(ge_subbatch):
         b_tile=4, ge_subbatch=ge_subbatch,
     )
     m = torch.from_numpy(mask)
-    first = hybrid_decode(arrays, cw, m, peel_iters=10, emax=emax, ge_subbatch=ge_subbatch)
+    first = hybrid_decode(arrays, cw, m, peel_iters=10, emax=emax, ge_subbatch=ge_subbatch,
+                          impl="vmem")
     v, e, it, f, n_esc = hybrid_decode_escalated(
-        arrays, cw, m, peel_iters=10, emax=emax, ge_subbatch=ge_subbatch
+        arrays, cw, m, peel_iters=10, emax=emax, ge_subbatch=ge_subbatch, impl="vmem"
     )
     assert n_esc == jn and n_esc > 0
     assert first[3].sum() > f.sum()  # escalation recovered frames
@@ -128,7 +130,7 @@ def test_hybrid_matches_oracle():
     src = rng.integers(0, 2, (6, jcode.k, 1)).astype(np.uint32)
     cw = encode_packed(arrays, to_torch(src))
     mask = rng.random((6, jcode.n)) < 0.205
-    v, e, it, f = hybrid_decode(arrays, cw, torch.from_numpy(mask), emax=jcode.n)
+    v, e, it, f = hybrid_decode(arrays, cw, torch.from_numpy(mask), emax=jcode.n, impl="vmem")
     bits = to_words(cw)[:, :, 0].astype(np.int64)
     n_ge = 0
     for i in range(6):
@@ -148,7 +150,7 @@ def test_check_hybrid_catches_each_fault(case2040):
     arrays, _, cw, mask = case2040
     m = torch.from_numpy(mask)
     v, e, _, f = hybrid_decode(arrays, cw, m, emax=256, ge_subbatch=8, tiled=True,
-                               static_topo=True)
+                               static_topo=True, impl="vmem")
     report = check_hybrid(arrays, cw, m, v, e, f, peel_iters=10)
     stuck = peel_decode(arrays, cw, m, max_iters=10)[1].any(dim=1)
     assert report["ok"], report

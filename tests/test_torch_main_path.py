@@ -111,7 +111,7 @@ def test_runs_with_jax_unimportable():
         "mask = p.iid_erasures((2, code.n), 0.44, generator=g, device='cpu')\n"
         "assert p.peel_decode(arrays, cw, mask, max_iters=10)[1].any()\n"
         "hv, he, hit, hf = p.hybrid_decode(arrays, cw, mask, emax=1000, ge_subbatch=2,\n"
-        "                                  tiled=True, static_topo=True)\n"
+        "                                  tiled=True, static_topo=True, impl='vmem')\n"
         "assert not hf.all() and not he[~hf].any() and (hv[~hf] == cw[~hf]).all()\n"
         "assert not [m for m in sys.modules if m.startswith('ldpc_erasure_codes_tpu.')]\n"
         "print('ok', it.tolist())\n"
