@@ -52,9 +52,10 @@ Phases, each fatal on failure:
 7. each GF(256) kernel's time against its plain version's: encode and peel
    at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch;
 8. the ``throughput`` command by peel schedule (``bench.ThroughputPath``,
-   ``utils/cli.py::make_throughput_step``): (2040,1530), B=2048, W=256, PER
+   ``bench.make_throughput_step``): (2040,1530), B=2048, W=256, PER
    .1406, first-k early stop, for each of "seq", "unrolled", "counted",
-   "grouped" and "jacobi"; counted and timed per schedule. On one fixed
+   "grouped" and "jacobi"; counted and timed per schedule, and the step's
+   digest timed apart. On one fixed
    batch the three research kernels (``csrc/peel_sched.cu``) are held
    against their plain versions on the whole batch, "counted" and
    "grouped" against the "seq" kernel, "jacobi" against the Jacobi decoder
@@ -66,6 +67,8 @@ Phases, each fatal on failure:
    (``run_fer_sweep``: 50 sweeps, emax 256, bucket B/8), both held to the
    bands of the published FER, RS FER and mean iterations; at emax 256 the
    hybrid's failures are frames whose residual outgrows the column bucket,
+   as the JAX package's own pattern-only decoder flags them
+   (``tests/test_torch_sim.py::test_hybrid_bucket_overflow_matches_jax``),
    so 9b runs again at emax 512, where no frame escalates; 9c value
    tracking at the FPGA shape (hybrid, W=256, B=2048, the flat handoff with
    the masking fused in the peel kernel), counted, its FER and escalations
@@ -988,6 +991,11 @@ def schedule_phase(device, card: str, errs: dict, times: dict, plain: dict, boun
     mask = iid_erasures((b, code.n), per, generator=gen, device=device)
     kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=k)
     seq_ms = cuda_ms(lambda: peel_decode(arrays, cw, mask, **kw), 5)
+    values = peel_decode(arrays, cw, mask, **kw)[0]
+    digest_ms = cuda_ms(lambda: values.sum(dim=(0, 1), dtype=torch.int32), 5)
+    log(f"phase 8: the throughput step's digest alone (one sum over the {b}x{code.n}x{w} "
+        f"decoded words): {digest_ms:.3f} ms; seq kernel alone {seq_ms:.3f} ms; on {card}")
+    del values
     for schedule, name in SCHED_KERNELS.items():
         got = peel_decode(arrays, cw, mask, schedule=schedule, **kw)
         report = check_schedule(arrays, cw, mask, schedule, got=got, n_ref=64, **kw)
@@ -1081,6 +1089,8 @@ def sim_phase(device, card: str, launches: dict) -> None:
         f"iterations {h.mean_iters:.3f}, ml_failed {h.ml_failed}, escalations {h.escalations}, "
         f"{h.frames} frames, {h.frames_per_sec:.1f} frames/s on {card}")
     require(in_band(h.fer, HYBRID_FER), f"9b hybrid FER {h.fer} outside {HYBRID_FER}")
+    # At emax 256 the failures are bucket overflows, here and in the JAX
+    # package's decoder on the same masks (test_hybrid_bucket_overflow_matches_jax).
     require(h.escalations <= h.ml_failed, "9b: a frame failed by bucket size was not failed")
     # The same sweep with a column bucket no residual outgrows: what is left
     # is rank deficiency alone (the ML decoder's FER), with no escalation.

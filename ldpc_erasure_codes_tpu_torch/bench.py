@@ -22,10 +22,10 @@ outside the timed region, and per rep a fresh mask, the hybrid decode
 times it at the GE-hot point ``HYBRID``.
 
 :class:`ThroughputPath` is the CLI's ``throughput`` command
-(``utils/cli.py::make_throughput_step``) at one peel schedule: per rep a
-fresh mask, the decode by that schedule's kernel (or the Jacobi decoder,
-``impl="xla"``) with first-k early stop, and an XOR digest of every decoded
-symbol.
+(:func:`make_throughput_step`) at one peel schedule: per rep a fresh mask,
+the decode by that schedule's kernel (or the Jacobi decoder,
+``impl="xla"``) with first-k early stop, and a one-pass digest of every
+decoded word.
 
 :class:`NBPath` is the GF(256) chain of ``scripts/bench_nb_stages.py``
 (``enc_dec``, :111-124) and, with ``hybrid``, of
@@ -44,15 +44,15 @@ import sys
 
 import torch
 
-from ldpc_erasure_codes_tpu_torch.channel.erasure import iid_erasures
+from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
 from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode, get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
-from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
+from ldpc_erasure_codes_tpu_torch.ops.peel import SCHEDULES, peel_decode
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi
 from ldpc_erasure_codes_tpu_torch.rs.code import rs_code
 from ldpc_erasure_codes_tpu_torch.rs.decode import rs_decode_wide, rs_encode
-from ldpc_erasure_codes_tpu_torch.utils.cli import make_throughput_step, xor_fold
 from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
 
 BASELINE_GBPS = 36.3
@@ -77,7 +77,47 @@ def random_words(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 def xor_reduce(x: torch.Tensor) -> torch.Tensor:
     """XOR of all elements of an int32 tensor, as a 0-d tensor."""
-    return xor_fold(x.reshape(-1), 0)
+    x = x.reshape(-1)
+    while x.numel() > 1:
+        if x.numel() % 2:
+            x = torch.cat([x, x.new_zeros(1)])
+        x = x[0::2] ^ x[1::2]
+    return x.reshape(())
+
+
+def make_throughput_step(
+    code, arrays, *, batch: int, per: float, max_iters: int,
+    impl: str = "pallas", schedule: str = "seq",
+):
+    """The ``throughput`` command's step ``step(generator, cw) -> (first-k
+    residual, digest)``: an i.i.d. channel draw on the codewords' device,
+    then the wide value decode with first-k early stop. ``impl="pallas"``
+    is the peel kernel of ``schedule`` (``ops/peel.py`` SCHEDULES; the
+    masking is fused into its copy-in); ``"xla"`` zeroes the erased slots
+    and runs the Jacobi decoder ``peel_decode_jacobi`` (JAX's
+    ``peel_decode_wide``).
+
+    The outputs depend on the codeword values, so a measurement always
+    includes the value decode (the JAX CLI's cli.py:104-109): the digest is
+    the wrapping int32 sum of every decoded word at each word position,
+    (W,) words, one reduction that reads the values once. The symbol width
+    is the codewords'.
+    """
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"impl must be 'pallas' or 'xla', got {impl!r}")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+
+    def step(generator: torch.Generator, cw: torch.Tensor):
+        mask = iid_erasures((batch, code.n), per, generator=generator, device=cw.device)
+        kw = dict(max_iters=max_iters, early_stop_k=code.k)
+        if impl == "pallas":
+            values, erased, _ = peel_decode(arrays, cw, mask, schedule=schedule, **kw)
+        else:
+            values, erased, _ = peel_decode_jacobi(arrays, apply_erasures(cw, mask), mask, **kw)
+        return erased[:, : code.k].sum(), values.sum(dim=(0, 1), dtype=torch.int32)
+
+    return step
 
 
 class MainPath:

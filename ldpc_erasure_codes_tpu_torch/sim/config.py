@@ -55,9 +55,6 @@ class DecoderConfig:
     peel_iters: int = 10  # hybrid peel budget (My_LDPC_HybridML_Erasure_Decoder.m:9)
     emax: int = 128  # residual-GE column bucket
     impl: str = "gather"  # "gather" | "matmul" | "vmem" peeling step
-    # The JAX package's VMEM frame tile; the port's kernels take any batch,
-    # so it is accepted and has no effect.
-    b_tile: int = 0
     # Peel kernel schedule for impl="vmem" (ops/peel.py SCHEDULES).
     schedule: str = "seq"
     early_stop_k: bool = False  # FPGA first-k-known early exit

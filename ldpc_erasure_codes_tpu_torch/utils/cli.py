@@ -11,9 +11,10 @@ with the JAX CLI's flags, defaults and output (``format_report`` then, with
 ``--device``: the CUDA card by default, ``cpu`` where the caller asks for
 it. The JAX CLI falls back to its XLA path where its VMEM kernel cannot
 take a shape (:131-137, :172-180); the CUDA kernels take any width, so this
-CLI has no fallback. ``--b-tile`` and ``--tiled`` are accepted for the same
-command lines and have no effect: the port keeps the flat layout (its
-kernels take any batch and fuse the masking).
+CLI has no fallback. The JAX ``throughput`` flags ``--b-tile`` and
+``--tiled`` (the VMEM frame tile, the tile-major layout) have no
+counterpart: the port keeps the flat layout, and its kernels take any batch
+and fuse the masking.
 
 Run as ``python -m ldpc_erasure_codes_tpu_torch.utils.cli <cmd> ...``.
 """
@@ -28,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from ldpc_erasure_codes_tpu_torch.bench import make_throughput_step, random_words
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code, list_codes
 from ldpc_erasure_codes_tpu_torch.utils.device import cuda_device
 
@@ -36,53 +38,6 @@ def resolve_device(name: str) -> torch.device:
     """``cuda`` is the first card (raises where there is none); anything
     else is taken as torch names it."""
     return cuda_device() if name == "cuda" else torch.device(name)
-
-
-def xor_fold(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """XOR-reduce an integer tensor along ``dim`` (pairwise halving)."""
-    x = x.movedim(dim, 0)
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat([x, torch.zeros_like(x[:1])])
-        x = x[0::2] ^ x[1::2]
-    return x[0]
-
-
-def make_throughput_step(
-    code, arrays, *, batch: int, per: float, max_iters: int,
-    impl: str = "pallas", schedule: str = "seq",
-):
-    """The throughput step ``step(generator, cw) -> (first-k residual,
-    digest)``: an i.i.d. channel draw on the codewords' device, then the
-    wide value decode with first-k early stop. ``impl="pallas"`` is the
-    peel kernel of ``schedule`` (``ops/peel.py`` SCHEDULES; the masking is
-    fused into its copy-in); ``"xla"`` zeroes the erased slots and runs the
-    Jacobi decoder ``peel_decode_jacobi`` (JAX's ``peel_decode_wide``).
-
-    The outputs depend on the codeword values (an XOR digest of the decoded
-    symbols, (W,) words), so a measurement always includes the value decode
-    (cli.py:104-109). The symbol width is the codewords'.
-    """
-    from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
-    from ldpc_erasure_codes_tpu_torch.ops.peel import SCHEDULES, peel_decode
-    from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi
-
-    if impl not in ("pallas", "xla"):
-        raise ValueError(f"impl must be 'pallas' or 'xla', got {impl!r}")
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
-
-    def step(generator: torch.Generator, cw: torch.Tensor):
-        mask = iid_erasures((batch, code.n), per, generator=generator, device=cw.device)
-        kw = dict(max_iters=max_iters, early_stop_k=code.k)
-        if impl == "pallas":
-            values, erased, _ = peel_decode(arrays, cw, mask, schedule=schedule, **kw)
-        else:
-            values, erased, _ = peel_decode_jacobi(arrays, apply_erasures(cw, mask), mask, **kw)
-        digest = xor_fold(xor_fold(values, 1), 0)
-        return erased[:, : code.k].sum(), digest
-
-    return step
 
 
 def sim_config(args):
@@ -132,7 +87,6 @@ def _sync(device: torch.device) -> None:
 
 
 def cmd_throughput(args) -> int:
-    from ldpc_erasure_codes_tpu_torch.bench import random_words
     from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
     from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 
@@ -220,8 +174,6 @@ def parser() -> argparse.ArgumentParser:
                     help="pallas: the peel kernel of --schedule; xla: the Jacobi decoder")
     pt.add_argument("--schedule", default="seq",
                     choices=["seq", "unrolled", "counted", "grouped", "jacobi"])
-    pt.add_argument("--b-tile", type=int, default=0, help="accepted; no effect here")
-    pt.add_argument("--tiled", action="store_true", help="accepted; no effect here")
     pt.add_argument("--reps", type=int, default=20)
     pt.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
     pt.set_defaults(fn=cmd_throughput)

@@ -18,14 +18,16 @@ import torch
 
 from ldpc_erasure_codes_tpu import channel as jax_channel
 from ldpc_erasure_codes_tpu import sim as jax_sim
+from ldpc_erasure_codes_tpu.codes import get_code as jax_get_code
 from ldpc_erasure_codes_tpu.ops import device_arrays
 from ldpc_erasure_codes_tpu.sim import driver as jax_driver
 from ldpc_erasure_codes_tpu.sim.stats import batch_stats as jax_batch_stats
-from ldpc_erasure_codes_tpu_torch import sim
+from ldpc_erasure_codes_tpu_torch import bench, sim
 from ldpc_erasure_codes_tpu_torch.channel import erasure as ch
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_mask
 from ldpc_erasure_codes_tpu_torch.sim import driver
 from ldpc_erasure_codes_tpu_torch.utils import cli
 from torch_port_cases import small_jax_code, to_port_code
@@ -131,6 +133,42 @@ def test_driver_decode_matches_jax(dec):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def test_hybrid_bucket_overflow_matches_jax():
+    """The pattern-only hybrid of the JAX CLI's ``plot`` (50 sweeps, emax
+    256, a bucket of B/8 frames) at (2040,1530), PER .1875, on one seeded
+    4096-frame batch: the port's and the JAX package's ``_decode_mask``
+    agree on every output, every failed frame is a column-bucket overflow
+    (a residual of more than emax symbols), and at emax 512 the same frames
+    are all solved, with no overflow. Both sides see the batch's residual
+    frames after peeling; the other frames leave the peel decoded, on both
+    sides (``peel_decode_mask`` equals JAX's, test_torch_peel_jacobi.py)."""
+    code = get_code("n2040_k1530")
+    arrays, jarr = code_arrays(code, "cpu"), device_arrays(jax_get_code(code.name))
+    mask = np.random.default_rng(0).random((4096, code.n)) < 0.1875
+    e, _ = peel_decode_mask(arrays, torch.from_numpy(mask), max_iters=50)
+    frames = mask[e.any(dim=1).numpy()]
+    for emax in (256, 512):
+        dec = dict(kind="hybrid", max_iters=50, emax=emax, ge_subbatch=4096 // 8)
+        cfg = sim.SimConfig(batch=len(frames), track_values=False,
+                            decoder=sim.DecoderConfig(**dec))
+        jcfg = jax_sim.SimConfig(batch=len(frames), track_values=False,
+                                 decoder=jax_sim.DecoderConfig(**dec))
+        got = driver._decode_mask(arrays, cfg, torch.from_numpy(frames), code.k)
+        want = [np.asarray(w) for w in
+                jax_driver._decode_mask(jarr, jcfg, jnp.asarray(frames), code.k)]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+        failed, overflow = want[2], want[3]
+        print(f"emax {emax}: {len(frames)} frames, JAX failed {int(failed.sum())}, "
+              f"overflowed {int(overflow.sum())}")
+        if emax == 256:
+            assert (len(frames), int(failed.sum())) == (79, 27)
+            np.testing.assert_array_equal(failed, overflow)
+            frames = frames[failed]
+        else:
+            assert not failed.any() and not overflow.any()
+
+
 def test_sim_cli_smoke(capsys):
     """``sim`` prints the JAX CLI's report, then its JSON lines."""
     argv = ["sim", "--code", "n2000_k1000", "--batch", "8", "--symbol-words", "2",
@@ -167,16 +205,15 @@ def test_throughput_cli_smoke(capsys, schedule, impl):
 def test_throughput_step_consumes_values():
     """tests/test_cli.py::test_throughput_step_consumes_values: two codeword
     batches under the same channel draw give different digests."""
-    from ldpc_erasure_codes_tpu_torch.bench import random_words
     from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 
     code = get_code("n2000_k1000")
     arrays = code_arrays(code, "cpu")
-    step = cli.make_throughput_step(code, arrays, batch=4, per=0.2, max_iters=50,
-                                    schedule="grouped")
+    step = bench.make_throughput_step(code, arrays, batch=4, per=0.2, max_iters=50,
+                                      schedule="grouped")
     g = torch.Generator().manual_seed(1)
-    cw1 = encode_packed(arrays, random_words((4, code.k, 2), g, "cpu"))
-    cw2 = encode_packed(arrays, random_words((4, code.k, 2), g, "cpu"))
+    cw1 = encode_packed(arrays, bench.random_words((4, code.k, 2), g, "cpu"))
+    cw2 = encode_packed(arrays, bench.random_words((4, code.k, 2), g, "cpu"))
     d1 = step(torch.Generator().manual_seed(7), cw1)
     d2 = step(torch.Generator().manual_seed(7), cw2)
     assert int(d1[0]) == int(d2[0]) and not torch.equal(d1[1], d2[1])
