@@ -72,12 +72,30 @@ Phases, each fatal on failure:
    so 9b runs again at emax 512, where no frame escalates; 9c value
    tracking at the FPGA shape (hybrid, W=256, B=2048, the flat handoff with
    the masking fused in the peel kernel), counted, its FER and escalations
-   reported.
+   reported. 9b's rank check is the rank kernel (``csrc/rank.cu``),
+   counted; every count of 9a-9c must equal the recorded counts of the
+   same seeds (``RECORDED_COUNTS``);
+10. the last three kernels against their plain versions, bit-exact: the
+   rank kernel on 9b's 512-frame bucket at emax 256 and 512 (both matrix
+   modes) and on (4000,2000) at emax 1024 (the matrix in device memory);
+   ``channel_apply_per64`` at B=64 and at the main path's shape (beside the
+   unfused ``iid_erasures_per64`` + ``apply_erasures``); ``gf_matmul_batched``
+   on phase 6d's RS i.i.d. batch (counted, and held against the rows
+   ``gf_apply_scatter`` places);
+10b. the decoder-top leg, the FPGA's data_in analog (PARITY.md:60):
+   (2040,1530), B=2048, W=256, encode -> ``channel_apply_per64`` at 9/64 ->
+   seq peel with first-k stop; counted, verified (``check_peel``), timed;
+11. the parallel layer on the card: ``multihost.initialize`` over NCCL at
+   world size 1 (``file://`` rendezvous), the sharded 9b and 9c steps equal
+   to the unsharded ones, ``run_fer_point(mesh=...)`` at 9a's point equal to
+   9a's counts, one ``cli scaling --devices 1`` subprocess,
+   ``dryrun_multichip(1)``; the process group is destroyed before the end.
 
 Every kernel's entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and the
 integer operations its inputs need over the card's INT32 rate (``bound``).
-No single PyTorch call computes any of these GF(2)/GF(256) functions, so
+No single PyTorch call computes any of these GF(2)/GF(256) functions (the
+unfused channel pair is two calls computing another stream), so
 ``library_ms`` is null throughout. The line before the last is a JSON
 object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -90,18 +108,28 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from ldpc_erasure_codes_tpu_torch import bench, sim
-from ldpc_erasure_codes_tpu_torch.channel.erasure import iid_erasures
+from ldpc_erasure_codes_tpu_torch.channel.erasure import (
+    apply_erasures,
+    iid_erasures,
+    iid_erasures_per64,
+)
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import _build, elim
+from ldpc_erasure_codes_tpu_torch.ops import _build, elim, rank
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
+from ldpc_erasure_codes_tpu_torch.ops.channel import (
+    channel_apply_per64,
+    channel_apply_per64_reference,
+)
 from ldpc_erasure_codes_tpu_torch.ops.compact import residual_order
 from ldpc_erasure_codes_tpu_torch.gf.ops import gf_inv, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops.elim import (
@@ -116,6 +144,7 @@ from ldpc_erasure_codes_tpu_torch.ops.ge import (
     coefficient_cube,
     coefficient_cube_nb,
     erased_indices,
+    ge_rank_check_reference,
     ge_solve,
     pivot_transforms,
 )
@@ -129,11 +158,19 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_matvec_wide_reference,
     gf_apply_scatter,
     gf_apply_scatter_reference,
+    gf_matmul_batched,
+    gf_matmul_batched_reference,
     gf_matvec_wide,
     gf_matvec_wide_reference,
 )
 from ldpc_erasure_codes_tpu_torch.ops.peel import SCHEDULES, peel_decode, peel_decode_reference
-from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi_reference
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
+    peel_decode_jacobi_reference,
+    peel_decode_mask,
+)
+from ldpc_erasure_codes_tpu_torch.ops.rank import erased_columns, f2_rank_check
+from ldpc_erasure_codes_tpu_torch.parallel import default_mesh, multihost, shard_sim_step
+from ldpc_erasure_codes_tpu_torch.parallel.dryrun import dryrun_multichip
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode
 from ldpc_erasure_codes_tpu_torch.utils import cli
@@ -209,6 +246,18 @@ KERNELS = {
         source="ldpc_erasure_codes_tpu_torch/csrc/peel_sched.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:377",
     ),
+    "ge_rank": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/rank.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_ge.py:84",
+    ),
+    "channel_apply_per64": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/channel.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_channel.py:54",
+    ),
+    "gf_matmul_batched": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/gfmm.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:241",
+    ),
 }
 # Where each kernel's launches are counted: (wrapper, attribute). The
 # encode and peel wrappers count their GF(256) mode apart.
@@ -228,6 +277,9 @@ COUNTERS = {
     "peel_counted": (peel_decode, "launches_counted"),
     "peel_grouped": (peel_decode, "launches_grouped"),
     "peel_jacobi": (peel_decode, "launches_jacobi"),
+    "ge_rank": (f2_rank_check, "launches"),
+    "channel_apply_per64": (channel_apply_per64, "launches"),
+    "gf_matmul_batched": (gf_matmul_batched, "launches"),
 }
 # The research schedules' kernel entries; their GF(256) modes are held to
 # the plain versions under the same entry.
@@ -241,6 +293,20 @@ PEEL_FER = (1.44e-2, 2.46e-2)
 RS_FER = (6.3e-3, 8.4e-3)
 PEEL_ITERS = (12.6, 13.6)
 HYBRID_FER = (3.3e-3, 6.1e-3)
+# Phase 9's counts as every earlier run of this script on the card recorded
+# them (the same seeds; PERF.md): 9a 1263 block errors and 3880 RS window
+# errors in 65536 frames; 9b 297 block errors in 65536 frames at emax 256,
+# all 297 failed by bucket size, and none at emax 512; 9c 520 in 16384
+# frames, each failed by bucket size. A rank check or a sharding that
+# changed a flag or a random stream would change them.
+RECORDED_COUNTS = {"9a": (65536, 1263, 3880), "9b": (65536, 297, 297, 297),
+              "9b emax 512": (65536, 0, 0, 0), "9c": (16384, 520, 520, 520)}
+# 9b's frames/s on the card with the plain pivot loop as its rank check
+# (PERF.md), printed beside the rank kernel's.
+PLAIN_LOOP_FPS = {"9b": 23281.8, "9b emax 512": 9045.7}
+# Philox-4x32-10 per symbol: 10 rounds of two 32x32 products (hi and lo)
+# and six XORs/adds.
+PHILOX_OPS = 10 * 10
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory
 # 3.35 TB/s; INT32 16.7e12 operations/s (64 INT32 lanes per SM, half the
@@ -794,8 +860,9 @@ def compare_gf_small(device, errs: dict) -> None:
 
 
 def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict,
-              launches: dict) -> None:
-    """Phases 6-7: the GF(256) kernels, the NB paths and RS."""
+              launches: dict) -> GEInputsNB:
+    """Phases 6-7: the GF(256) kernels, the NB paths and RS. Returns the GE
+    operands of the RS i.i.d. batch."""
     compare_gf_small(device, errs)
 
     # 6a: the NB main path, counted.
@@ -958,6 +1025,7 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
             f"{plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
             f"({bounds[name]['bound_by']}: {bounds[name]['bytes']:.4g} bytes, "
             f"{bounds[name]['ops']:.4g} ops), max abs err {errs[name]} on {card}")
+    return ge
 
 
 def schedule_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict,
@@ -1063,11 +1131,25 @@ def in_band(x: float, band: tuple) -> bool:
     return band[0] <= x <= band[1]
 
 
-def sim_phase(device, card: str, launches: dict) -> None:
-    """Phase 9: the FER simulation at (2040,1530), PER .1875."""
-    common = ["--code", "n2040_k1530", "--pers", str(SIM_PER), "--json"]
-    argv = ["sim", "--decoder", "peel", "--pattern-only", "--early-stop-k", "--batch", "4096",
-            "--steps-per-call", "16", "--target-errors", "150", *common]
+SIM_COMMON = ["--code", "n2040_k1530", "--pers", str(SIM_PER), "--json"]
+SIM_9A = ["sim", "--decoder", "peel", "--pattern-only", "--early-stop-k", "--batch", "4096",
+          "--steps-per-call", "16", "--target-errors", "150", *SIM_COMMON]
+SIM_9C = ["sim", "--decoder", "hybrid", "--symbol-words", "256", "--batch", "2048",
+          "--tiled-pipeline", "--max-frames", "8192", *SIM_COMMON]
+
+
+def hybrid_sim_config(code):
+    """9b's configuration: the JAX CLI's ``plot`` knobs (50 sweeps, emax
+    256, bucket B/8) at B = 4096, 16 batches per call."""
+    return sim.SimConfig(code=code.name, batch=4096, track_values=False, steps_per_call=16,
+                         decoder=sim.DecoderConfig(kind="hybrid", max_iters=50, emax=256,
+                                                   ge_subbatch=4096 // 8))
+
+
+def sim_phase(device, card: str, launches: dict) -> dict:
+    """Phase 9: the FER simulation at (2040,1530), PER .1875. Returns 9a's
+    point."""
+    argv = SIM_9A
     log(f"phase 9a: cli {' '.join(argv)}")
     (p,) = run_cli(argv)
     log(f"phase 9a: peel FER {p['fer']:.4e} (band {PEEL_FER}), RS FER {p['rs_fer']:.4e} "
@@ -1079,32 +1161,49 @@ def sim_phase(device, card: str, launches: dict) -> None:
     require(in_band(p["mean_iters"], PEEL_ITERS),
             f"9a mean iterations {p['mean_iters']} outside {PEEL_ITERS}")
 
+    require((p["frames"], p["block_errors"], p["rs_block_errors"]) == RECORDED_COUNTS["9a"],
+            f"9a counts {p['frames']}, {p['block_errors']}, {p['rs_block_errors']} differ from "
+            f"the recorded {RECORDED_COUNTS['9a']}")
+
     code = get_code("n2040_k1530")
-    cfg = sim.SimConfig(code=code.name, batch=4096, track_values=False, steps_per_call=16,
-                        decoder=sim.DecoderConfig(kind="hybrid", max_iters=50, emax=256,
-                                                  ge_subbatch=4096 // 8))
+    cfg = hybrid_sim_config(code)
+    torch.cuda.synchronize()
+    zero_counts()
     (h,) = sim.run_fer_sweep(code, cfg, [SIM_PER], target_errors=150, device=device)
+    counts = read_counts()
+    require(counts["ge_rank"] > 0, "the pattern-only hybrid never launched the rank kernel")
+    add_counts(launches, counts)
     log(sim.format_report(f"{code.name} hybrid", cfg, [h]))
     log(f"phase 9b: hybrid FER {h.fer:.4e} (band {HYBRID_FER}), RS FER {h.rs_fer:.4e}, mean "
         f"iterations {h.mean_iters:.3f}, ml_failed {h.ml_failed}, escalations {h.escalations}, "
-        f"{h.frames} frames, {h.frames_per_sec:.1f} frames/s on {card}")
+        f"{h.frames} frames, {h.frames_per_sec:.1f} frames/s (plain pivot loop: "
+        f"{PLAIN_LOOP_FPS['9b']}); rank kernel launches {counts['ge_rank']}; on {card}")
     require(in_band(h.fer, HYBRID_FER), f"9b hybrid FER {h.fer} outside {HYBRID_FER}")
+    got = (h.frames, h.block_errors, h.ml_failed, h.escalations)
+    require(got == RECORDED_COUNTS["9b"],
+            f"9b counts {got} differ from the recorded {RECORDED_COUNTS['9b']}")
     # At emax 256 the failures are bucket overflows, here and in the JAX
     # package's decoder on the same masks (test_hybrid_bucket_overflow_matches_jax).
     require(h.escalations <= h.ml_failed, "9b: a frame failed by bucket size was not failed")
     # The same sweep with a column bucket no residual outgrows: what is left
     # is rank deficiency alone (the ML decoder's FER), with no escalation.
     ml_cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, emax=512))
+    zero_counts()
     (ml,) = sim.run_fer_sweep(code, ml_cfg, [SIM_PER], target_errors=150, max_frames=65536,
                               device=device)
+    counts = read_counts()
+    add_counts(launches, counts)
     log(f"phase 9b: emax 512: hybrid FER {ml.fer:.4e} ({ml.block_errors}/{ml.frames}), "
         f"ml_failed {ml.ml_failed}, escalations {ml.escalations}, {ml.frames_per_sec:.1f} "
-        f"frames/s on {card}")
+        f"frames/s (plain pivot loop: {PLAIN_LOOP_FPS['9b emax 512']}); rank kernel launches "
+        f"{counts['ge_rank']}; on {card}")
     require(ml.escalations == 0, f"9b emax 512: {ml.escalations} frames failed by bucket size")
     require(ml.fer <= h.fer, "9b: a wider column bucket raised the FER")
+    got = (ml.frames, ml.block_errors, ml.ml_failed, ml.escalations)
+    require(got == RECORDED_COUNTS["9b emax 512"],
+            f"9b emax 512 counts {got} differ from the recorded ones")
 
-    argv = ["sim", "--decoder", "hybrid", "--symbol-words", "256", "--batch", "2048",
-            "--tiled-pipeline", "--max-frames", "8192", *common]
+    argv = SIM_9C
     log(f"phase 9c: cli {' '.join(argv)}")
     torch.cuda.synchronize()
     zero_counts()
@@ -1114,11 +1213,261 @@ def sim_phase(device, card: str, launches: dict) -> None:
     for name in ("encode_packed", "peel_decode", "f2_eliminate"):
         require(counts[name] > 0, f"the value-tracking sim never launched the {name} kernel")
     add_counts(launches, counts)
-    require(v["frames"] >= 8192 and 0 <= v["fer"] <= 1, f"9c point {v}")
+    got = (v["frames"], v["block_errors"], v["ml_failed"], v["escalations"])
+    require(got == RECORDED_COUNTS["9c"],
+            f"9c counts {got} differ from the recorded {RECORDED_COUNTS['9c']}")
     log(f"phase 9c: value-tracking hybrid FER {v['fer']:.4e}, RS FER {v['rs_fer']:.4e}, "
         f"escalations {v['escalations']}, ml_failed {v['ml_failed']}, mean iterations "
         f"{v['mean_iters']:.3f}, {v['frames']} frames, {v['frames_per_sec']:.1f} frames/s "
         f"({v['info_gbps']:.3f} Gbps_info); launches {counts}; on {card}")
+    return p
+
+
+def rank_bound(arrays, erased: torch.Tensor, emax: int) -> dict:
+    """Bound of the rank check on these masks: the masks in, a flag out and
+    the Clist rows of the erased symbols it builds from; the operations
+    are the forward elimination's XOR word-operations, counted by replaying
+    it as the kernel runs it (rows past the real block's words untouched, a
+    frame stopping at its first column without a pivot, overflowing and
+    empty frames doing no work), as ``elim_ops`` counts the GE's."""
+    b, n = erased.shape
+    emax = min(emax, n)
+    nreal = erased.sum(dim=1)
+    work = (nreal > 0) & (nreal <= emax)
+    col_of = erased.cumsum(dim=1) - 1
+    built = erased & work[:, None] & (col_of < emax)
+    nbytes = b * n + b + 4 * int((arrays.clist_len.long()[None, :] * built).sum())
+    a = erased_columns(arrays, erased, emax)
+    m = a.shape[1]
+    nw = (nreal.clamp(max=emax) + 31) // 32
+    used = torch.zeros((b, m), dtype=torch.bool, device=erased.device)
+    alive = work.clone()
+    frames = torch.arange(b, device=erased.device)
+    total = torch.zeros((), dtype=torch.int64, device=erased.device)
+    for col in range(min(int(nreal[work].max()), emax) if bool(work.any()) else 0):
+        live = alive & (col < nreal)
+        colv = ((a[:, :, col >> 5] >> (col & 31)) & 1).bool() & ~used & live[:, None]
+        has = colv.any(dim=1)
+        alive &= has | ~live
+        piv = colv.to(torch.uint8).argmax(dim=1)
+        is_piv = torch.zeros_like(used)
+        is_piv[frames, piv] = has
+        used |= is_piv
+        elim = colv & ~is_piv & has[:, None]
+        total += ((nw - (col >> 5)) * elim.sum(dim=1)).sum()
+        a ^= torch.where(elim[:, :, None], a[frames, piv][:, None, :], 0)
+    return bound(nbytes, int(total))
+
+
+def rank_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict) -> None:
+    """Phase 10, rank kernel: 9b's bucket (the first 512 residual frames of
+    a 4096-frame batch at PER .1875, peeled to convergence) at emax 256 and
+    512, both matrix modes, and a (4000,2000) emax-1024 batch whose matrix
+    lives in device memory; bit-exact against the plain versions."""
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(91)
+    mask = iid_erasures((4096, code.n), SIM_PER, generator=gen, device=device)
+    e = peel_decode_mask(arrays, mask, max_iters=50)[0]
+    bucket = e[residual_order(e, 512)[0]].contiguous()
+    for emax in (256, 512):
+        want = rank.f2_rank_check_reference(arrays, bucket, emax=emax)
+        loop = ge_rank_check_reference(arrays, bucket, emax=emax)
+        require(torch.equal(want, loop), f"emax {emax}: the two plain rank checks differ")
+        for in_smem in (True, False):
+            got = rank.launch_kernel(arrays, bucket, emax, in_smem)
+            e_err = max_abs_err(got, want)
+            errs["ge_rank"] = max(errs["ge_rank"], e_err)
+            require(e_err == 0, f"emax {emax} in_smem={in_smem}: rank kernel != plain")
+        ms = cuda_ms(lambda: f2_rank_check(arrays, bucket, emax=emax), 10)
+        _, plain_ms = host_ms(lambda: rank.f2_rank_check_reference(arrays, bucket, emax=emax))
+        _, loop_ms = host_ms(lambda: ge_rank_check_reference(arrays, bucket, emax=emax))
+        bnd = rank_bound(arrays, bucket, emax)
+        nreal = bucket.sum(dim=1)
+        log(f"phase 10: rank kernel on 9b's bucket ({bucket.shape[0]} frames, max residual "
+            f"{int(nreal.max())}), emax {emax}: {int(want.sum())} failed "
+            f"({int((nreal > emax).sum())} overflowed); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, ge_rank_check's pivot loop {loop_ms:.1f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: {bnd['bytes']:.4g} bytes, "
+            f"{bnd['ops']:.4g} ops), both matrix modes bit-exact, on {card}")
+        if emax == 256:
+            times["ge_rank"], plain["ge_rank"], bounds["ge_rank"] = ms, plain_ms, bnd
+    big = get_code("n4000_k2000")
+    big_arrays = code_arrays(big, device)
+    mask = iid_erasures((8, big.n), 0.44, generator=gen, device=device)
+    e = peel_decode_mask(big_arrays, mask, max_iters=200)[0]
+    require(not rank.fits_shared_memory(big.n, big.m, 1024),
+            "a (4000,2000) emax-1024 matrix should not fit in shared memory")
+    want = rank.f2_rank_check_reference(big_arrays, e, emax=1024)
+    got = f2_rank_check(big_arrays, e, emax=1024)
+    e_err = max_abs_err(got, want)
+    errs["ge_rank"] = max(errs["ge_rank"], e_err)
+    require(e_err == 0, "(4000,2000) emax 1024: rank kernel != plain")
+    nreal = e.sum(dim=1)
+    log(f"phase 10: rank kernel on (4000,2000) B=8 PER .44, emax 1024, matrix in device memory:"
+        f" residuals {sorted(nreal.tolist())}, {int(want.sum())} failed; bit-exact")
+
+
+def channel_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict) -> None:
+    """Phase 10, channel kernel: B=64 and the main path's shape (2040,1530),
+    B=2048, W=256, against the plain version; the unfused pair
+    ``iid_erasures_per64`` + ``apply_erasures`` timed beside it."""
+    code = get_code("n2040_k1530")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(10)
+    for b in (64, bench.B):
+        values = bench.random_words((b, code.n, bench.W), gen, device)
+        for num in (0, 9, 64):
+            got = channel_apply_per64(values, 2024 + num, num)
+            e_err = outputs_err(got, channel_apply_per64_reference(values, 2024 + num, num))
+            errs["channel_apply_per64"] = max(errs["channel_apply_per64"], e_err)
+            require(e_err == 0, f"B={b} num={num}: channel kernel != plain")
+            del got
+        torch.cuda.synchronize()
+    ms = cuda_ms(lambda: channel_apply_per64(values, 7, 9), 10)
+    _, plain_ms = host_ms(lambda: channel_apply_per64_reference(values, 7, 9))
+    pair_ms = cuda_ms(lambda: apply_erasures(values, iid_erasures_per64(
+        (bench.B, code.n), 9, generator=gen, device=device)), 10)
+    b, n, w = values.shape
+    bnd = bound(2 * b * n * w * 4 + b * n, b * n * (PHILOX_OPS + w))
+    times["channel_apply_per64"], plain["channel_apply_per64"] = ms, plain_ms
+    bounds["channel_apply_per64"] = bnd
+    mask = channel_apply_per64(values, 7, 9)[1]
+    log(f"phase 10: channel_apply_per64 at B={b} W={w}, num 9: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), unfused "
+        f"iid_erasures_per64 + apply_erasures {pair_ms:.3f} ms; erased share "
+        f"{float(mask.float().mean()):.5f} (9/64 = {9 / 64:.5f}); B=64 and full shape, num 0, "
+        f"9, 64 bit-exact; on {card}")
+
+
+def gf_matmul_phase(ge, card: str, errs: dict, times: dict, plain: dict, bounds: dict,
+                    launches: dict) -> None:
+    """Phase 10, ``gf_matmul_batched`` on phase 6d's RS i.i.d. batch: the
+    solved rows of every frame (T . rhs), counted, against the plain version
+    and against the rows ``gf_apply_scatter`` places."""
+    zero_counts()
+    x = gf_matmul_batched(ge.rhs, ge.t_top)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["gf_matmul_batched"] > 0, "the RS rows leg never launched gf_matmul_batched")
+    add_counts(launches, counts)
+    e_err = max_abs_err(x, gf_matmul_batched_reference(ge.rhs, ge.t_top))
+    placed = gf_apply_scatter(ge.values, ge.rhs, ge.t_top, ge.idx)
+    b, n, wb = ge.values.shape
+    keep = ge.idx < n
+    frames = torch.arange(b, device=x.device)[:, None].expand_as(ge.idx)[keep]
+    rows = placed[frames, ge.idx[keep].long()]
+    require(torch.equal(rows, x[keep]), "gf_matmul_batched rows differ from the placed rows")
+    errs["gf_matmul_batched"] = max(errs["gf_matmul_batched"], e_err)
+    require(e_err == 0, f"gf_matmul_batched kernel != plain ({e_err})")
+    times["gf_matmul_batched"] = cuda_ms(lambda: gf_matmul_batched(ge.rhs, ge.t_top), 5)
+    _, plain["gf_matmul_batched"] = host_ms(lambda: gf_matmul_batched_reference(ge.rhs, ge.t_top))
+    m, e = ge.rhs.shape[1], ge.t_top.shape[1]
+    t_ops = (popcount(ge.t_top).sum(dim=2) + HORNER_OPS).sum()
+    bounds["gf_matmul_batched"] = bound(b * m * wb + b * e * m + b * e * wb,
+                                        (wb // 4) * int(t_ops))
+    bnd = bounds["gf_matmul_batched"]
+    log(f"phase 10: gf_matmul_batched at RS(255,192) B={b} {wb} bytes ({e} rows of {m}): "
+        f"kernel {times['gf_matmul_batched']:.3f} ms, plain {plain['gf_matmul_batched']:.1f} "
+        f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); equal to the plain version and "
+        f"to gf_apply_scatter's {int(keep.sum())} placed rows; launches "
+        f"{counts['gf_matmul_batched']}; on {card}")
+
+
+def decoder_top_phase(device, card: str, launches: dict) -> None:
+    """Phase 10b: the FPGA's data_in -> decoder chain (PARITY.md:60) at the
+    main path's shape: encode -> channel_apply_per64(seed, 9) (9/64 =
+    PER .1406) -> peel with first-k stop, counted and verified; then 5 reps
+    (a fresh seed each) timed."""
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2024)
+    src = bench.random_words((bench.B, code.k, bench.W), gen, device)
+    kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=code.k)
+    torch.cuda.synchronize()
+    zero_counts()
+    cw = encode_packed(arrays, src)
+    del src
+    recv, mask = channel_apply_per64(cw, 1, 9)
+    values, erased, iters = peel_decode(arrays, recv, mask, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name in ("encode_packed", "channel_apply_per64", "peel_decode"):
+        require(counts[name] > 0, f"the decoder-top leg never launched the {name} kernel")
+    add_counts(launches, counts)
+    require(not recv[mask].any() and torch.equal(recv[~mask], cw[~mask]),
+            "the channel kernel left an erased slot nonzero or changed a kept one")
+    report = check_peel(arrays, cw, mask, values, erased, iters, **kw)
+    log(f"phase 10b: verify {json.dumps(report)}")
+    require(report["ok"], "decoder-top decode failed verification")
+    share = float(mask.float().mean())
+    left = int(erased[:, : code.k].any(dim=1).sum())
+    del recv, values, erased, iters
+
+    def rep(seed=[2]):
+        seed[0] += 1
+        r, msk = channel_apply_per64(cw, seed[0], 9)
+        return peel_decode(arrays, r, msk, **kw)[2].max()
+
+    ms = cuda_ms(rep, 5)
+    gbps = bench.B * code.k * 32 * bench.W / (ms * 1e-3) / 1e9
+    log(f"phase 10b: encode -> channel_apply_per64 (num 9) -> peel, B={bench.B} W={bench.W}: "
+        f"erased share {share:.5f}, frames with source symbols left {left}; channel + peel "
+        f"{ms:.3f} ms/rep over 5 reps, {gbps:.2f} Gbps_info; launches {counts}; on {card}")
+
+
+def parallel_phase(device, card: str, sim_9a: dict) -> None:
+    """Phase 11: the parallel layer on the card: NCCL at world size 1
+    (``file://`` rendezvous), the sharded 9b and 9c steps against the
+    unsharded ones, ``run_fer_point(mesh=...)`` at 9a's point, the
+    ``scaling`` command in a subprocess, and ``dryrun_multichip(1)``."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        multihost.initialize("cuda", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                             rank=0)
+        mesh = default_mesh()
+        code = get_code("n2040_k1530")
+        cfg_9c = cli.sim_config(cli.parser().parse_args(SIM_9C))
+        for name, cfg in (("9b", hybrid_sim_config(code)), ("9c", cfg_9c)):
+            step = sim.make_sim_step(code, cfg, device=device)
+            plain_stats = step(0, SIM_PER).to_host()
+            sharded = shard_sim_step(step, mesh)(0, SIM_PER).to_host()
+            require(sharded == plain_stats, f"{name}: the sharded step differs from the step")
+            log(f"phase 11: {name} step sharded over NCCL (world 1) == unsharded: frames "
+                f"{sharded.frames}, block errors {sharded.block_errors}, ml_failed "
+                f"{sharded.ml_failed}, escalations {sharded.escalations}")
+            del step
+        args_9a = cli.parser().parse_args(SIM_9A)
+        p = sim.run_fer_point(code, cli.sim_config(args_9a), SIM_PER, mesh=mesh, device=device,
+                              target_errors=args_9a.target_errors,
+                              max_frames=args_9a.max_frames)
+        require(in_band(p.fer, PEEL_FER) and in_band(p.rs_fer, RS_FER)
+                and in_band(p.mean_iters, PEEL_ITERS), f"11: 9a point {p} outside the bands")
+        require((p.frames, p.block_errors, p.rs_block_errors)
+                == (sim_9a["frames"], sim_9a["block_errors"], sim_9a["rs_block_errors"]),
+                "11: run_fer_point(mesh=...) counts differ from 9a's")
+        log(f"phase 11: run_fer_point(mesh=...) at 9a's point: FER {p.fer:.4e}, RS FER "
+            f"{p.rs_fer:.4e}, mean iterations {p.mean_iters:.3f}, {p.frames} frames (9a's "
+            f"counts), {p.frames_per_sec:.1f} frames/s")
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "ldpc_erasure_codes_tpu_torch.utils.cli", "scaling",
+               "--devices", "1", "--code", "n2040_k1530", "--batch", "4096", "--per",
+               str(SIM_PER)]
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        require(res.returncode == 0, f"the scaling command failed: {res.stderr[-2000:]}")
+        point = json.loads(res.stdout.strip().splitlines()[-1])
+        require(point["devices"] == 1 and point["frames"] > 0 and point["efficiency"] == 1.0,
+                f"scaling output {point}")
+        log(f"phase 11: `{' '.join(cmd[1:])}` printed {json.dumps(point)} on {card}")
+        dryrun_multichip(1)
+        log("phase 11: dryrun_multichip(1): the four styles passed (sharded sim step; "
+            "(data, lane) binary, GF(256); RS(255,192))")
+    finally:
+        if torch.distributed.is_initialized():
+            multihost.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def add_counts(launches: dict, counts: dict) -> None:
@@ -1224,9 +1573,15 @@ def main() -> None:
             f"({bounds[name]['bound_by']}), max abs err {errs[name]} on {card}")
     del hybrid
 
-    gf_phases(device, card, errs, times, plain, bounds, launches)
+    rs_ge = gf_phases(device, card, errs, times, plain, bounds, launches)
+    gf_matmul_phase(rs_ge, card, errs, times, plain, bounds, launches)
+    del rs_ge
     schedule_phase(device, card, errs, times, plain, bounds, launches)
-    sim_phase(device, card, launches)
+    sim_9a = sim_phase(device, card, launches)
+    rank_phase(device, card, errs, times, plain, bounds)
+    channel_phase(device, card, errs, times, plain, bounds)
+    decoder_top_phase(device, card, launches)
+    parallel_phase(device, card, sim_9a)
 
     for name, count in launches.items():
         require(count > 0, f"no path launched the {name} kernel")

@@ -1,5 +1,5 @@
 // GF(256) products of byte matrices with wide byte rows, on packed 32-bit
-// words (four payload bytes per word), two entries:
+// words (four payload bytes per word), three entries:
 //   - ldpc_gf_matvec_launch: rhs[b, i, :] = sum_s coef[i, s] * y[b, idx[i, s], :]
 //     over each output row's list of nonzero (row, coefficient) pairs, the
 //     product y . M with a constant (n, m) matrix M whose columns the lists
@@ -10,6 +10,8 @@
 //     rhs[b, i, :], a per-frame (E, m) byte matrix applied and its rows
 //     placed in the erased slots (which hold zero); rows whose target is
 //     outside [0, n) are dropped.
+//   - ldpc_gf_matmul_launch: out[b, e, :] = sum_i M[b, e, i] * rhs[b, i, :],
+//     the same product with its rows written in order (no placement).
 //
 // Replaces the TPU kernels ldpc_erasure_codes_tpu/ops/pallas_nbmm.py::
 // gf_matvec_wide and gf_apply_scatter, which lift the byte matrix to its
@@ -27,6 +29,10 @@
 // set bits cost work), instead of a full double-and-add product per term.
 // A tensor-core route (int8 bit-image products, as the TPU's MXU) is left
 // for a later change.
+//
+// The apply's kernel also serves gf_matmul_batched (pallas_nbmm.py::
+// gf_matmul_batched, ldpc_gf_matmul_launch): the same per-frame product
+// with its rows written in order, (B, E, W), instead of placed.
 //
 // Design: a block per (frame, chunk of 32 words); a warp per output row,
 // its lanes on the chunk's words, so a row's coefficients are uniform
@@ -106,6 +112,9 @@ gf_matvec_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__
     }
 }
 
+// kPlace: out (B, n, W) ^= row e at idx[b, e] (the apply); else out
+// (B, E, W) = the rows (gf_matmul_batched).
+template <bool kPlace>
 __global__ void __launch_bounds__(kThreads)
 gf_apply_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mats,
                 const int32_t* __restrict__ idx, int32_t* __restrict__ out, int m, int E,
@@ -124,8 +133,12 @@ gf_apply_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mat
     }
     __syncthreads();
     for (int e = warp; e < E; e += kThreads / 32) {
-        const int t = __ldg(idx + (size_t)b * E + e);
-        if (t < 0 || t >= n) continue;  // a dump row: dropped
+        size_t dst = ((size_t)b * E + e) * W;
+        if (kPlace) {
+            const int t = __ldg(idx + (size_t)b * E + e);
+            if (t < 0 || t >= n) continue;  // a dump row: dropped
+            dst = ((size_t)b * n + t) * W;
+        }
         const uint8_t* row = mats + ((size_t)b * E + e) * m;
         uint32_t acc = 0;
         for (int j0 = 0; j0 < m; j0 += 32) {
@@ -133,7 +146,11 @@ gf_apply_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mat
             const uint32_t c = j < m ? __ldg(row + j) : 0u;
             acc ^= horner32(c, j, stage, nullptr, 0, lane, own);
         }
-        if (own) out[((size_t)b * n + t) * W + w0 + lane] ^= (int32_t)acc;
+        if (!own) continue;
+        if (kPlace)
+            out[dst + w0 + lane] ^= (int32_t)acc;
+        else
+            out[dst + w0 + lane] = (int32_t)acc;
     }
 }
 
@@ -169,10 +186,23 @@ extern "C" int ldpc_gf_apply_launch(const int32_t* rhs, const uint8_t* mats, con
                                     cudaStream_t stream) {
     if (B == 0 || E == 0) return (int)cudaSuccess;
     const size_t smem = (size_t)m * kChunk * sizeof(uint32_t);
-    const cudaError_t err = opt_in((const void*)gf_apply_kernel, smem);
+    const cudaError_t err = opt_in((const void*)gf_apply_kernel<true>, smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)B * ((W + kChunk - 1) / kChunk);
-    gf_apply_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mats, idx, out, m, E, W,
-                                                                 n);
+    gf_apply_kernel<true><<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mats, idx, out, m,
+                                                                       E, W, n);
+    return (int)cudaGetLastError();
+}
+
+// out (B, E, W) = M_b (E, m) . rhs_b (m, W) per frame, over GF(256).
+extern "C" int ldpc_gf_matmul_launch(const int32_t* rhs, const uint8_t* mats, int32_t* out,
+                                     int B, int m, int E, int W, cudaStream_t stream) {
+    if (B == 0 || E == 0) return (int)cudaSuccess;
+    const size_t smem = (size_t)m * kChunk * sizeof(uint32_t);
+    const cudaError_t err = opt_in((const void*)gf_apply_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (long long)B * ((W + kChunk - 1) / kChunk);
+    gf_apply_kernel<false><<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mats, nullptr, out,
+                                                                        m, E, W, 0);
     return (int)cudaGetLastError();
 }

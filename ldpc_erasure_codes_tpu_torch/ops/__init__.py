@@ -1,6 +1,6 @@
-"""Code tables, the encode and peel operations, and the Gauss-Jordan
-solvers over GF(2) and GF(256) (kernel wrappers and their plain PyTorch
-versions)."""
+"""Code tables, the encode and peel operations, the Gauss-Jordan solvers
+over GF(2) and GF(256), the rank check and the fused channel (kernel
+wrappers and their plain PyTorch versions)."""
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     CodeArrays,
@@ -8,7 +8,15 @@ from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     code_arrays_from_numpy,
     host_arrays,
 )
-from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, residual_order
+from ldpc_erasure_codes_tpu_torch.ops.channel import (
+    channel_apply_per64,
+    channel_apply_per64_reference,
+)
+from ldpc_erasure_codes_tpu_torch.ops.compact import (
+    compact_ge_rank,
+    compact_ge_solve,
+    residual_order,
+)
 from ldpc_erasure_codes_tpu_torch.ops.elim import (
     f2_eliminate,
     f2_eliminate_reference,
@@ -18,6 +26,7 @@ from ldpc_erasure_codes_tpu_torch.ops.elim import (
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
 from ldpc_erasure_codes_tpu_torch.ops.ge import (
     erased_indices,
+    ge_rank_check,
     ge_solve,
     ge_solve_packed,
     ge_solve_wide_nb,
@@ -32,17 +41,23 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_matvec_wide_reference,
     gf_apply_scatter,
     gf_apply_scatter_reference,
+    gf_matmul_batched,
+    gf_matmul_batched_reference,
     gf_matvec_wide,
     gf_matvec_wide_reference,
     matrix_rows,
 )
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.rank import f2_rank_check, f2_rank_check_reference
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 
 __all__ = [
     "CodeArrays",
+    "channel_apply_per64",
+    "channel_apply_per64_reference",
     "code_arrays",
     "code_arrays_from_numpy",
+    "compact_ge_rank",
     "compact_ge_solve",
     "encode_packed",
     "encode_packed_reference",
@@ -55,6 +70,9 @@ __all__ = [
     "f2_matmul_batched_reference",
     "f2_matvec_wide",
     "f2_matvec_wide_reference",
+    "f2_rank_check",
+    "f2_rank_check_reference",
+    "ge_rank_check",
     "ge_solve",
     "ge_solve_packed",
     "ge_solve_wide_nb",
@@ -62,6 +80,8 @@ __all__ = [
     "gf256_eliminate_reference",
     "gf_apply_scatter",
     "gf_apply_scatter_reference",
+    "gf_matmul_batched",
+    "gf_matmul_batched_reference",
     "gf_matvec_wide",
     "gf_matvec_wide_reference",
     "host_arrays",

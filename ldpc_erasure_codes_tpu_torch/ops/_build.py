@@ -65,6 +65,17 @@ LAUNCHERS = {
     "ldpc_gf_matvec_launch": [*[_P] * 4, *[_I] * 5, _P],
     # rhs, mats, idx, out, B, m, E, W, n, stream
     "ldpc_gf_apply_launch": [*[_P] * 4, *[_I] * 5, _P],
+    # rhs, mats, out, B, m, E, W, stream
+    "ldpc_gf_matmul_launch": [*[_P] * 3, *[_I] * 4, _P],
+    # erased, clist_idx, clist_len, scratch, failed, B, n, m, cmax, emax,
+    # in_smem, stream
+    "ldpc_rank_launch": [*[_P] * 5, *[_I] * 6, _P],
+    # n, m, emax
+    "ldpc_rank_fits_smem": [_I, _I, _I],
+    # m, emax
+    "ldpc_rank_scratch_words": [_I, _I],
+    # values, out, mask, B, n, W, seed, num, stream
+    "ldpc_channel_launch": [*[_P] * 3, *[_I] * 5, _P],
     # values, vlist_idx, vlist_len, out, B, n, m, dmax, W, stream
     "ldpc_synd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # values, h_words, out, B, n, KW, m, W, stream

@@ -27,9 +27,10 @@ and placed by :func:`.nbmm.gf_apply_scatter` (``csrc/gfmm.cu``), the
 structure of the JAX function's Pallas branch (:615-640, :668-709).
 :func:`ge_solve` is the byte Gauss-Jordan with physical row swaps that the
 JAX package runs outside any Pallas kernel (the NB hybrid's compacted GE
-and ``rs_decode``); here it is plain PyTorch, as is
-:func:`ge_rank_check`, its pivot loop on the pattern alone (the FER
-simulation's rank test).
+and ``rs_decode``); here it is plain PyTorch. :func:`ge_rank_check`, the
+FER simulation's rank test, runs its pivot loop on the pattern alone
+(:func:`ge_rank_check_reference`), or for binary CUDA tensors the rank
+kernel of :mod:`.rank`.
 
 Pivot order, failure flags and solved values equal the JAX package's;
 values of failed frames are garbage in both, and callers gate on
@@ -51,6 +52,7 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     gf_apply_scatter,
     gf_matvec_wide,
 )
+from ldpc_erasure_codes_tpu_torch.ops.rank import f2_rank_check
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo
 
 
@@ -288,10 +290,25 @@ def ge_rank_check(
     arrays: CodeArrays, erased: torch.Tensor, *, emax: int, gf_order: int = 2
 ) -> torch.Tensor:
     """Pattern-only solvability (ge.py:77-141): would the Gauss-Jordan on
-    the residual succeed? :func:`ge_solve`'s pivot loop (row swaps, pad
-    slots on their own identity rows) on the erased columns of H (their
-    GF(256) coefficients for ``gf_order=256``) alone. Returns ``failed``
-    (B,) bool: rank deficient or more than ``emax`` erasures.
+    the residual succeed? Returns ``failed`` (B,) bool: rank deficient or
+    more than ``emax`` erasures.
+
+    Binary CUDA tensors launch the rank kernel (:func:`.rank.f2_rank_check`,
+    ``csrc/rank.cu``), the route the JAX package documents for its
+    ``ge_rank_pallas``; CPU tensors, and ``gf_order=256`` on any device, run
+    :func:`ge_rank_check_reference`. The JAX package has no GF(256) rank
+    kernel, so the GF(256) check stays plain tensor code here too."""
+    if gf_order == 2 and erased.device.type == "cuda":
+        return f2_rank_check(arrays, erased, emax=emax)
+    return ge_rank_check_reference(arrays, erased, emax=emax, gf_order=gf_order)
+
+
+def ge_rank_check_reference(
+    arrays: CodeArrays, erased: torch.Tensor, *, emax: int, gf_order: int = 2
+) -> torch.Tensor:
+    """:func:`ge_solve`'s pivot loop (row swaps, pad slots on their own
+    identity rows) on the erased columns of H (their GF(256) coefficients
+    for ``gf_order=256``) alone, in plain PyTorch.
 
     The loop stops after the batch's widest residual, as :func:`ge_solve`'s:
     later columns are pad columns, which only swap a frame's identity row

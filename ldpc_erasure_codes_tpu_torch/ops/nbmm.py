@@ -20,8 +20,10 @@ matrix on the MXU. Here the matrix stays bytes and the payloads are uint8
 ``gf_matvec_wide`` walks each output row's list of nonzero (row, coefficient)
 pairs (:func:`matrix_rows`; the Vlist is that list for H), which serves the
 sparse LDPC H and the dense RS H alike, and ``gf_apply_scatter`` applies a
-per-frame byte matrix and places its rows. Both launch ``csrc/gfmm.cu`` for
-CUDA tensors and run the plain versions for CPU tensors.
+per-frame byte matrix and places its rows. ``gf_matmul_batched`` (the TPU
+kernel :241-311) is that apply without the placement. All three launch
+``csrc/gfmm.cu`` for CUDA tensors and run the plain versions for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -287,6 +289,15 @@ def _check_gf_apply(values, rhs, mats, idx) -> tuple[torch.Tensor, torch.Tensor]
     return words, rw
 
 
+def _gf_rows(rw: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+    """x = M_b . rhs_b over GF(256), (B, E, W) int32 words, by a loop over
+    M's columns."""
+    x = rw.new_zeros(rw.shape[0], mats.shape[1], rw.shape[2])
+    for i in range(rw.shape[1]):
+        x ^= gf_mul_packed(rw[:, i : i + 1, :], mats[:, :, i : i + 1])
+    return x
+
+
 def gf_apply_scatter_reference(
     values: torch.Tensor, rhs: torch.Tensor, mats: torch.Tensor, idx: torch.Tensor
 ) -> torch.Tensor:
@@ -294,9 +305,7 @@ def gf_apply_scatter_reference(
     the rows XORed into their targets."""
     words, rw = _check_gf_apply(values, rhs, mats, idx)
     b, n, w = words.shape
-    x = words.new_zeros(b, mats.shape[1], w)
-    for i in range(rw.shape[1]):
-        x ^= gf_mul_packed(rw[:, i : i + 1, :], mats[:, :, i : i + 1])
+    x = _gf_rows(rw, mats)
     out = words.clone()
     keep = (idx >= 0) & (idx < n)
     frames = torch.arange(b, device=words.device)[:, None].expand_as(idx)
@@ -333,5 +342,51 @@ def gf_apply_scatter(
     return out.view(torch.uint8)
 
 
+def _check_gf_matmul(rhs, mats) -> torch.Tensor:
+    rw = as_words(rhs, "rhs")
+    if rw.dim() != 3:
+        raise ValueError(f"rhs must be (B, m, W) bytes, got {tuple(rhs.shape)}")
+    b, m, _ = rw.shape
+    if mats.dtype != torch.uint8 or mats.dim() != 3 or tuple(mats.shape[::2]) != (b, m):
+        raise ValueError(f"mats must be (B, E, m) uint8 with (B, m) = {(b, m)}, got "
+                         f"{tuple(mats.shape)} {mats.dtype}")
+    if rhs.device != mats.device:
+        raise ValueError(f"rhs on {rhs.device}, mats on {mats.device}")
+    if not mats.is_contiguous():
+        raise ValueError("mats must be contiguous")
+    return rw
+
+
+def gf_matmul_batched_reference(rhs: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch product: a loop over M's columns (as the apply's)."""
+    return _gf_rows(_check_gf_matmul(rhs, mats), mats).view(torch.uint8)
+
+
+def gf_matmul_batched(rhs: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+    """x[b] = M_b . rhs[b] over GF(256): rhs (B, m, W) uint8 (W % 4 == 0),
+    mats (B, E, m) uint8 -> (B, E, W) uint8, each frame with its own matrix.
+
+    The TPU kernel takes (B, m_pad, W) and (B, e_pad, m_pad) operands padded
+    to multiples of 8 with zeros; any m and E serve here, and padded
+    operands give the padded product. ``gf_apply_scatter`` without the
+    placement: the rows come back in order. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise).
+    ``gf_matmul_batched.launches`` counts kernel launches.
+    """
+    rw = _check_gf_matmul(rhs, mats)
+    if rw.device.type == "cpu":
+        return gf_matmul_batched_reference(rhs, mats)
+    b, m, w = rw.shape
+    e = mats.shape[1]
+    out = torch.empty((b, e, w), dtype=torch.int32, device=rw.device)
+    rc = _build.library().ldpc_gf_matmul_launch(
+        rw.data_ptr(), mats.data_ptr(), out.data_ptr(), b, m, e, w, _stream(rw)
+    )
+    _build.check(rc, "ldpc_gf_matmul_launch")
+    gf_matmul_batched.launches += 1
+    return out.view(torch.uint8)
+
+
 gf_matvec_wide.launches = 0
 gf_apply_scatter.launches = 0
+gf_matmul_batched.launches = 0

@@ -17,10 +17,15 @@ is kept:
   on the device and read by the host once per call (:283-297).
 
 Each batch draws from its own ``torch.Generator``, seeded from
-(``SimConfig.seed``, call, batch), so a run can be repeated. The channel
-operating point is an argument of the step, so one step serves a sweep.
-The step runs on one device (the CUDA card unless the caller passes
-another); the JAX driver's ``mesh`` sharding waits for the parallel slice.
+(``SimConfig.seed``, call, batch, shard), so a run can be repeated. The
+channel operating point is an argument of the step, so one step serves a
+sweep. The step runs on one device (the CUDA card unless the caller passes
+another). With a ``mesh`` (or a ``torch.distributed`` group of more than
+one rank) ``run_fer_point`` and ``run_fer_sweep`` shard the step over the
+ranks (:func:`..parallel.mesh.shard_sim_step`, the JAX driver's
+:327-414): rank r draws shard r's streams (shard 0's are the unsharded
+step's), the statistics are summed over the ranks, and the stopping rule
+reads the sums, so every rank stops after the same call.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ldpc_erasure_codes_tpu_torch.bench import random_words
 from ldpc_erasure_codes_tpu_torch.channel import erasure as ch
@@ -41,17 +47,21 @@ from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_solve
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi, peel_decode_mask
+from ldpc_erasure_codes_tpu_torch.parallel.mesh import default_mesh, shard_sim_step
 from ldpc_erasure_codes_tpu_torch.sim.config import SimConfig
 from ldpc_erasure_codes_tpu_torch.sim.stats import Accumulator, SimStats, batch_stats
 from ldpc_erasure_codes_tpu_torch.utils.device import cuda_device
 
 WARMUP_CALL = 0xFFFFFFF
+# Odd 64-bit multiplier of the shard in a batch's seed (the golden ratio's).
+SHARD_MIX = 0x9E3779B97F4A7C15
 
 
-def batch_generator(seed: int, call: int, j: int, device) -> torch.Generator:
-    """The generator of batch ``j`` of call ``call`` of a run seeded ``seed``."""
+def batch_generator(seed: int, call: int, j: int, device, shard: int = 0) -> torch.Generator:
+    """The generator of batch ``j`` of call ``call`` of shard ``shard`` of a
+    run seeded ``seed``; shard 0 is the unsharded run's."""
     g = torch.Generator(device=device)
-    g.manual_seed(((seed * 0x9E3779B1 + call) * 0x85EBCA77 + j) % 2**63)
+    g.manual_seed((((seed * 0x9E3779B1 + call) * 0x85EBCA77 + j) + shard * SHARD_MIX) % 2**63)
     return g
 
 
@@ -162,9 +172,11 @@ def _decode_mask(arrays: CodeArrays, cfg: SimConfig, erased: torch.Tensor, k: in
 
 def make_sim_step(
     code: LDPCCode | str, cfg: SimConfig, *, device: torch.device | str | None = None
-) -> Callable[[int, float], SimStats]:
-    """The simulation step ``step(call, per) -> SimStats``: ``steps_per_call``
-    batches, their statistics summed on the device.
+) -> Callable[..., SimStats]:
+    """The simulation step ``step(call, per, shard=0) -> SimStats``:
+    ``steps_per_call`` batches, their statistics summed on the device;
+    ``shard`` selects independent random streams (the rank's, when
+    sharded).
 
     ``per`` is the erasure probability (iid) or the /64 numerator (per64);
     the Gilbert-Elliott channel ignores it (its point lives in the config).
@@ -194,10 +206,10 @@ def make_sim_step(
             count_all_symbols=cfg.decoder.count_all_symbols, overflow=overflow,
         )
 
-    def step(call: int, per) -> SimStats:
+    def step(call: int, per, shard: int = 0) -> SimStats:
         acc = None
         for j in range(max(cfg.steps_per_call, 1)):
-            s = step_once(batch_generator(cfg.seed, call, j, device), per)
+            s = step_once(batch_generator(cfg.seed, call, j, device, shard), per)
             acc = s if acc is None else acc + s
         return acc
 
@@ -231,6 +243,14 @@ def symbol_bits(cfg: SimConfig) -> int:
     return cfg.symbol_words * (32 if cfg.gf_order == 2 else 8)
 
 
+def _sharded(step, mesh):
+    """``step`` sharded over ``mesh``, or over every rank when none is given
+    and ``torch.distributed`` runs more than one; else ``step``."""
+    if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = default_mesh()
+    return step if mesh is None else shard_sim_step(step, mesh)
+
+
 def run_fer_point(
     code: LDPCCode | str,
     cfg: SimConfig,
@@ -238,6 +258,7 @@ def run_fer_point(
     *,
     target_errors: int = 100,
     max_frames: int = 1_000_000,
+    mesh=None,
     step=None,
     warmup: bool = True,
     device: torch.device | str | None = None,
@@ -245,11 +266,16 @@ def run_fer_point(
     """Simulate one operating point with error-count-targeted stopping:
     calls run while fewer than ``max_frames`` frames and fewer than
     ``target_errors`` block errors are counted. The time covers the calls
-    after the warm-up, each ending in its host read."""
+    after the warm-up, each ending in its host read.
+
+    When ``mesh`` is given (or ``torch.distributed`` runs more than one
+    rank) the step is sharded over it; frames and errors are counted over
+    all ranks. A given ``step`` is used as it is.
+    """
     if isinstance(code, str):
         code = get_code(code)
     if step is None:
-        step = make_sim_step(code, cfg, device=device)
+        step = _sharded(make_sim_step(code, cfg, device=device), mesh)
     per_arg = int(round(per * 64)) if cfg.channel.kind == "per64" else float(per)
     acc = Accumulator()
     if warmup:
@@ -285,12 +311,14 @@ def run_fer_sweep(
     *,
     target_errors: int = 100,
     max_frames: int = 1_000_000,
+    mesh=None,
     device: torch.device | str | None = None,
 ) -> list[FERPoint]:
-    """Sweep PER operating points with one step."""
+    """Sweep PER operating points with one step, sharded as
+    :func:`run_fer_point` shards it."""
     if isinstance(code, str):
         code = get_code(code)
-    step = make_sim_step(code, cfg, device=device)
+    step = _sharded(make_sim_step(code, cfg, device=device), mesh)
     return [
         run_fer_point(code, cfg, p, target_errors=target_errors, max_frames=max_frames,
                       step=step)

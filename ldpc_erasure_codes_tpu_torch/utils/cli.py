@@ -5,6 +5,7 @@ Counterpart of ``ldpc_erasure_codes_tpu/utils/cli.py`` for the subcommands
   sim         FER sweep (the MATLAB sim drivers + FPGA data_out statistics)
   throughput  decoder throughput (main.cpp:652-658 formula)
   codes       list the shipped codes
+  scaling     scaling-efficiency sweep over the ranks (north star BASELINE.md:28)
 
 with the JAX CLI's flags, defaults and output (``format_report`` then, with
 ``--json``, one JSON line per point; throughput prints one JSON line), and
@@ -16,13 +17,17 @@ CLI has no fallback. The JAX ``throughput`` flags ``--b-tile`` and
 counterpart: the port keeps the flat layout, and its kernels take any batch
 and fuse the masking.
 
-Run as ``python -m ldpc_erasure_codes_tpu_torch.utils.cli <cmd> ...``.
+Run as ``python -m ldpc_erasure_codes_tpu_torch.utils.cli <cmd> ...``; under
+``torchrun --nproc-per-node N`` (one process per card) ``sim`` shards its
+step over the ranks and ``scaling`` spans them, rank 0 printing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 
@@ -66,18 +71,43 @@ def sim_config(args):
     )
 
 
+@contextlib.contextmanager
+def distributed(device: str):
+    """Join the launcher's process group for a command (a one-rank group
+    without a launcher) unless one is running, and leave it after; yields
+    (this rank's device, whether this rank prints)."""
+    import torch.distributed as dist
+
+    from ldpc_erasure_codes_tpu_torch.parallel import multihost
+
+    own = not dist.is_initialized()
+    if own:
+        multihost.initialize(device)
+    try:
+        yield multihost.device(), dist.get_rank() == 0
+    finally:
+        if own:
+            multihost.shutdown()
+
+
 def cmd_sim(args) -> int:
     from ldpc_erasure_codes_tpu_torch.sim import format_report, run_fer_sweep
 
     code = get_code(args.code)
     cfg = sim_config(args)
     pers = [float(p) for p in args.pers.split(",")]
-    points = run_fer_sweep(code, cfg, pers, target_errors=args.target_errors,
-                           max_frames=args.max_frames, device=resolve_device(args.device))
-    print(format_report(args.code, cfg, points), flush=True)
-    if args.json:
-        for p in points:
-            print(json.dumps(vars(p)), flush=True)
+    kw = dict(target_errors=args.target_errors, max_frames=args.max_frames)
+    if "WORLD_SIZE" in os.environ:  # under torchrun: the step sharded over the ranks
+        with distributed(args.device) as (device, report):
+            points = run_fer_sweep(code, cfg, pers, device=device, **kw)
+    else:
+        report = True
+        points = run_fer_sweep(code, cfg, pers, device=resolve_device(args.device), **kw)
+    if report:
+        print(format_report(args.code, cfg, points), flush=True)
+        if args.json:
+            for p in points:
+                print(json.dumps(vars(p)), flush=True)
     return 0
 
 
@@ -119,6 +149,37 @@ def cmd_throughput(args) -> int:
         "info_gbps": round(gbps, 3),
         "symbol_bits": 32 * w,
     }), flush=True)
+    return 0
+
+
+def cmd_scaling(args) -> int:
+    """Scaling efficiency over the ranks (cli.py:284-321): in one process
+    the 1-device point; under ``torchrun`` sub-meshes of the first 1, 2,
+    ... ranks, rank 0 printing one JSON line per point."""
+    from ldpc_erasure_codes_tpu_torch.parallel.scaling import measure_scaling
+    from ldpc_erasure_codes_tpu_torch.sim import DecoderConfig, SimConfig
+
+    code = get_code(args.code)
+    cfg = SimConfig(
+        code=args.code,
+        batch=args.batch,
+        track_values=False,
+        decoder=DecoderConfig(kind=args.decoder, max_iters=args.max_iters, early_stop_k=True),
+        steps_per_call=args.steps_per_call,
+    )
+    counts = [int(c) for c in args.devices.split(",")] if args.devices else None
+    with distributed(args.device) as (device, report):
+        points = measure_scaling(code, cfg, args.per, device_counts=counts, reps=args.reps,
+                                 device=device)
+    if report:
+        for p in points:
+            print(json.dumps({
+                "devices": p.devices,
+                "frames": p.frames,
+                "seconds": round(p.seconds, 4),
+                "frames_per_sec": round(p.frames_per_sec, 1),
+                "efficiency": round(p.efficiency, 4),
+            }), flush=True)
     return 0
 
 
@@ -180,6 +241,19 @@ def parser() -> argparse.ArgumentParser:
 
     pc = sub.add_parser("codes", help="list the shipped codes")
     pc.set_defaults(fn=cmd_codes)
+
+    psc = sub.add_parser("scaling", help="scaling-efficiency sweep over the ranks")
+    psc.add_argument("--code", default="n2000_k1000")
+    psc.add_argument("--decoder", default="peel", choices=["peel", "hybrid", "ml"])
+    psc.add_argument("--per", type=float, default=0.3)
+    psc.add_argument("--batch", type=int, default=256, help="per-device batch")
+    psc.add_argument("--max-iters", type=int, default=20)
+    psc.add_argument("--steps-per-call", type=int, default=4)
+    psc.add_argument("--reps", type=int, default=4)
+    psc.add_argument("--devices", default="", help="comma list, e.g. 1,2,4,8")
+    psc.add_argument("--device", default="cuda", help="cuda (a card per rank, NCCL) or cpu "
+                     "(gloo)")
+    psc.set_defaults(fn=cmd_scaling)
     return p
 
 

@@ -8,11 +8,12 @@ import torch
 
 
 def cuda_device() -> torch.device:
-    """The first CUDA device; raises where there is none (a measurement
+    """The current CUDA device (the first card, unless a process of a
+    multi-card run set its own); raises where there is none (a measurement
     path never falls back to the CPU)."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def card_info() -> str:

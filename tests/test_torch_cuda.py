@@ -14,15 +14,16 @@ import pytest
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import elim, nbmm
+from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, rank
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
-from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
-from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_rank_check_reference, ge_solve_packed
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_jacobi,
     peel_decode_jacobi_reference,
+    peel_decode_mask,
 )
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from torch_port_cases import cuda_device, random_words, to_torch  # noqa: F401 (fixture)
@@ -503,3 +504,91 @@ def test_peel_schedule_nb_kernel_matches_plain(cuda_device, schedule, early_stop
     assert getattr(peel_decode, counter) == before + 1
     _equal(got, _sched_plain(schedule)(arrays, cw, mask, **kw))
     assert torch.equal(got[0][~got[1]], cw[~got[1]])
+
+
+def _peeled_residuals(arrays, b, per, seed, dev):
+    """Pattern-only residuals of i.i.d. masks peeled to convergence."""
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy(rng.random((b, arrays.n)) < per).to(dev)
+    return peel_decode_mask(arrays, mask, max_iters=200)[0]
+
+
+@pytest.mark.parametrize("name,b,per,emax,in_smem", [
+    ("n2040_k1530", 64, 0.1875, 256, True),
+    ("n2040_k1530", 64, 0.2031, 512, True),
+    ("n2040_k1530", 64, 0.2031, 512, False),
+    ("n4000_k2000", 8, 0.44, 1024, False),
+    ("n2000_k1000", 16, 0.42, 512, True),
+])
+def test_rank_kernel_matches_plain(cuda_device, name, b, per, emax, in_smem):
+    """Both matrix modes; the (4000,2000) emax-1024 matrix does not fit in
+    shared memory, so the wrapper takes device memory there."""
+    arrays = code_arrays(get_code(name), cuda_device)
+    e = _peeled_residuals(arrays, b, per, 5, cuda_device)
+    assert e.any()
+    want = rank.f2_rank_check_reference(arrays, e, emax=emax)
+    torch.testing.assert_close(want, ge_rank_check_reference(arrays, e, emax=emax), rtol=0,
+                               atol=0)
+    assert rank.fits_shared_memory(arrays.n, arrays.m, emax) == (name != "n4000_k2000")
+    before = rank.f2_rank_check.launches
+    got = rank.launch_kernel(arrays, e, emax, in_smem)
+    via_ge = ge_rank_check(arrays, e, emax=emax)
+    torch.cuda.synchronize()
+    assert rank.f2_rank_check.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(via_ge, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("in_smem", [True, False])
+def test_rank_kernel_on_dependent_columns(cuda_device, in_smem):
+    """Supports of single-source-bit codewords (their columns sum to zero:
+    rank deficient) and the same with one symbol kept (independent)."""
+    code = get_code("n2040_k1530")
+    cpu = code_arrays(code, "cpu")
+    cw = encode(cpu, torch.eye(code.k, dtype=torch.uint8)[:64]).bool()
+    kept = cw.clone()
+    kept[torch.arange(64), cw.to(torch.uint8).argmax(dim=1)] = False
+    e = torch.cat([cw, kept]).to(cuda_device)
+    arrays = code_arrays(code, cuda_device)
+    want = rank.f2_rank_check_reference(arrays, e, emax=256)
+    got = rank.launch_kernel(arrays, e, 256, in_smem)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert want[:64].all() and not want[64:].all()
+
+
+@pytest.mark.parametrize("dtype,w,aligned", [
+    (torch.int32, 256, True), (torch.int32, 256, False), (torch.int32, 3, True),
+    (torch.uint8, 1024, True),
+])
+@pytest.mark.parametrize("num", [0, 9, 64])
+def test_channel_kernel_matches_plain(cuda_device, dtype, w, aligned, num):
+    rng = np.random.default_rng(w + num)
+    if dtype == torch.uint8:
+        values = _random_bytes(rng, (64, 2040, w), cuda_device)
+    else:
+        values = to_torch(random_words(rng, (64, 2040, w))).to(cuda_device)
+        if not aligned:
+            values = _misaligned(values)
+    before = channel.channel_apply_per64.launches
+    got = channel.channel_apply_per64(values, 2024, num)
+    torch.cuda.synchronize()
+    assert channel.channel_apply_per64.launches == before + 1
+    _equal(got, channel.channel_apply_per64_reference(values, 2024, num))
+    cpu = channel.channel_apply_per64(values.cpu(), 2024, num)
+    torch.testing.assert_close(got[1].cpu(), cpu[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True)])
+@pytest.mark.parametrize("m,e", [(63, 63), (64, 56), (9, 5)])
+def test_gf_matmul_kernel_matches_plain(cuda_device, wb, aligned, m, e):
+    rng = np.random.default_rng(m + e + wb)
+    rhs = _random_bytes(rng, (8, m, wb), cuda_device)
+    if not aligned:
+        rhs = _misaligned_bytes(rhs)
+    mats = _random_bytes(rng, (8, e, m), cuda_device)
+    before = nbmm.gf_matmul_batched.launches
+    got = nbmm.gf_matmul_batched(rhs, mats)
+    torch.cuda.synchronize()
+    assert nbmm.gf_matmul_batched.launches == before + 1
+    torch.testing.assert_close(got, nbmm.gf_matmul_batched_reference(rhs, mats), rtol=0, atol=0)

@@ -26,6 +26,7 @@ from ldpc_erasure_codes_tpu.ops import hybrid as jax_hybrid
 from ldpc_erasure_codes_tpu.ops.pallas_elim import gf256_eliminate as jax_gf256_eliminate
 from ldpc_erasure_codes_tpu.ops.pallas_nbmm import (
     gf_apply_scatter as jax_gf_apply_scatter,
+    gf_matmul_batched as jax_gf_matmul_batched,
     gf_matvec_wide as jax_gf_matvec_wide,
 )
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
@@ -35,7 +36,13 @@ from ldpc_erasure_codes_tpu_torch.ops.elim import gf256_eliminate, gf256_elimina
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.ge import _syndrome_known, ge_solve, ge_solve_wide_nb
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
-from ldpc_erasure_codes_tpu_torch.ops.nbmm import gf_apply_scatter, gf_matvec_wide, matrix_rows
+from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
+    gf_apply_scatter,
+    gf_matmul_batched,
+    gf_matmul_batched_reference,
+    gf_matvec_wide,
+    matrix_rows,
+)
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 from torch_port_cases import small_jax_code, to_port_code
 
@@ -141,6 +148,33 @@ def test_gf_apply_scatter_matches_pallas():
                            torch.from_numpy(mats), torch.from_numpy(idx))
     assert gf_apply_scatter.launches == before
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gf_matmul_batched_matches_pallas():
+    """tests/test_pallas_nbmm.py::test_matmul_batched_matches_xla: the padded
+    operands (m_pad 64, e_pad 56) give the TPU kernel's padded product, and
+    the unpadded ones its top-left block; the rows placed by
+    gf_apply_scatter are these rows."""
+    rng = np.random.default_rng(7)
+    b, m, e, w = 3, 63, 50, 256
+    m_pad, e_pad = 64, 56
+    rhs = rng.integers(0, 256, (b, m_pad, w), dtype=np.uint8)
+    rhs[:, m:, :] = 0
+    mats = np.pad(rng.integers(0, 256, (b, e, m), dtype=np.uint8),
+                  ((0, 0), (0, e_pad - e), (0, m_pad - m)))
+    want = np.asarray(jax_gf_matmul_batched(jnp.asarray(rhs), jnp.asarray(mats), interpret=True))
+    before = gf_matmul_batched.launches
+    got = gf_matmul_batched(torch.from_numpy(rhs), torch.from_numpy(mats))
+    assert gf_matmul_batched.launches == before
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = gf_matmul_batched_reference(torch.from_numpy(rhs[:, :m].copy()),
+                                       torch.from_numpy(mats[:, :e, :m].copy()))
+    np.testing.assert_array_equal(rows.numpy(), want[:, :e])
+    idx = torch.from_numpy(np.stack([rng.permutation(e) for _ in range(b)]).astype(np.int32))
+    placed = gf_apply_scatter(torch.zeros((b, e, w), dtype=torch.uint8), torch.from_numpy(rhs),
+                              torch.from_numpy(mats[:, :e].copy()), idx)
+    frames = torch.arange(b)[:, None]
+    assert torch.equal(placed[frames, idx.long()], rows)
 
 
 @functools.cache
