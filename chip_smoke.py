@@ -31,7 +31,9 @@ Phases, each fatal on failure:
    verified, and held against the production branch on the same mask;
 5. each kernel's time against its plain version's at the main path's
    shapes (phase 4 for encode and peel, phase 4b's GE bucket for the rest),
-   with the outputs compared again, and the hybrid step's stages;
+   with the outputs compared again, and the hybrid step's stages; the seq
+   peel's schedule kernel against its plain version, timed alone, and the
+   whole peel at each slab width Wc;
 6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
    (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
    their plain versions at small shapes, bit-exact;
@@ -50,7 +52,10 @@ Phases, each fatal on failure:
    systematic legs timed; the three GF(256) GE kernels launch on every
    decode;
 7. each GF(256) kernel's time against its plain version's: encode and peel
-   at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch;
+   (with the schedule kernel and the Wc widths, as in phase 5) at phase
+   6a's shapes, the GE kernels at phase 6d's i.i.d. batch (``gf_matvec_wide``
+   on its dense route: the RS H's tiles; 6c's LDPC Vlist takes the list
+   route);
 8. the ``throughput`` command by peel schedule (``bench.ThroughputPath``,
    ``bench.make_throughput_step``): (2040,1530), B=2048, W=256, PER
    .1406, first-k early stop, for each of "seq", "unrolled", "counted",
@@ -124,7 +129,7 @@ from ldpc_erasure_codes_tpu_torch.channel.erasure import (
     iid_erasures_per64,
 )
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import _build, elim, rank
+from ldpc_erasure_codes_tpu_torch.ops import _build, elim, peel, rank
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.channel import (
     channel_apply_per64,
@@ -730,6 +735,35 @@ def peel_bound(arrays, mask, erased_out, wbytes: int, gf: bool) -> dict:
     return bound(nbytes, resolved * (row_pop + inv_pop + 2 * HORNER_OPS) * words)
 
 
+def peel_split(arrays, cw, mask, k_stop: int, gf_order: int, errs: dict, name: str) -> dict:
+    """The seq peel's two kernels at one shape: the schedule kernel held
+    against its plain version and timed alone, and the whole decode timed
+    at every slab width Wc (the wrapper's choice is ``peel.slab_words``)."""
+    words = cw.view(torch.int32) if gf_order == 256 else cw
+    got = peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS)
+    want = peel.peel_schedule_reference(arrays, mask, max_iters=bench.MAX_ITERS,
+                                        early_stop_k=k_stop)
+    e = outputs_err(got, want)
+    errs[name] = max(errs[name], e)
+    require(e == 0, f"{name}: schedule kernel != plain ({e})")
+    out = {"schedule_ms": cuda_ms(lambda: peel.launch_schedule(
+        arrays, mask, k_stop, bench.MAX_ITERS), 5),
+        "levels_max": int(got[2].max()), "resolutions_mean": float(got[1][:, -1].float().mean()),
+        "wc_default": peel.slab_words(arrays, words.shape[1], words.shape[2], gf_order)}
+    n = words.shape[1]
+    # The value kernel's bytes alone (no sweep: the masked copy) and a plain
+    # copy of the same frames, the yardstick for its device-memory rate.
+    out["copy_ms"] = cuda_ms(lambda: peel.launch_kernel(arrays, words, mask, k_stop, 0,
+                                                        gf_order), 5)
+    out["clone_ms"] = cuda_ms(lambda: words.clone(), 5)
+    out["wc"] = [wc for wc in peel.SLAB_WORDS
+                 if peel.apply_smem(n, arrays.m, arrays.dmax, wc, gf_order) <= peel.SMEM_LIMIT]
+    for wc in out["wc"]:
+        out[f"wc{wc}_ms"] = cuda_ms(lambda: peel.launch_kernel(
+            arrays, words, mask, k_stop, bench.MAX_ITERS, gf_order, wc), 5)
+    return out
+
+
 class GEInputsNB:
     """The GF(256) GE kernels' operands for frames (values uint8 bytes,
     erased), made as ``ge_solve_wide_nb`` makes them; the elimination runs
@@ -748,7 +782,8 @@ class GEInputsNB:
         self.t_top = _unpack_words_bytes(t)[:, :, :m].contiguous()
         writable = self.real & ~(self.nreal > self.emax)[:, None]
         self.idx = torch.where(writable, self.er_idx, n).to(torch.int32)
-        self.rhs = gf_matvec_wide(values, arrays.vlist_idx, arrays.vlist_val)
+        self.rhs = gf_matvec_wide(values, arrays.vlist_idx, arrays.vlist_val,
+                                  tiles=arrays.vlist_tiles)
 
     def kernels(self) -> dict:
         """name -> (kernel call, plain call) on these operands."""
@@ -757,8 +792,9 @@ class GEInputsNB:
         return {
             "gf256_eliminate": (lambda: gf256_eliminate(self.cube, self.nreal, **kw),
                                 lambda: gf256_eliminate_reference(self.cube, self.nreal, **kw)),
-            "gf_matvec_wide": (lambda: gf_matvec_wide(v, a.vlist_idx, a.vlist_val),
-                               lambda: gf_matvec_wide_reference(v, a.vlist_idx, a.vlist_val)),
+            "gf_matvec_wide": (
+                lambda: gf_matvec_wide(v, a.vlist_idx, a.vlist_val, tiles=a.vlist_tiles),
+                lambda: gf_matvec_wide_reference(v, a.vlist_idx, a.vlist_val)),
             "gf_apply_scatter": (lambda: gf_apply_scatter(v, rhs, t, idx),
                                  lambda: gf_apply_scatter_reference(v, rhs, t, idx)),
         }
@@ -915,6 +951,14 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     require(e == 0, f"NB main shape: GF(256) peel kernel != plain ({e})")
     bounds["peel_decode_gf256"] = peel_bound(arrays, mask, got[1], nb["wb"], gf=True)
     del want, got
+    split = peel_split(arrays, cw, mask, code.k, 256, errs, "peel_decode_gf256")
+    log(f"phase 7: peel_decode_gf256 at B={nb['b']} {nb['wb']}-byte symbols: schedule kernel "
+        f"{split['schedule_ms']:.3f} ms of {times['peel_decode_gf256']:.3f} "
+        f"({100 * split['schedule_ms'] / times['peel_decode_gf256']:.1f}%), bit-exact against "
+        f"its plain version; whole decode by Wc: " + ", ".join(
+            f"{wc} words {split[f'wc{wc}_ms']:.3f} ms" for wc in split["wc"])
+        + f" (default Wc {split['wc_default']}); the masked copy alone (0 sweeps) "
+        f"{split['copy_ms']:.3f} ms, a clone of the frames {split['clone_ms']:.3f} ms; on {card}")
 
     # 6b: the NB hybrid with the production knobs, on the same codewords.
     path.hybrid = bench.NB_HYBRID
@@ -960,6 +1004,8 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     require(report["ok"] and n_esc > 0, "NB escalation failed verification")
     require(not elim.fits_shared_memory_gf256(code.m, c2),
             "the escalation cube should live in device memory")
+    require(esc.arrays.vlist_tiles is None,
+            "the (2040,1530) GF(256) Vlist should take gf_matvec_wide's list route")
     for name in ("peel_decode_gf256", "gf256_eliminate", "gf_matvec_wide", "gf_apply_scatter"):
         require(counts[name] > 0, f"the NB escalation never launched the {name} kernel")
     add_counts(launches, counts)
@@ -974,6 +1020,8 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     # 6d: RS(255,192) wide decode.
     r = bench.RS
     path = bench.RSPath(seed=2024, device=device, **r)
+    require(path.arrays.vlist_tiles is not None,
+            "the RS H should take gf_matvec_wide's dense route")
     path.pattern = verify_rs_pattern(r["b"], r["n"], 5, device)
     zero_counts()
     mask, values, erased, failed, consumed = path.step()
@@ -1555,6 +1603,16 @@ def main() -> None:
     e = outputs_err(got, want)
     errs["peel_decode"] = max(errs["peel_decode"], e)
     require(e == 0, f"main shape: peel kernel != plain ({e})")
+    split = peel_split(arrays, cw, mask, code.k, 2, errs, "peel_decode")
+    log(f"phase 5: peel_decode at B={bench.B} W={bench.W}: schedule kernel "
+        f"{split['schedule_ms']:.3f} ms of {times['peel_decode']:.3f} "
+        f"({100 * split['schedule_ms'] / times['peel_decode']:.1f}%), bit-exact against its "
+        f"plain version; whole decode by Wc: " + ", ".join(
+            f"{wc} words {split[f'wc{wc}_ms']:.3f} ms" for wc in split["wc"])
+        + f" (default Wc {split['wc_default']}); the masked copy alone (0 sweeps) "
+        f"{split['copy_ms']:.3f} ms, a clone of the frames {split['clone_ms']:.3f} ms; levels "
+        f"max {split['levels_max']}, resolutions per frame {split['resolutions_mean']:.1f}; on "
+        f"{card}")
     plain = {"encode_packed": times_plain_enc, "peel_decode": times_plain_peel}
     del main_path, cw, mask, want, got
     hybrid = bench.HybridPath(code, seed=5, device=device, **bench.HYBRID)

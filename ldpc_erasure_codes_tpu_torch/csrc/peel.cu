@@ -1,55 +1,75 @@
-// Sequential (Gauss-Seidel) peeling decode of binary LDPC erasure codes on
-// packed 32-bit words, with the channel masking fused into the copy-in.
+// Sequential (Gauss-Seidel) peeling decode of LDPC erasure codes on packed
+// 32-bit words, with the channel masking fused into the copy-in: a
+// per-frame schedule kernel, then a value kernel that decodes each
+// (frame, chunk of Wc words) out of a shared-memory slab.
 //
 // Replaces the TPU kernels of ldpc_erasure_codes_tpu/ops/pallas_peel.py::
 // peel_decode_vmem: the constant-topology program _make_unrolled_kernel
-// (with fence_gate) and the runtime-topology _make_kernel "seq" body. Both
-// compute one function, the MATLAB sweep (utils/oracle.py::peel_decode):
-// every sweep visits the checks in ROM order; a check whose neighbours hold
-// exactly one erasure sets that symbol to the XOR of all its neighbours
-// (erased slots hold zero) and clears its flag at once, so later checks of
-// the same sweep see it. Unrolling and fence gating are devices for the
-// TPU's compiler with identical results, and are not carried over.
+// (with fence_gate) and the runtime-topology _make_kernel "seq" body, in
+// both of their gf_order modes. Both compute one function, the MATLAB sweep
+// (utils/oracle.py::peel_decode): every sweep visits the checks in ROM
+// order; a check whose neighbours hold exactly one erasure sets that symbol
+// to the sum of its neighbours (erased slots hold zero) and clears its flag
+// at once, so later checks of the same sweep see it. Binary: the XOR of the
+// neighbours. GF(256) (four byte symbols per word): acc = sum_j coef_j * y_j
+// and the symbol is inv_s * acc, inv_s the inverse of the erased slot's
+// coefficient (pallas_peel.py:295-300, :1009-1036). Stopping is per frame
+// (the TPU stops a whole 32-frame tile): a frame stops after the first
+// sweep that leaves its first k_stop symbols known (iters = that sweep's
+// number) or that changes nothing (iters = max_iters). Values, iteration
+// counts and the first-k mask equal the TPU kernel's; with k_stop < n the
+// parity-region residual may differ (its tile sweeps on for other frames).
 //
-// GF(256) mode (kNB, the kernels' gf_order=256 branch; four byte symbols per
-// word): the degree-1 check's sum is weighted, acc = sum_j coef_j * y_j
-// (the erased slot holds zero, so its term vanishes), and the solved symbol
-// is inv_s * acc with inv_s the inverse of the erased slot's coefficient
-// (pallas_peel.py:295-300, :1009-1036). The coefficients and inverses are
-// read from device memory beside the Vlist (vlist_val, vlist_inv_val). The
-// TPU's Horner form shares 8 doublings across a check's terms because its
-// rows sit in vector registers; here each term is a load followed by its
-// own double-and-add product with the coefficient's bits as warp-uniform
-// branches, which keeps no per-check array of loaded words. The mask
-// evolution is the binary decode's.
+// What bounds it on an H100: device-memory bytes. A frame is n symbols of
+// W words (2 MB at n = 2040, W = 256), far more than one SM's 227 KB, so it
+// cannot stay on chip the way a TPU tile stays in VMEM. The least traffic
+// reads each known input word once and writes each output word once: at
+// B = 2048, W = 256, PER .1406 that is 2.557 ms at 3.35 TB/s. The kernel
+// this one replaced (a warp per (frame, 128-word chunk), values in device
+// memory) read each resolved symbol's check neighbours back from device
+// memory, mostly L2 misses: ~2.7x the minimum bytes, 6.977 ms (NVIDIA H100
+// 80GB HBM3, 700 W).
 //
-// Stopping is per frame (the TPU stops a whole 32-frame tile): a frame
-// stops after the first sweep that leaves its first k_stop symbols known
-// (iters = that sweep's number) or that changes nothing (iters = max_iters).
-// Values, iteration counts and the first-k mask equal the TPU kernel's;
-// with k_stop < n the parity-region residual may differ (its tile sweeps on
-// for other frames).
+// Design. The erasure flags evolve independently of the values, so the
+// decode splits in two kernels on one stream:
 //
-// What bounds it on an H100: one frame is (n+1) symbols of W words, 2 MB at
-// W = 256, so a frame cannot live in one SM's 227 KB of shared memory the
-// way a TPU tile lives in VMEM. Values stay in device memory: one read and
-// one write for the copy-in, then per resolved symbol a read of its check's
-// neighbours and one write, about 15 symbol reads per erasure at the
-// headline point. That traffic, mostly L2 misses, bounds the kernel; the
-// per-check erasure counting is shared-memory work that overlaps it.
+// (a) peel_schedule_kernel runs the sequential mask sweep with a group of
+//     G lanes per frame (G = 8, 16 or 32, the first that holds a check's
+//     neighbours; 32 / G frames per warp), the Vlist staged in shared
+//     memory as uint16. One ballot counts a check's erased neighbours. It
+//     records each resolution (check c, slot position es within the check)
+//     in sweep order, with a level: 1 + the largest level among the check's
+//     other neighbours (known inputs are level 0). Resolutions of one level
+//     write distinct symbols and read only symbols of lower levels, so they
+//     are independent. At the end it sorts the list by level (a counting
+//     sort, stable, so the order is canonical) and writes the erased flags,
+//     the iteration count, the sorted list res[b, :] (c << 8 | es, -1 past
+//     the end), the level count and lvl_off[b, l] = the resolutions of
+//     level <= l, l = 0..n.
+// (b) peel_apply_kernel, a block of 1024 threads per (frame, chunk of Wc
+//     words), copies the chunk of all n symbols into a shared-memory slab
+//     with asynchronous copies (cp.async, all in flight at once; erased
+//     slots are zeroed, never read), stages the Vlist, the frame's
+//     resolutions and level offsets beside it, applies the resolutions
+//     level by level (threads over (resolution, part of the chunk), a block
+//     barrier between levels), and writes the slab out once. Every value
+//     byte is read at most once and written once from device memory; the
+//     neighbour sums read shared memory. Wc is the widest of 16, 12, 8, 4
+//     words whose block fits (ops/peel.py::slab_words): longer runs of each
+//     symbol row use device memory better than more blocks per SM did.
 //
-// Design: the erasure flags evolve independently of the values, and they
-// fit (n bytes). A warp takes one (frame, chunk of 32*VEC words) and keeps
-// its own copy of the frame's flags in shared memory. Every lane counts a
-// check's erased neighbours itself from the shared flags (a broadcast read),
-// so a degree-1 event is uniform across the warp; each lane XORs and stores
-// only its own words of the symbol. Then __syncwarp(), lane 0 clears the
-// flag, __syncwarp() again: no lane can see a symbol as known before every
-// lane has written its words of it. Warps share nothing, so there is no
-// block-wide barrier; the chunks of one frame repeat the same mask sweep,
-// and only chunk 0 writes the erased flags and the iteration count. The
-// topology is read through the read-only cache (__ldg), so no code is too
-// large for shared memory.
+// Bit-exact with the sequential sweep for any input, codewords or not: the
+// schedule records the sweep's own (check, slot) pairs, and each resolution
+// reads only symbols that were known when the sweep resolved it. GF(256)
+// sums run bit-sliced: per neighbour, eight masked XORs into the partial
+// sums S_t of the words whose coefficient has bit t, then Horner's rule
+// over t (7 multiplies by x), so threads working on checks with different
+// coefficients do not diverge.
+//
+// Measured by chip_smoke.py on NVIDIA H100 80GB HBM3, 700 W: 4.848 ms at
+// B = 2048, W = 256, PER .1406 against the 2.557 ms byte bound (the
+// schedule kernel 0.525 ms of it); GF(256) at B = 512, 1 KB symbols 2.496 ms
+// against 0.639 (PERF.md section 6, rows 1-2).
 
 #include <cstdint>
 
@@ -60,143 +80,480 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may use
+constexpr int kSmemPerSm = 233472;   // bytes of shared memory on an SM
+constexpr int kApplyThreads = 1024;
+constexpr uint16_t kErased = 0xFFFF;
 
-template <int VEC, bool kNB>
-__global__ void __launch_bounds__(kWarps * 32)
-peel_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ erased,
-            const int32_t* __restrict__ vlist_idx, const int32_t* __restrict__ vlist_len,
-            const uint8_t* __restrict__ vlist_val, const uint8_t* __restrict__ vlist_inv,
-            int32_t* __restrict__ out, uint8_t* __restrict__ erased_out,
-            int32_t* __restrict__ iters_out, int B, int n, int m, int dmax, int W,
-            int k_stop, int max_iters, int flag_stride) {
-    using V = Words<VEC>;
-    constexpr int kChunk = 32 * VEC;
-    extern __shared__ uint8_t smem[];
-    const int warp = threadIdx.x / 32;
+__host__ __device__ inline int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// The Vlist staged in shared memory as uint16: m * dmax indices, m degrees.
+__host__ __device__ inline int vlist_bytes(int m, int dmax) {
+    return round16(2 * m * dmax) + round16(2 * m);
+}
+// The Clist staged likewise: nc * cmax check indices, nc degrees (nc: the
+// code's columns, which may be fewer than a frame's n symbols).
+__host__ __device__ inline int clist_bytes(int n, int cmax) {
+    return round16(2 * n * cmax) + round16(2 * n);
+}
+// One schedule frame's shared memory: levels (uint16, kErased = erased),
+// one uint16 per level for the sort, and each check's count of erased
+// neighbours.
+__host__ __device__ inline int sched_frame_bytes(int n, int m) {
+    return round16(2 * n) + round16(2 * (n + 2)) + round16(2 * m);
+}
+// The value kernel's shared memory: the slab (n symbols x Wc words), the
+// staged Vlist (and, GF(256), its coefficients and inverses), the frame's
+// resolutions and level offsets.
+__host__ __device__ inline int apply_bytes(int n, int m, int dmax, int wc, bool nb) {
+    return 4 * n * wc + vlist_bytes(m, dmax) + (nb ? 2 * round16(m * dmax) : 0) +
+           round16(4 * n) + round16(4 * (n + 1));
+}
+
+// Lanes per frame in the schedule kernel: the smallest power of two that
+// holds a check's neighbours (32 for dmax > 16), so a warp sweeps 32 / G
+// frames at once.
+__host__ __device__ inline int sched_lanes(int dmax) {
+    return dmax <= 8 ? 8 : dmax <= 16 ? 16 : 32;
+}
+
+// Warps per schedule block: the most resident warps per SM.
+int sched_warps(int n, int m, int dmax, int nc, int cmax) {
+    const int per_warp = 32 / sched_lanes(dmax) * sched_frame_bytes(n, m);
+    int best = 0, best_resident = 0;
+    for (int w = 1; w <= 16; ++w) {
+        const int bytes = vlist_bytes(m, dmax) + clist_bytes(nc, cmax) + w * per_warp;
+        if (bytes > kMaxSmem) break;
+        const int blocks = kSmemPerSm / (bytes + 1024);
+        const int resident = blocks * w < 64 ? blocks * w : 64;
+        if (resident > best_resident) best = w, best_resident = resident;
+    }
+    return best;
+}
+
+// Copies an index list ((rows, width) int32, as the Vlist or the Clist) and
+// its row lengths into shared memory as uint16 (threads t of T).
+__device__ void stage_list(uint16_t* vl, uint16_t* vlen, const int32_t* vlist_idx,
+                            const int32_t* vlist_len, int m, int dmax, int t, int T) {
+    for (int i = t; i < m * dmax; i += T) vl[i] = (uint16_t)__ldg(vlist_idx + i);
+    for (int i = t; i < m; i += T) vlen[i] = (uint16_t)__ldg(vlist_len + i);
+}
+
+// Sum and maximum over the G lanes of a lane group (G a power of two).
+__device__ __forceinline__ int group_sum(int v, int G) {
+    for (int o = G / 2; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+__device__ __forceinline__ unsigned group_max(unsigned v, int G) {
+    for (int o = G / 2; o > 0; o /= 2) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// A group of G lanes per frame, 32 / G frames per warp. Every loop that
+// holds a warp-wide exchange runs to the same count in all lanes; a frame
+// whose sweep has ended (or past B) takes part without effect.
+__global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
+                                     const int32_t* __restrict__ vlist_idx,
+                                     const int32_t* __restrict__ vlist_len,
+                                     const int32_t* __restrict__ clist_idx,
+                                     const int32_t* __restrict__ clist_len,
+                                     int32_t* __restrict__ seq_all, int32_t* __restrict__ res,
+                                     int32_t* __restrict__ lvl_off,
+                                     int32_t* __restrict__ nlev_out,
+                                     uint8_t* __restrict__ erased_out,
+                                     int32_t* __restrict__ iters_out, int B, int n, int m,
+                                     int dmax, int nc, int cmax, int k_stop, int max_iters) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    uint16_t* vl = reinterpret_cast<uint16_t*>(smem);
+    uint16_t* vlen = reinterpret_cast<uint16_t*>(smem + round16(2 * m * dmax));
+    uint16_t* cl = reinterpret_cast<uint16_t*>(smem + vlist_bytes(m, dmax));
+    uint16_t* clen = cl + round16(2 * nc * cmax) / 2;
+    stage_list(vl, vlen, vlist_idx, vlist_len, m, dmax, threadIdx.x, blockDim.x);
+    stage_list(cl, clen, clist_idx, clist_len, nc, cmax, threadIdx.x, blockDim.x);
+    __syncthreads();
+    const unsigned full = 0xffffffffu;
+    const int G = sched_lanes(dmax);
+    const int fpw = 32 / G;
     const int lane = threadIdx.x % 32;
-    const int n_chunks = (W + kChunk - 1) / kChunk;
-    const long long task = (long long)blockIdx.x * kWarps + warp;
-    if (task >= (long long)B * n_chunks) return;  // whole warp: no block barrier follows
-    const int b = (int)(task / n_chunks);
-    const int chunk = (int)(task % n_chunks);
-    const int w0 = chunk * kChunk + lane * VEC;
-    const bool own = w0 < W;  // lanes past the ragged edge keep only the flags
-    uint8_t* er = smem + (size_t)warp * flag_stride;
-    const int32_t* in = values + (size_t)b * n * W + w0;
-    int32_t* o = out + (size_t)b * n * W + w0;
+    const int g = lane / G, gl = lane % G;
+    const unsigned gmask = (G == 32 ? full : (1u << G) - 1) << (g * G);
+    const unsigned lt = (1u << lane) - 1;
+    const int slot = (threadIdx.x / 32) * fpw + g;  // frame slot in the block
+    const int b0 = (blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * fpw;
+    if (b0 >= B) return;  // whole warp: no block barrier follows
+    const int b = b0 + g;
+    const bool live = b < B;
+    uint16_t* lev = reinterpret_cast<uint16_t*>(smem + vlist_bytes(m, dmax) +
+                                                clist_bytes(nc, cmax) +
+                                                (size_t)slot * sched_frame_bytes(n, m));
+    uint16_t* cur = lev + round16(2 * n) / 2;
+    uint16_t* cnt_of = cur + round16(2 * (n + 2)) / 2;
+    int32_t* seq = seq_all + (size_t)(live ? b : 0) * n;
 
-    for (int i = lane; i < n; i += 32) er[i] = erased[(size_t)b * n + i] != 0;
+    int left = 0;  // erased symbols among the first k_stop
+    for (int i = gl; i < n; i += G) {
+        const bool e = live && erased[(size_t)b * n + i] != 0;
+        lev[i] = e ? kErased : 0;
+        left += (e && i < k_stop);
+    }
+    left = group_sum(left, G);
+    __syncwarp();
+    // Each check's erased neighbours, kept current as symbols resolve (the
+    // count is what the sweep would recount at every visit).
+    for (int c = gl; c < m; c += G) {
+        int k = 0;
+        for (int j = 0; j < vlen[c]; ++j) k += lev[vl[c * dmax + j]] == kErased;
+        cnt_of[c] = (uint16_t)k;
+    }
     __syncwarp();
 
-    // Copy-in with the channel masking fused: erased slots hold zero.
-    if (own) {
-#pragma unroll 4
-        for (int i = 0; i < n; ++i) {
-            const V v = er[i] ? V::zero() : V::load_ro(in + (size_t)i * W);
-            v.store(o + (size_t)i * W);
-        }
-    }
-
-    int iters = max_iters;
+    int nres = 0, iters = max_iters;
+    unsigned maxlev = 0;
+    bool done = !live;
     for (int it = 0; it < max_iters; ++it) {
         int changed = 0;
         for (int c = 0; c < m; ++c) {
-            const int32_t* nb = vlist_idx + (size_t)c * dmax;
-            const int d = __ldg(vlist_len + c);
-            int cnt = 0;
-            int e = 0;
+            const bool solve = !done && cnt_of[c] == 1;  // the same in the group's lanes
+            if (__ballot_sync(full, solve) == 0) continue;
+            const uint16_t* nb = vl + c * dmax;
+            const int d = vlen[c];
             int es = 0;
-            for (int j = 0; j < d; ++j) {
-                const int s = __ldg(nb + j);
-                if (er[s]) {
-                    ++cnt;
-                    e = s;
-                    es = j;
+            bool found = false;
+            unsigned mx = 0;  // this lane's largest known-neighbour level
+            for (int j0 = 0; j0 < d; j0 += G) {
+                const int j = j0 + gl;
+                bool er = false;
+                if (j < d && solve) {
+                    const unsigned l = lev[nb[j]];
+                    er = l == kErased;
+                    if (!er) mx = max(mx, l);
                 }
+                const unsigned bal = __ballot_sync(full, er) & gmask;
+                if (bal != 0 && !found) es = j0 + __ffs(bal) - 1 - g * G, found = true;
             }
-            if (cnt != 1) continue;  // the same decision in every lane
-            if (own) {
-                V acc = V::zero();
-                for (int j = 0; j < d; ++j) {
-                    V t = V::load(o + (size_t)__ldg(nb + j) * W);
-                    if (kNB) t = gf_mul<VEC>(t, __ldg(vlist_val + (size_t)c * dmax + j));
-                    acc ^= t;
+            const unsigned lv = group_max(mx, G) + 1;
+            if (solve) {
+                const int e = nb[es];
+                if (gl == 0) {
+                    lev[e] = (uint16_t)lv;
+                    seq[nres] = c << 8 | es;
                 }
-                if (kNB) acc = gf_mul<VEC>(acc, __ldg(vlist_inv + (size_t)c * dmax + es));
-                acc.store(o + (size_t)e * W);
+                for (int q = gl; q < clen[e]; q += G) --cnt_of[cl[e * cmax + q]];
+                ++nres;
+                ++changed;
+                maxlev = max(maxlev, lv);
+                left -= e < k_stop;
             }
             __syncwarp();
-            if (lane == 0) er[e] = 0;
-            __syncwarp();
-            ++changed;
         }
-        int resid = 0;
-        for (int i = lane; i < k_stop; i += 32) resid += er[i];
-        resid = __reduce_add_sync(0xffffffffu, resid);
-        if (resid == 0) {
+        if (!done && left == 0) {
             iters = it + 1;
-            break;
+            done = true;
         }
-        if (changed == 0) break;
+        if (changed == 0) done = true;
+        if (__all_sync(full, done)) break;
     }
 
-    if (chunk == 0) {
-        for (int i = lane; i < n; i += 32) erased_out[(size_t)b * n + i] = er[i];
-        if (lane == 0) iters_out[b] = iters;
+    if (live)
+        for (int i = gl; i < n; i += G) erased_out[(size_t)b * n + i] = lev[i] == kErased;
+    // Counting sort of the resolutions by level, stable in sweep order: the
+    // counts as uint16 pairs in 32-bit words (atomics), then the first slot
+    // of each level.
+    unsigned* pairs = reinterpret_cast<unsigned*>(cur);
+    for (int l = gl; l <= (int)maxlev / 2; l += G) pairs[l] = 0;
+    __syncwarp();
+    const int nres_max = __reduce_max_sync(full, nres);
+    for (int r = gl; r < nres; r += G) {
+        const int t = seq[r];
+        const unsigned l = lev[vl[(t >> 8) * dmax + (t & 255)]];
+        atomicAdd(pairs + l / 2, 1u << (16 * (l & 1)));
+    }
+    __syncwarp();
+    int carry = 0;  // resolutions of level <= l, over l = 0..n
+    for (int l0 = 0; l0 <= n; l0 += G) {
+        const int l = l0 + gl;
+        const int v = (l >= 1 && l <= (int)maxlev) ? cur[l] : 0;
+        int incl = v;
+        for (int o = 1; o < G; o <<= 1) {
+            const int u = __shfl_up_sync(full, incl, o, G);
+            if (gl >= o) incl += u;
+        }
+        incl += carry;
+        if (live && l <= n) lvl_off[(size_t)b * (n + 1) + l] = incl;
+        if (l >= 1 && l <= (int)maxlev) cur[l] = (uint16_t)(incl - v);
+        carry = __shfl_sync(full, incl, G - 1, G);
+    }
+    __syncwarp();
+    for (int r0 = 0; r0 < nres_max; r0 += G) {
+        const int r = r0 + gl;
+        const bool act = r < nres;
+        const int t = act ? seq[r] : 0;
+        const unsigned key = act ? lev[vl[(t >> 8) * dmax + (t & 255)]] : 0xFFFFu;
+        const unsigned peers = __match_any_sync(full, key | (unsigned)g << 17);
+        const int pos = act ? cur[key] + __popc(peers & lt) : 0;
+        __syncwarp();
+        if (act && (peers & lt) == 0) cur[key] = (uint16_t)(cur[key] + __popc(peers));
+        if (act) res[(size_t)b * n + pos] = t;
+        __syncwarp();
+    }
+    if (!live) return;
+    for (int r = nres + gl; r < n; r += G) res[(size_t)b * n + r] = -1;
+    if (gl == 0) {
+        nlev_out[b] = (int)maxlev;
+        iters_out[b] = iters;
     }
 }
 
-template <int VEC, bool kNB>
-cudaError_t launch(const int32_t* values, const uint8_t* erased, const int32_t* vlist_idx,
-                   const int32_t* vlist_len, const uint8_t* vlist_val, const uint8_t* vlist_inv,
-                   int32_t* out, uint8_t* erased_out, int32_t* iters_out, int B, int n, int m,
-                   int dmax, int W, int k_stop, int max_iters, cudaStream_t stream) {
-    const int flag_stride = (n + 15) / 16 * 16;
-    const size_t smem = (size_t)kWarps * flag_stride;
+// Asynchronous copy of one lane's words into shared memory (cp.async),
+// with the hint that L2 fetch the whole 128-byte line: the other chunks of
+// the symbol, which neighbouring blocks load at about the same time, then
+// hit in L2 instead of each costing a device-memory access of its own.
+template <int VEC>
+__device__ __forceinline__ void copy_async(void* dst, const int32_t* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (VEC == 4)
+        asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+                     : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+                     : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Word-vector helpers for the GF(256) sums.
+__device__ __forceinline__ Words<4> xtime(Words<4> w) {
+    return {make_int4((int)gf_xtime4(w.v.x), (int)gf_xtime4(w.v.y), (int)gf_xtime4(w.v.z),
+                      (int)gf_xtime4(w.v.w))};
+}
+__device__ __forceinline__ Words<1> xtime(Words<1> w) { return {(int32_t)gf_xtime4(w.v)}; }
+__device__ __forceinline__ void xor_masked(Words<4>& a, const Words<4>& y, int mk) {
+    a.v.x ^= y.v.x & mk; a.v.y ^= y.v.y & mk; a.v.z ^= y.v.z & mk; a.v.w ^= y.v.w & mk;
+}
+__device__ __forceinline__ void xor_masked(Words<1>& a, const Words<1>& y, int mk) {
+    a.v ^= y.v & mk;
+}
+
+// A block per (frame, chunk of VEC * P words); the slab holds the chunk of
+// all n symbols, part p of symbol s at s * P + p. The slab's loads are
+// asynchronous copies (cp.async), all in flight at once; the Vlist, the
+// resolutions and the level offsets are staged beside it meanwhile, so the
+// resolutions read shared memory only.
+template <int VEC, int P, bool kNB>
+__global__ void __launch_bounds__(kApplyThreads)
+peel_apply_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ erased,
+                  const int32_t* __restrict__ res, const int32_t* __restrict__ lvl_off,
+                  const int32_t* __restrict__ nlev, const int32_t* __restrict__ vlist_idx,
+                  const int32_t* __restrict__ vlist_len, const uint8_t* __restrict__ vlist_val,
+                  const uint8_t* __restrict__ vlist_inv, int32_t* __restrict__ out, int n,
+                  int m, int dmax, int W, int n_chunks) {
+    using V = Words<VEC>;
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    V* slab = reinterpret_cast<V*>(smem_raw);
+    uint8_t* p8 = smem_raw + (size_t)4 * n * VEC * P;
+    uint16_t* vl = reinterpret_cast<uint16_t*>(p8);
+    uint16_t* vlen = reinterpret_cast<uint16_t*>(p8 + round16(2 * m * dmax));
+    p8 += vlist_bytes(m, dmax);
+    uint8_t* cval = p8;
+    uint8_t* cinv = p8 + round16(m * dmax);
+    if (kNB) p8 += 2 * round16(m * dmax);
+    int32_t* rl = reinterpret_cast<int32_t*>(p8);
+    int32_t* off = reinterpret_cast<int32_t*>(p8 + round16(4 * n));
+
+    const int b = blockIdx.x / n_chunks;
+    const int w0 = (blockIdx.x % n_chunks) * VEC * P;
+    const int32_t* in = values + (size_t)b * n * W + w0;
+    int32_t* o = out + (size_t)b * n * W + w0;
+    const uint8_t* er = erased + (size_t)b * n;
+
+    for (int i = threadIdx.x; i < n * P; i += kApplyThreads) {
+        const int s = i / P, p = i % P;
+        if (w0 + p * VEC < W && !er[s])
+            copy_async<VEC>(slab + i, in + (size_t)s * W + p * VEC);
+        else
+            slab[i] = V::zero();
+    }
+    const int levels = __ldg(nlev + b);
+    const int32_t* offg = lvl_off + (size_t)b * (n + 1);
+    const int nres = __ldg(offg + n);
+    stage_list(vl, vlen, vlist_idx, vlist_len, m, dmax, threadIdx.x, kApplyThreads);
+    if (kNB) {
+        for (int i = threadIdx.x; i < m * dmax; i += kApplyThreads) {
+            cval[i] = __ldg(vlist_val + i);
+            cinv[i] = __ldg(vlist_inv + i);
+        }
+    }
+    for (int i = threadIdx.x; i < nres; i += kApplyThreads) rl[i] = __ldg(res + (size_t)b * n + i);
+    for (int i = threadIdx.x; i <= levels; i += kApplyThreads) off[i] = __ldg(offg + i);
+    copy_async_wait();
+    __syncthreads();
+
+    for (int l = 1; l <= levels; ++l) {
+        const int start = off[l - 1], end = off[l];
+        for (int i = threadIdx.x; i < (end - start) * P; i += kApplyThreads) {
+            const int t = rl[start + i / P];
+            const int p = i % P;
+            const int c = t >> 8, es = t & 255;
+            const uint16_t* nb = vl + c * dmax;
+            const int d = vlen[c];
+            V acc = V::zero();
+            if (kNB) {
+                V sl[8];
+#pragma unroll
+                for (int q = 0; q < 8; ++q) sl[q] = V::zero();
+                const uint8_t* cf = cval + c * dmax;
+                for (int j0 = 0; j0 < d; j0 += 4) {
+                    int ix[4];
+                    uint32_t cj[4];
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        const bool in = j0 + u < d;
+                        ix[u] = in ? nb[j0 + u] : 0;
+                        cj[u] = in ? cf[j0 + u] : 0u;  // a zero coefficient adds nothing
+                    }
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        const V y = slab[ix[u] * P + p];
+#pragma unroll
+                        for (int q = 0; q < 8; ++q)
+                            xor_masked(sl[q], y, -(int)((cj[u] >> q) & 1u));
+                    }
+                }
+                acc = sl[7];
+#pragma unroll
+                for (int q = 6; q >= 0; --q) {
+                    acc = xtime(acc);
+                    acc ^= sl[q];
+                }
+                acc = gf_mul<VEC>(acc, cinv[c * dmax + es]);
+            } else {
+                // Neighbour indices eight at a time, so their reads and the
+                // slab reads they address overlap.
+                for (int j0 = 0; j0 < d; j0 += 8) {
+                    int ix[8];
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) ix[u] = j0 + u < d ? nb[j0 + u] : -1;
+#pragma unroll
+                    for (int u = 0; u < 8; ++u)
+                        if (ix[u] >= 0) acc ^= slab[ix[u] * P + p];
+                }
+            }
+            slab[nb[es] * P + p] = acc;
+        }
+        __syncthreads();
+    }
+
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n * P; i += kApplyThreads) {
+        const int s = i / P, p = i % P;
+        if (w0 + p * VEC < W) slab[i].store(o + (size_t)s * W + p * VEC);
+    }
+}
+
+template <int VEC, int P, bool kNB>
+cudaError_t launch_apply(const int32_t* values, const uint8_t* erased, const int32_t* res,
+                         const int32_t* lvl_off, const int32_t* nlev, const int32_t* vlist_idx,
+                         const int32_t* vlist_len, const uint8_t* vlist_val,
+                         const uint8_t* vlist_inv, int32_t* out, int B, int n, int m, int dmax,
+                         int W, cudaStream_t stream) {
+    const size_t smem = apply_bytes(n, m, dmax, VEC * P, kNB);
+    const auto kernel = peel_apply_kernel<VEC, P, kNB>;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            peel_kernel<VEC, kNB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
     }
-    const int n_chunks = (W + 32 * VEC - 1) / (32 * VEC);
-    const long long tasks = (long long)B * n_chunks;
-    const unsigned blocks = (unsigned)((tasks + kWarps - 1) / kWarps);
-    peel_kernel<VEC, kNB><<<blocks, kWarps * 32, smem, stream>>>(
-        values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv, out, erased_out, iters_out,
-        B, n, m, dmax, W, k_stop, max_iters, flag_stride);
+    const int n_chunks = (W + VEC * P - 1) / (VEC * P);
+    kernel<<<(unsigned)((long long)B * n_chunks), kApplyThreads, smem, stream>>>(
+        values, erased, res, lvl_off, nlev, vlist_idx, vlist_len, vlist_val, vlist_inv, out, n,
+        m, dmax, W, n_chunks);
     return cudaGetLastError();
 }
 
 template <bool kNB>
-cudaError_t launch_field(const int32_t* values, const uint8_t* erased,
-                         const int32_t* vlist_idx, const int32_t* vlist_len,
-                         const uint8_t* vlist_val, const uint8_t* vlist_inv, int32_t* out,
-                         uint8_t* erased_out, int32_t* iters_out, int B, int n, int m,
-                         int dmax, int W, int k_stop, int max_iters, cudaStream_t stream) {
-    if (vec4_ok(W, {values, out}))
-        return launch<4, kNB>(values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv, out,
-                              erased_out, iters_out, B, n, m, dmax, W, k_stop, max_iters,
-                              stream);
-    return launch<1, kNB>(values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv, out,
-                          erased_out, iters_out, B, n, m, dmax, W, k_stop, max_iters, stream);
+cudaError_t apply_field(const int32_t* values, const uint8_t* erased, const int32_t* res,
+                        const int32_t* lvl_off, const int32_t* nlev, const int32_t* vlist_idx,
+                        const int32_t* vlist_len, const uint8_t* vlist_val,
+                        const uint8_t* vlist_inv, int32_t* out, int B, int n, int m, int dmax,
+                        int W, int wc, cudaStream_t stream) {
+#define PEEL_APPLY(VEC, P)                                                                  \
+    return launch_apply<VEC, P, kNB>(values, erased, res, lvl_off, nlev, vlist_idx,         \
+                                     vlist_len, vlist_val, vlist_inv, out, B, n, m, dmax, W, \
+                                     stream)
+    if (vec4_ok(W, {values, out})) {
+        switch (wc) {
+            case 4: PEEL_APPLY(4, 1);
+            case 8: PEEL_APPLY(4, 2);
+            case 12: PEEL_APPLY(4, 3);
+            case 16: PEEL_APPLY(4, 4);
+        }
+    } else {
+        switch (wc) {
+            case 4: PEEL_APPLY(1, 4);
+            case 8: PEEL_APPLY(1, 8);
+            case 12: PEEL_APPLY(1, 12);
+            case 16: PEEL_APPLY(1, 16);
+        }
+    }
+#undef PEEL_APPLY
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// nb = 0: GF(2), the coefficient tables are not read; nb = 1: GF(256).
+// The schedule of B frames: res (B, n), lvl_off (B, n + 1), nlev (B,),
+// erased_out (B, n), iters (B,); seq (B, n) is scratch. The Clist has nc
+// rows. dmax <= 256, n, m < 65535, and the Vlist and Clist (as uint16) with one warp's frames
+// must fit in a block's shared memory.
+extern "C" int ldpc_peel_schedule_launch(const uint8_t* erased, const int32_t* vlist_idx,
+                                         const int32_t* vlist_len, const int32_t* clist_idx,
+                                         const int32_t* clist_len, int32_t* seq, int32_t* res,
+                                         int32_t* lvl_off, int32_t* nlev, uint8_t* erased_out,
+                                         int32_t* iters_out, int B, int n, int m, int dmax,
+                                         int nc, int cmax, int k_stop, int max_iters,
+                                         cudaStream_t stream) {
+    if (B == 0) return (int)cudaSuccess;
+    const int warps = sched_warps(n, m, dmax, nc, cmax);
+    if (dmax > 256 || n >= kErased || m >= kErased || warps == 0)
+        return (int)cudaErrorInvalidValue;
+    const int frames = warps * (32 / sched_lanes(dmax));  // per block
+    const size_t smem = (size_t)vlist_bytes(m, dmax) + clist_bytes(nc, cmax) +
+                        (size_t)frames * sched_frame_bytes(n, m);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            peel_schedule_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const unsigned blocks = (unsigned)((B + frames - 1) / frames);
+    peel_schedule_kernel<<<blocks, warps * 32, smem, stream>>>(
+        erased, vlist_idx, vlist_len, clist_idx, clist_len, seq, res, lvl_off, nlev, erased_out,
+        iters_out, B, n, m, dmax, nc, cmax, k_stop, max_iters);
+    return (int)cudaGetLastError();
+}
+
+// The decode of B frames: the schedule kernel, then the value kernel with
+// Wc = wc words (4, 8, 12 or 16) per block, on one stream. res, lvl_off
+// and nlev receive the schedule; seq is scratch. nb = 0: GF(2), the
+// coefficient tables are not read; nb = 1: GF(256).
 extern "C" int ldpc_peel_launch(const int32_t* values, const uint8_t* erased,
                                 const int32_t* vlist_idx, const int32_t* vlist_len,
                                 const uint8_t* vlist_val, const uint8_t* vlist_inv,
-                                int32_t* out, uint8_t* erased_out, int32_t* iters_out, int B,
-                                int n, int m, int dmax, int W, int k_stop, int max_iters, int nb,
+                                const int32_t* clist_idx, const int32_t* clist_len,
+                                int32_t* out, uint8_t* erased_out, int32_t* iters_out,
+                                int32_t* seq, int32_t* res, int32_t* lvl_off, int32_t* nlev,
+                                int B, int n, int m, int dmax, int nc, int cmax, int W,
+                                int k_stop, int max_iters, int wc, int nb,
                                 cudaStream_t stream) {
     if (B == 0) return (int)cudaSuccess;
+    if (apply_bytes(n, m, dmax, wc, nb != 0) > kMaxSmem) return (int)cudaErrorInvalidValue;
+    const int rc = ldpc_peel_schedule_launch(erased, vlist_idx, vlist_len, clist_idx, clist_len,
+                                             seq, res, lvl_off, nlev, erased_out, iters_out, B,
+                                             n, m, dmax, nc, cmax, k_stop, max_iters, stream);
+    if (rc != (int)cudaSuccess) return rc;
     if (nb)
-        return (int)launch_field<true>(values, erased, vlist_idx, vlist_len, vlist_val,
-                                       vlist_inv, out, erased_out, iters_out, B, n, m, dmax, W,
-                                       k_stop, max_iters, stream);
-    return (int)launch_field<false>(values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv,
-                                    out, erased_out, iters_out, B, n, m, dmax, W, k_stop,
-                                    max_iters, stream);
+        return (int)apply_field<true>(values, erased, res, lvl_off, nlev, vlist_idx, vlist_len,
+                                      vlist_val, vlist_inv, out, B, n, m, dmax, W, wc, stream);
+    return (int)apply_field<false>(values, erased, res, lvl_off, nlev, vlist_idx, vlist_len,
+                                   vlist_val, vlist_inv, out, B, n, m, dmax, W, wc, stream);
 }

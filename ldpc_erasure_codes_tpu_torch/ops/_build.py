@@ -43,9 +43,14 @@ LAUNCHERS = {
     # out, B, k, m, W, dmax, pmax, nb, stream
     "ldpc_encode_launch": [*[_P] * 7, *[_I] * 7, _P],
     # values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv_val,
-    # values_out, erased_out, iters_out, B, n, m, dmax, W, k_stop,
-    # max_iters, nb, stream
-    "ldpc_peel_launch": [*[_P] * 9, *[_I] * 8, _P],
+    # clist_idx, clist_len, values_out, erased_out, iters_out, seq, res,
+    # lvl_off, nlev, B, n, m, dmax, nc, cmax, W, k_stop, max_iters, wc, nb,
+    # stream
+    "ldpc_peel_launch": [*[_P] * 15, *[_I] * 11, _P],
+    # erased, vlist_idx, vlist_len, clist_idx, clist_len, seq, res, lvl_off,
+    # nlev, erased_out, iters_out, B, n, m, dmax, nc, cmax, k_stop,
+    # max_iters, stream
+    "ldpc_peel_schedule_launch": [*[_P] * 11, *[_I] * 8, _P],
     # schedule, values, erased, vlist_idx, vlist_len, vlist_val,
     # vlist_inv_val, clist_idx, clist_len, check_groups, values_out,
     # erased_out, iters_out, B, n, m, dmax, cmax, ngroups, W, k_stop,
@@ -63,6 +68,8 @@ LAUNCHERS = {
     "ldpc_gf256_elim_fits_smem": [_I, _I],
     # values, idx, coef, out, B, n, m, d, W, stream
     "ldpc_gf_matvec_launch": [*[_P] * 4, *[_I] * 5, _P],
+    # values, cols, ncols, offs, out, B, n, m, W, T, C, rows, stream
+    "ldpc_gf_matvec_tiled_launch": [*[_P] * 5, *[_I] * 7, _P],
     # rhs, mats, idx, out, B, m, E, W, n, stream
     "ldpc_gf_apply_launch": [*[_P] * 4, *[_I] * 5, _P],
     # rhs, mats, out, B, m, E, W, stream

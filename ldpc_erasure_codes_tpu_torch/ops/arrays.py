@@ -14,6 +14,7 @@ word ``j >> 5`` (LSB first, the JAX package's ``_bits_to_words``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -94,6 +95,14 @@ class CodeArrays:
     enc_diag_inv: torch.Tensor
     check_groups: torch.Tensor
     min_n: int
+
+    @functools.cached_property
+    def vlist_tiles(self):
+        """:func:`.nbmm.matrix_tiles` of the Vlist (H's dense route for
+        ``gf_matvec_wide``, None for a sparse H), built at first use."""
+        from ldpc_erasure_codes_tpu_torch.ops.nbmm import matrix_tiles
+
+        return matrix_tiles(self.vlist_idx, self.vlist_val, self.n)
 
     @property
     def m(self) -> int:

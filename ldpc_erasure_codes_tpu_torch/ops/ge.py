@@ -396,7 +396,7 @@ def ge_solve_wide_nb(
     r, pivrow, failed_k = gf256_eliminate(cube, nreal, emax=emax, a_words=wa)
     failed = overflow | failed_k
     t_top = _unpack_words_bytes(pivot_transforms(r, pivrow, wa))[:, :, :m].contiguous()
-    rhs = gf_matvec_wide(values, arrays.vlist_idx, arrays.vlist_val)
+    rhs = gf_matvec_wide(values, arrays.vlist_idx, arrays.vlist_val, tiles=arrays.vlist_tiles)
     writable = real & ~overflow[:, None]
     safe_idx = torch.where(writable, er_idx, n).to(torch.int32)
     values = gf_apply_scatter(values, rhs, t_top, safe_idx)

@@ -28,6 +28,8 @@ tensors.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
@@ -210,6 +212,90 @@ def matrix_rows(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return idx.contiguous(), coef.contiguous()
 
 
+# The dense route's block width (threads, one payload word each) in
+# csrc/gfmm.cu: each thread keeps its 32 nibble products in shared memory
+# at a row stride of TILE_THREADS words, which the offsets below encode.
+TILE_THREADS = 64
+TILE_FILL = 0.25  # least share of nonzero (row, column) pairs for the dense route
+
+
+class GFTiles(NamedTuple):
+    """An (n, m) GF(256) matrix cut into tiles of ``rows`` output rows, for
+    the dense route of :func:`gf_matvec_wide` (``csrc/gfmm.cu``).
+
+    cols: (T, C) int32, each tile's columns with a nonzero coefficient in
+      one of its rows, ascending (pad 0). ncols: (T,) int32 their number.
+    offs: (T, C, rows) int32, per (column, row) the coefficient c as the
+      byte offsets of its two nibble products in a thread's table: low
+      half (c & 15) * 4 * TILE_THREADS, high half (16 + (c >> 4)) * 4 *
+      TILE_THREADS (rows 0 and 16 of the table hold zero, so c = 0 and pad
+      rows add nothing). m: the output rows (tile t holds rows t * rows ..).
+    """
+
+    cols: torch.Tensor
+    ncols: torch.Tensor
+    offs: torch.Tensor
+    rows: int
+    m: int
+
+
+def matrix_tiles(idx: torch.Tensor, coef: torch.Tensor, n: int) -> GFTiles | None:
+    """The tiles of the matrix whose column lists are (idx, coef)
+    (:func:`matrix_rows`; the Vlist for H), or None where the lists are
+    sparse: fewer than :data:`TILE_FILL` of the tiles' (row, column) pairs
+    nonzero, as for an LDPC Vlist, which the list route serves. Entries
+    with idx outside [0, n) or coef 0 add nothing; repeated entries of one
+    row add their coefficients. Built once per matrix (``CodeArrays.
+    vlist_tiles`` caches the Vlist's)."""
+    if idx.shape != coef.shape or idx.dim() != 2:
+        raise ValueError(f"idx {tuple(idx.shape)} and coef {tuple(coef.shape)} must be (m, d)")
+    m, d = idx.shape
+    dev = idx.device
+    ok = (idx >= 0) & (idx < n) & (coef != 0)
+    dense = torch.zeros((m, n), dtype=torch.uint8, device=dev)
+    rows_ix = torch.arange(m, device=dev)
+    for j in range(d):
+        v = ok[:, j]
+        dense[rows_ix[v], idx[v, j].long()] ^= coef[v, j]
+    r = 16 if m <= 16 else 32 if m <= 32 else 64
+    t = -(-m // r)
+    cube = torch.zeros((t * r, n), dtype=torch.uint8, device=dev)
+    cube[:m] = dense
+    cube = cube.view(t, r, n)
+    nz = (cube != 0).any(dim=1)  # (T, n)
+    ncols = nz.sum(dim=1)
+    if int((dense != 0).sum()) < TILE_FILL * r * max(1, int(ncols.sum())):
+        return None
+    c = max(1, int(ncols.max()))
+    cols = torch.argsort((~nz).to(torch.uint8), dim=1, stable=True)[:, :c]
+    keep = torch.arange(c, device=dev)[None, :] < ncols[:, None]
+    cols = torch.where(keep, cols, 0)
+    vals = cube.gather(2, cols[:, None, :].expand(t, r, c)).transpose(1, 2).int()  # (T, C, R)
+    vals = torch.where(keep[:, :, None], vals, 0)
+    stride = 4 * TILE_THREADS
+    offs = (vals & 15) * stride | ((16 + (vals >> 4)) * stride) << 16
+    return GFTiles(cols.to(torch.int32).contiguous(), ncols.to(torch.int32),
+                   offs.to(torch.int32).contiguous(), r, m)
+
+
+def gf_matvec_tiles_reference(values: torch.Tensor, tiles: GFTiles) -> torch.Tensor:
+    """Plain PyTorch product over the tiles (the dense route's data): per
+    tile and column, each row's coefficient read back from its offsets."""
+    words = as_words(values, "values")
+    b, _, w = words.shape
+    stride = 4 * TILE_THREADS
+    out = words.new_zeros(b, tiles.cols.shape[0] * tiles.rows, w)
+    for t in range(tiles.cols.shape[0]):
+        lo = (tiles.offs[t] & 0xFFFF) // stride
+        hi = (tiles.offs[t] >> 16) // stride - 16
+        coef = lo | hi << 4  # (C, R)
+        acc = out[:, t * tiles.rows : (t + 1) * tiles.rows]
+        for sp in range(int(tiles.ncols[t])):
+            y = words[:, int(tiles.cols[t, sp])][:, None, :]  # (B, 1, W)
+            acc ^= gf_mul_packed(y, coef[sp][None, :, None])
+    return out[:, : tiles.m].contiguous().view(torch.uint8)
+
+
 def _check_rows(values, idx, coef) -> torch.Tensor:
     words = as_words(values, "values")
     if words.dim() != 3:
@@ -241,7 +327,8 @@ def gf_matvec_wide_reference(
     return out.view(torch.uint8)
 
 
-def gf_matvec_wide(values: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+def gf_matvec_wide(values: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, *,
+                   tiles: GFTiles | None = None) -> torch.Tensor:
     """rhs[b, i, :] = sum_s coef[i, s] * values[b, idx[i, s], :] over
     GF(256): (B, n, W) uint8 -> (B, m, W) uint8, the "mw" layout.
 
@@ -249,20 +336,42 @@ def gf_matvec_wide(values: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor) 
     (:func:`matrix_rows`), so this is ``y . M`` of the TPU kernel; entries
     with idx outside [0, n) or coef 0 add nothing. With the Vlist
     (``vlist_idx``, ``vlist_val``) it is the syndrome H . y. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (or raise).
-    ``gf_matvec_wide.launches`` counts kernel launches.
+    take the plain version; CUDA tensors launch a kernel (or raise):
+
+    * the dense route (the RS H) when :func:`matrix_tiles` tiles the lists:
+      a thread per payload word holds a tile's output rows in registers;
+      ``tiles`` passes the tiles of these lists, built once (else they are
+      built here, on every call);
+    * the list route (a sparse LDPC Vlist): a warp per output row walks its
+      list.
+
+    ``gf_matvec_wide.launches`` counts launches of either.
     """
     words = _check_rows(values, idx, coef)
     if words.device.type == "cpu":
         return gf_matvec_wide_reference(values, idx, coef)
     b, n, w = words.shape
     m, d = idx.shape
+    if tiles is None:
+        tiles = matrix_tiles(idx, coef, n)
     out = torch.empty((b, m, w), dtype=torch.int32, device=words.device)
-    rc = _build.library().ldpc_gf_matvec_launch(
-        words.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), b, n, m, d, w,
-        _stream(words),
-    )
-    _build.check(rc, "ldpc_gf_matvec_launch")
+    if tiles is not None:
+        if tiles.m != m or tiles.cols.device != words.device:
+            raise ValueError(f"tiles of {tiles.m} rows on {tiles.cols.device} for lists of {m} "
+                             f"rows on {words.device}")
+        t, c = tiles.cols.shape
+        rc = _build.library().ldpc_gf_matvec_tiled_launch(
+            words.data_ptr(), tiles.cols.data_ptr(), tiles.ncols.data_ptr(),
+            tiles.offs.data_ptr(), out.data_ptr(), b, n, m, w, t, c, tiles.rows,
+            _stream(words),
+        )
+        _build.check(rc, "ldpc_gf_matvec_tiled_launch")
+    else:
+        rc = _build.library().ldpc_gf_matvec_launch(
+            words.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), b, n, m, d, w,
+            _stream(words),
+        )
+        _build.check(rc, "ldpc_gf_matvec_launch")
     gf_matvec_wide.launches += 1
     return out.view(torch.uint8)
 

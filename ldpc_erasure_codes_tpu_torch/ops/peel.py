@@ -7,7 +7,11 @@ port keeps the plain (B, n, W) layout end to end. For CUDA tensors
 :func:`peel_decode` launches, per schedule:
 
 * "seq" and "unrolled" (+ fence gate; the production schedules, one
-  function): ``csrc/peel.cu``, the sequential (Gauss-Seidel) sweep;
+  function): ``csrc/peel.cu``, the sequential (Gauss-Seidel) sweep in two
+  kernels: a per-frame schedule of the sweep's resolutions, sorted into
+  independent levels, then the values of each (frame, chunk of Wc words)
+  out of a shared-memory slab (:func:`launch_kernel`; their plain halves
+  are :func:`peel_schedule_reference` and :func:`apply_schedule_reference`);
 * "counted" and "grouped": ``csrc/peel_sched.cu``, the same sequential
   function with live per-check counts, or with disjoint check groups whose
   loads are issued together;
@@ -147,6 +151,224 @@ def peel_decode_reference(
     return (v.view(torch.uint8) if nbin else v), er, iters
 
 
+def peel_schedule_reference(
+    arrays: CodeArrays,
+    erased: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the schedule kernel of ``csrc/peel.cu``: the
+    sequential mask sweep of :func:`peel_decode_reference`, which records
+    each resolution and its level.
+
+    Returns (res (B, n) int32, lvl_off (B, n + 1) int32, nlev (B,) int32,
+    erased (B, n) bool, iters (B,) int32). A resolution is ``c << 8 | es``:
+    check ``c`` solved its erased neighbour at list slot ``es``. Its level
+    is 1 + the largest level among the check's other neighbours (known
+    inputs are level 0), so resolutions of one level are independent.
+    ``res[b]`` lists frame b's resolutions sorted by level, in sweep order
+    within a level, then -1; ``lvl_off[b, l]`` counts those of level <= l;
+    ``nlev[b]`` is the largest level (0 when nothing resolved).
+    """
+    if erased.dtype != torch.bool or erased.dim() != 2:
+        raise ValueError(f"erased must be (B, n) bool, got {tuple(erased.shape)} {erased.dtype}")
+    b, n = erased.shape
+    k_stop = n if early_stop_k is None else int(early_stop_k)
+    dev = erased.device
+    lev = torch.where(erased, -1, 0).to(torch.int32)  # -1: erased
+    seq = torch.full((b, n), -1, dtype=torch.int32, device=dev)
+    seq_lev = torch.full((b, n), n + 1, dtype=torch.int32, device=dev)  # pad sorts last
+    nres = torch.zeros(b, dtype=torch.long, device=dev)
+    iters = torch.full((b,), max_iters, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    lens = arrays.vlist_len.tolist()
+    checks = [torch.tensor(row[:d], dtype=torch.long, device=dev)
+              for row, d in zip(arrays.vlist_idx.tolist(), lens)]
+    for it in range(max_iters):
+        changed = torch.zeros(b, dtype=torch.bool, device=dev)
+        for c, nb in enumerate(checks):
+            l_nb = lev[:, nb]  # (B, d)
+            deg1 = ((l_nb < 0).sum(dim=1) == 1) & active
+            if not bool(deg1.any()):
+                continue
+            f = deg1.nonzero().squeeze(1)
+            pos = (l_nb[f] < 0).to(torch.int8).argmax(dim=1)
+            level = l_nb[f].clamp(min=0).max(dim=1).values + 1
+            lev[f, nb[pos]] = level
+            seq[f, nres[f]] = (c << 8) | pos.to(torch.int32)
+            seq_lev[f, nres[f]] = level
+            nres[f] += 1
+            changed[f] = True
+        fin = active & ((lev[:, :k_stop] < 0).sum(dim=1) == 0)
+        iters[fin] = it + 1
+        active = active & ~fin & changed
+        if not bool(active.any()):
+            break
+    order = torch.sort(seq_lev, dim=1, stable=True).indices
+    res = seq.gather(1, order)
+    valid = seq_lev <= n
+    hist = torch.zeros((b, n + 1), dtype=torch.int32, device=dev)
+    hist.scatter_add_(1, seq_lev.clamp(max=n).long(), valid.to(torch.int32))
+    lvl_off = hist.cumsum(dim=1, dtype=torch.int32)
+    nlev = torch.where(valid, seq_lev, 0).max(dim=1).values.to(torch.int32)
+    return res, lvl_off, nlev, lev < 0, iters
+
+
+def apply_schedule_reference(
+    arrays: CodeArrays,
+    values: torch.Tensor,
+    erased: torch.Tensor,
+    res: torch.Tensor,
+    lvl_off: torch.Tensor,
+    *,
+    gf_order: int = 2,
+) -> torch.Tensor:
+    """Plain version of the value kernel of ``csrc/peel.cu``: the frames
+    with their erased slots zeroed, then each resolution of ``res`` applied
+    in list order (a check's erased slot set to the sum of its neighbours;
+    GF(256): ``inv_s * sum_j coef_j * y_j``). Values in the input's type."""
+    words = _words(values, gf_order)
+    b, n, w = words.shape
+    dev = words.device
+    v = words.masked_fill(erased[:, :, None], 0)
+    nres = lvl_off[:, -1]
+    dmax = arrays.dmax
+    slots = torch.arange(dmax, device=dev)
+    for r in range(int(nres.max()) if b else 0):
+        f = (nres > r).nonzero().squeeze(1)
+        t = res[f, r].long()
+        c, es = t >> 8, t & 255
+        nb = arrays.vlist_idx[c].long()  # (F, dmax), pad n
+        live = slots[None, :] < arrays.vlist_len[c][:, None]
+        rows = v[f[:, None], nb.clamp(max=n - 1)]  # (F, dmax, W)
+        if gf_order == 256:
+            rows = gf_mul_packed(rows, arrays.vlist_val[c][:, :, None])
+        rows = rows.masked_fill(~live[:, :, None], 0)
+        acc = rows[:, 0]
+        for j in range(1, dmax):
+            acc = acc ^ rows[:, j]
+        if gf_order == 256:
+            acc = gf_mul_packed(acc, arrays.vlist_inv_val[c, es][:, None])
+        v[f, nb[torch.arange(len(f), device=dev), es]] = acc
+    return v.view(torch.uint8) if gf_order == 256 else v
+
+
+# Shared memory a block may use on the H100 (232,448 bytes).
+SMEM_LIMIT = 232448
+SLAB_WORDS = (16, 12, 8, 4)
+
+
+def _r16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def schedule_smem(arrays: CodeArrays, n: int) -> int:
+    """Shared memory of a one-warp block of the schedule kernel: the Vlist
+    and the Clist as uint16 and, for each of the warp's 32 / G frames
+    (G = 8, 16 or 32 lanes, the first that holds dmax), its levels, sort
+    counters and per-check erased counts (csrc/peel.cu)."""
+    m, dmax = arrays.m, arrays.dmax
+    nc, cmax = arrays.clist_idx.shape
+    frames = 32 // (8 if dmax <= 8 else 16 if dmax <= 16 else 32)
+    return (_r16(2 * m * dmax) + _r16(2 * m) + _r16(2 * nc * cmax) + _r16(2 * nc)
+            + frames * (_r16(2 * n) + _r16(2 * (n + 2)) + _r16(2 * m)))
+
+
+def apply_smem(n: int, m: int, dmax: int, wc: int, gf_order: int) -> int:
+    """Shared memory of a value-kernel block (csrc/peel.cu): the slab of n
+    symbols x Wc words, the Vlist as uint16 (GF(256): and its coefficients
+    and inverses), the frame's resolutions and level offsets."""
+    nb = 2 * _r16(m * dmax) if gf_order == 256 else 0
+    return (4 * n * wc + _r16(2 * m * dmax) + _r16(2 * m) + nb + _r16(4 * n)
+            + _r16(4 * (n + 1)))
+
+
+def slab_words(arrays: CodeArrays, n: int, w: int, gf_order: int = 2) -> int:
+    """Words per block of the seq/unrolled value kernel (Wc): the widest of
+    :data:`SLAB_WORDS` whose block fits in shared memory, no wider than W
+    rounded up to 4 (wider chunks read longer runs of each symbol; at the
+    main path Wc = 16, one block per SM, beat Wc = 8, two, PERF.md). Raises
+    where even Wc = 4 exceeds a block's shared memory."""
+    m, dmax = arrays.m, arrays.dmax
+    need = max(apply_smem(n, m, dmax, 4, gf_order), schedule_smem(arrays, n))
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"n={n}, m={m}, dmax={dmax}: the peel kernel's slab of n x 4 words with the staged "
+            f"tables (or its schedule's) takes {need} bytes, over the {SMEM_LIMIT}-byte "
+            "shared-memory limit of a block")
+    fits = [wc for wc in SLAB_WORDS if wc <= max(4, -(-w // 4) * 4)
+            and apply_smem(n, m, dmax, wc, gf_order) <= SMEM_LIMIT]
+    return fits[0] if fits else 4
+
+
+def _schedule_buffers(b: int, n: int, dev) -> tuple[torch.Tensor, ...]:
+    """The schedule's int32 buffers: seq (B, n), the kernel's scratch, then
+    res (B, n), lvl_off (B, n + 1), nlev (B,)."""
+    return (torch.empty((b, n), dtype=torch.int32, device=dev),
+            torch.empty((b, n), dtype=torch.int32, device=dev),
+            torch.empty((b, n + 1), dtype=torch.int32, device=dev),
+            torch.empty((b,), dtype=torch.int32, device=dev))
+
+
+def launch_schedule(arrays: CodeArrays, erased: torch.Tensor, k_stop: int, max_iters: int):
+    """The schedule kernel of ``csrc/peel.cu`` on CUDA tensors: (res (B, n),
+    lvl_off (B, n + 1), nlev (B,), erased (B, n) bool, iters (B,)), in the
+    format of :func:`peel_schedule_reference`."""
+    b, n = erased.shape
+    if arrays.dmax > 256 or schedule_smem(arrays, n) > SMEM_LIMIT:
+        raise ValueError(f"the schedule kernel takes dmax <= 256 and the Vlist and Clist in "
+                         f"shared memory: dmax={arrays.dmax}, {schedule_smem(arrays, n)} bytes "
+                         f"for n={n}, m={arrays.m}")
+    dev = erased.device
+    seq, res, lvl_off, nlev = _schedule_buffers(b, n, dev)
+    er_out = torch.empty((b, n), dtype=torch.bool, device=dev)
+    iters = torch.empty((b,), dtype=torch.int32, device=dev)
+    rc = _build.library().ldpc_peel_schedule_launch(
+        erased.data_ptr(), arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
+        arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(), seq.data_ptr(),
+        res.data_ptr(), lvl_off.data_ptr(), nlev.data_ptr(), er_out.data_ptr(),
+        iters.data_ptr(), b, n, arrays.m, arrays.dmax, *arrays.clist_idx.shape, k_stop,
+        max_iters,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "ldpc_peel_schedule_launch")
+    return res, lvl_off, nlev, er_out, iters
+
+
+def launch_kernel(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, k_stop: int,
+                  max_iters: int, gf_order: int, wc: int | None = None):
+    """The sequential peel on CUDA tensors (``words`` int32): the schedule
+    kernel, then the value kernel with ``wc`` words per block
+    (:func:`slab_words` by default). Counts one launch of ``peel_decode``
+    (``launches``, or ``launches_gf256``). Returns int32 words."""
+    b, n, w = words.shape
+    if arrays.dmax > 256:
+        raise ValueError(f"the peel kernel keeps a check's slot in 8 bits: dmax={arrays.dmax}")
+    wc = slab_words(arrays, n, w, gf_order) if wc is None else wc
+    if wc not in SLAB_WORDS or apply_smem(n, arrays.m, arrays.dmax, wc, gf_order) > SMEM_LIMIT:
+        raise ValueError(f"slab of {wc} words: Wc must be one of {SLAB_WORDS} with the block's "
+                         f"shared memory within {SMEM_LIMIT} bytes (n={n})")
+    dev = words.device
+    out = torch.empty_like(words)
+    er_out = torch.empty((b, n), dtype=torch.bool, device=dev)
+    iters = torch.empty((b,), dtype=torch.int32, device=dev)
+    sched = _schedule_buffers(b, n, dev)
+    rc = _build.library().ldpc_peel_launch(
+        words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
+        arrays.vlist_len.data_ptr(), arrays.vlist_val.data_ptr(),
+        arrays.vlist_inv_val.data_ptr(), arrays.clist_idx.data_ptr(),
+        arrays.clist_len.data_ptr(), out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
+        *(t.data_ptr() for t in sched), b, n, arrays.m, arrays.dmax, *arrays.clist_idx.shape,
+        w, k_stop, max_iters, wc, int(gf_order == 256),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "ldpc_peel_launch")
+    counter = "launches_gf256" if gf_order == 256 else "launches"
+    setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
+    return out, er_out, iters
+
+
 def peel_decode(
     arrays: CodeArrays,
     values: torch.Tensor,
@@ -182,34 +404,26 @@ def peel_decode(
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     nb = gf_order == 256
+    if schedule in ("seq", "unrolled"):
+        out, er_out, iters = launch_kernel(arrays, words, erased, k_stop, max_iters, gf_order)
+        return (out.view(torch.uint8) if nb else out), er_out, iters
+    if schedule == "counted" and arrays.dmax > 255:
+        raise ValueError(f"schedule 'counted' keeps byte counts: dmax={arrays.dmax} > 255")
     b, n, w = words.shape
     out = torch.empty_like(words)
     er_out = torch.empty((b, n), dtype=torch.bool, device=words.device)
     iters = torch.empty((b,), dtype=torch.int32, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    tables = (arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
-              arrays.vlist_val.data_ptr(), arrays.vlist_inv_val.data_ptr())
-    outs = (out.data_ptr(), er_out.data_ptr(), iters.data_ptr())
-    if schedule in ("seq", "unrolled"):
-        rc = _build.library().ldpc_peel_launch(
-            words.data_ptr(), erased.data_ptr(), *tables, *outs,
-            b, n, arrays.m, arrays.dmax, w, k_stop, max_iters, int(nb), stream,
-        )
-        _build.check(rc, "ldpc_peel_launch")
-        counter = "launches"
-    else:
-        if schedule == "counted" and arrays.dmax > 255:
-            raise ValueError(f"schedule 'counted' keeps byte counts: dmax={arrays.dmax} > 255")
-        rc = _build.library().ldpc_peel_sched_launch(
-            _SCHED_CODE[schedule], words.data_ptr(), erased.data_ptr(), *tables,
-            arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(),
-            arrays.check_groups.data_ptr(), *outs, b, n, arrays.m, arrays.dmax,
-            arrays.clist_idx.shape[1], arrays.check_groups.shape[0], w, k_stop, max_iters,
-            int(nb), stream,
-        )
-        _build.check(rc, "ldpc_peel_sched_launch")
-        counter = f"launches_{schedule}"
-    counter += "_gf256" if nb else ""
+    rc = _build.library().ldpc_peel_sched_launch(
+        _SCHED_CODE[schedule], words.data_ptr(), erased.data_ptr(),
+        arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
+        arrays.vlist_val.data_ptr(), arrays.vlist_inv_val.data_ptr(),
+        arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(),
+        arrays.check_groups.data_ptr(), out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
+        b, n, arrays.m, arrays.dmax, arrays.clist_idx.shape[1], arrays.check_groups.shape[0],
+        w, k_stop, max_iters, int(nb), torch.cuda.current_stream(words.device).cuda_stream,
+    )
+    _build.check(rc, "ldpc_peel_sched_launch")
+    counter = f"launches_{schedule}" + ("_gf256" if nb else "")
     setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
     return (out.view(torch.uint8) if nb else out), er_out, iters
 

@@ -47,7 +47,9 @@ class DecoderConfig:
     residual), or ``ml`` (Gauss-Jordan from scratch, no peeling).
     impl: the peel, as the JAX package's: ``"gather"`` (default) and
     ``"matmul"`` run the Jacobi decoder; ``"vmem"`` runs the sequential
-    peel kernel on wide symbols (``schedule`` picks its schedule).
+    peel kernel on wide symbols, in the "unrolled" schedule when
+    ``schedule`` is "unrolled" and in "seq" for every other schedule, as
+    the JAX driver does.
     """
 
     kind: str = "hybrid"
@@ -55,7 +57,8 @@ class DecoderConfig:
     peel_iters: int = 10  # hybrid peel budget (My_LDPC_HybridML_Erasure_Decoder.m:9)
     emax: int = 128  # residual-GE column bucket
     impl: str = "gather"  # "gather" | "matmul" | "vmem" peeling step
-    # Peel kernel schedule for impl="vmem" (ops/peel.py SCHEDULES).
+    # Peel kernel schedule for impl="vmem": "unrolled" runs that schedule,
+    # any other value "seq" (the JAX driver's mapping; both are one function).
     schedule: str = "seq"
     early_stop_k: bool = False  # FPGA first-k-known early exit
     ge_subbatch: int = 0  # >0: compact residual frames into this bucket for GE

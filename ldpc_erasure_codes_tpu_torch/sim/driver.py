@@ -8,9 +8,11 @@ stopping rule on the host. The branch structure of ``_draw_source``,
 ``_encode``, ``_erasure_mask``, ``_decode`` and ``_decode_mask`` (:43-199)
 is kept:
 
-* ``impl="vmem"`` on wide symbols runs the peel kernel (``peel_decode``,
-  ``DecoderConfig.schedule``); every other peel runs the Jacobi decoder
-  ``peel_decode_jacobi``, as the JAX driver maps them (:89-125);
+* ``impl="vmem"`` on wide symbols runs the sequential peel kernel
+  (``peel_decode``): schedule "unrolled" when ``DecoderConfig.schedule``
+  is "unrolled", else "seq", whatever other schedule the config names, as
+  the JAX driver maps them (:101-112, :235-239); every other peel runs the
+  Jacobi decoder ``peel_decode_jacobi`` (:113-125);
 * the pattern-only hybrid peels to convergence, then rank-checks the
   residual (:158-191);
 * ``steps_per_call`` batches per call of the step, their statistics summed
@@ -123,7 +125,8 @@ def _decode(arrays: CodeArrays, cfg: SimConfig, values: torch.Tensor, erased: to
     if d.kind == "peel":
         kw = dict(gf_order=cfg.gf_order, max_iters=d.max_iters, early_stop_k=early)
         if d.impl == "vmem" and values.dim() == 3:
-            v, e, iters = peel_decode(arrays, values, erased, schedule=d.schedule, **kw)
+            schedule = "unrolled" if d.schedule == "unrolled" else "seq"
+            v, e, iters = peel_decode(arrays, values, erased, schedule=schedule, **kw)
         else:
             v, e, iters = peel_decode_jacobi(arrays, values, erased, **kw)
         return v, e, iters, None, None

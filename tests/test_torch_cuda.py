@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, rank
+from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, peel, rank
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_rank_check_reference, ge_solve_packed
@@ -55,25 +55,84 @@ def test_encode_kernel_matches_plain(cuda_device, w, aligned):
     torch.testing.assert_close(got, encode_packed_reference(arrays, src), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("name", ["n2040_k1530", "n4000_k2000"])
-@pytest.mark.parametrize("early_stop", [False, True])
-@pytest.mark.parametrize("w,aligned", [(256, True), (256, False), (5, True)])
-def test_peel_kernel_matches_plain(cuda_device, name, early_stop, w, aligned):
+# (name, early_stop, w, aligned, Wc (None: the wrapper's choice), B, edge
+# frames): the two codes at the default Wc; (4080,3060) at the largest Wc
+# that fits (8 words, 195 KB with the staged tables); W not a multiple of Wc; the one-word path
+# (misaligned) at Wc 16; B = 1; all-erased and none-erased frames at Wc 4.
+PEEL_CASES = [
+    (name, early_stop, w, aligned, None, 16, False)
+    for name in ("n2040_k1530", "n4000_k2000") for early_stop in (False, True)
+    for w, aligned in ((256, True), (256, False), (5, True))
+] + [
+    ("n4080_k3060", False, 256, True, 8, 16, False),
+    ("n4080_k3060", True, 256, True, 8, 16, False),
+    ("n2040_k1530", False, 200, True, 12, 16, False),
+    ("n2040_k1530", True, 20, True, 8, 16, False),
+    ("n2040_k1530", False, 256, False, 16, 16, False),
+    ("n2040_k1530", True, 256, True, None, 1, False),
+    ("n2040_k1530", False, 64, True, 4, 16, True),
+]
+
+
+@pytest.mark.parametrize("name,early_stop,w,aligned,wc,b,edges", PEEL_CASES)
+def test_peel_kernel_matches_plain(cuda_device, name, early_stop, w, aligned, wc, b, edges):
     code = get_code(name)
     arrays = code_arrays(code, cuda_device)
     rng = np.random.default_rng(7)
-    src = to_torch(random_words(rng, (16, code.k, w))).to(cuda_device)
+    src = to_torch(random_words(rng, (b, code.k, w))).to(cuda_device)
     cw = encode_packed(arrays, src)
+    cw[0, 0, 0] ^= 1  # frame 0 is not a codeword
     if not aligned:
         cw = _misaligned(cw)
-    mask = torch.from_numpy(rng.random((16, code.n)) < 0.1406).to(cuda_device)
+    mask = torch.from_numpy(rng.random((b, code.n)) < 0.1406).to(cuda_device)
+    if edges:
+        mask[1], mask[2] = True, False
     kw = dict(max_iters=50, early_stop_k=code.k if early_stop else None)
+    k_stop = code.n if kw["early_stop_k"] is None else code.k
     before = peel_decode.launches
-    got = peel_decode(arrays, cw, mask, **kw)
+    if wc is None:
+        got = peel_decode(arrays, cw, mask, **kw)
+    else:
+        got = peel.launch_kernel(arrays, cw, mask, k_stop, 50, 2, wc)
     torch.cuda.synchronize()
     assert peel_decode.launches == before + 1
     for g, r in zip(got, peel_decode_reference(arrays, cw, mask, **kw)):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name,per,max_iters", [
+    ("n2040_k1530", 0.1406, 50), ("n2040_k1530", 0.3, 10), ("n4080_k3060", 0.2, 50)])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_peel_schedule_kernel_matches_plain(cuda_device, name, per, max_iters, early_stop):
+    """The schedule kernel alone: the level-sorted resolutions, level
+    offsets, level counts, erased flags and iteration counts."""
+    code = get_code(name)
+    arrays = code_arrays(code, cuda_device)
+    mask = torch.from_numpy(np.random.default_rng(5).random((16, code.n)) < per)
+    mask[1], mask[2] = True, False
+    mask = mask.to(cuda_device)
+    esk = code.k if early_stop else None
+    got = peel.launch_schedule(arrays, mask, code.k if early_stop else code.n, max_iters)
+    torch.cuda.synchronize()
+    want = peel.peel_schedule_reference(arrays, mask, max_iters=max_iters, early_stop_k=esk)
+    _equal(got, want)
+
+
+def test_peel_wrapper_refuses_slabs_over_shared_memory(cuda_device):
+    """A slab of n x 4 words with the staged tables above a block's shared
+    memory raises; so does a Wc whose slab does not fit (16 words at
+    n = 4080)."""
+    arrays = code_arrays(get_code("n2000_k1000"), cuda_device)
+    n = peel.SMEM_LIMIT // 20
+    vals = torch.zeros((1, n, 4), dtype=torch.int32, device=cuda_device)
+    er = torch.zeros((1, n), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        peel_decode(arrays, vals, er)
+    big = code_arrays(get_code("n4080_k3060"), cuda_device)
+    vals = torch.zeros((1, 4080, 16), dtype=torch.int32, device=cuda_device)
+    er = torch.zeros((1, 4080), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="Wc must be"):
+        peel.launch_kernel(big, vals, er, 4080, 50, 2, 16)
 
 
 def test_wrappers_refuse_mixed_devices(cuda_device):
@@ -276,8 +335,10 @@ def test_encode_nb_kernel_matches_plain(cuda_device, wb, aligned):
 
 
 @pytest.mark.parametrize("early_stop", [False, True])
-@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (20, True)])
-def test_peel_nb_kernel_matches_plain(cuda_device, early_stop, wb, aligned):
+@pytest.mark.parametrize("wb,aligned,wc", [
+    (1024, True, None), (1024, False, None), (20, True, None), (1024, True, 4),
+    (1000, False, 16), (72, True, 12)])
+def test_peel_nb_kernel_matches_plain(cuda_device, early_stop, wb, aligned, wc):
     code = get_code("n2040_k1530_gf256")
     arrays = code_arrays(code, cuda_device)
     rng = np.random.default_rng(8)
@@ -287,7 +348,12 @@ def test_peel_nb_kernel_matches_plain(cuda_device, early_stop, wb, aligned):
     mask = torch.from_numpy(rng.random((16, code.n)) < 0.1406).to(cuda_device)
     kw = dict(max_iters=50, early_stop_k=code.k if early_stop else None, gf_order=256)
     before = (peel_decode.launches, peel_decode.launches_gf256)
-    got = peel_decode(arrays, cw, mask, **kw)
+    if wc is None:
+        got = peel_decode(arrays, cw, mask, **kw)
+    else:
+        k_stop = code.k if early_stop else code.n
+        out, e, it = peel.launch_kernel(arrays, cw.view(torch.int32), mask, k_stop, 50, 256, wc)
+        got = (out.view(torch.uint8), e, it)
     torch.cuda.synchronize()
     assert (peel_decode.launches, peel_decode.launches_gf256) == (before[0], before[1] + 1)
     _equal(got, peel_decode_reference(arrays, cw, mask, **kw))
@@ -338,30 +404,48 @@ def test_gf256_eliminate_kernel_matches_plain(cuda_device, a_words, b, m, c, ema
         _equal(elim.gf256_eliminate(cube, nreal, emax=emax, a_words=aw), want)
 
 
-@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True)])
-@pytest.mark.parametrize("matrix", ["rs_dense", "ldpc_vlist", "random_sparse"])
+@pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True), (1000, True)])
+@pytest.mark.parametrize("matrix", ["rs_dense", "rs_matrix_rows", "dense_edges", "ldpc_vlist",
+                                    "random_sparse"])
 def test_gf_matvec_kernel_matches_plain(cuda_device, wb, aligned, matrix):
-    """The RS H (255 x 63, dense: rows staged in shared memory), the
-    (2040,1530) GF(256) Vlist (2040 rows: read from device memory) and a
-    sparse random matrix with zero and out-of-range list entries."""
+    """The dense route: the RS H (255 x 63) as the code's Vlist and from
+    ``matrix_rows``, and a dense matrix of coefficients 0, 1 and 0xFF with
+    pad entries idx = n; the list route: the (2040,1530) GF(256) Vlist
+    (2040 rows: read from device memory) and a sparse random matrix with
+    zero and out-of-range list entries. W = 250 words is ragged."""
     from ldpc_erasure_codes_tpu_torch.rs import rs_code
 
     rng = np.random.default_rng(wb + len(matrix))
-    if matrix == "random_sparse":
-        n, m = 300, 40
+    tiles = None
+    if matrix in ("random_sparse", "dense_edges"):
+        n, m = (300, 40) if matrix == "random_sparse" else (200, 50)
         mat = rng.integers(0, 256, (n, m), dtype=np.uint8)
-        mat[rng.random((n, m)) < 0.9] = 0
+        if matrix == "random_sparse":
+            mat[rng.random((n, m)) < 0.9] = 0
+        else:
+            mat = np.array([0, 1, 0xFF], dtype=np.uint8)[rng.integers(0, 3, (n, m))]
         idx, coef = nbmm.matrix_rows(torch.from_numpy(mat).to(cuda_device))
         idx[0, -1] = -1
+        if matrix == "dense_edges":
+            idx = torch.cat([idx, torch.full((m, 2), n, dtype=torch.int32, device=cuda_device)],
+                            dim=1).contiguous()
+            coef = torch.cat([coef, torch.full((m, 2), 0xFF, dtype=torch.uint8,
+                                               device=cuda_device)], dim=1).contiguous()
     else:
-        arrays = code_arrays(rs_code(255, 192) if matrix == "rs_dense"
+        arrays = code_arrays(rs_code(255, 192) if matrix.startswith("rs")
                              else get_code("n2040_k1530_gf256"), cuda_device)
         n, idx, coef = arrays.n, arrays.vlist_idx, arrays.vlist_val
+        if matrix == "rs_matrix_rows":
+            idx, coef = nbmm.matrix_rows(arrays.h_nb.t().contiguous())
+        else:
+            tiles = arrays.vlist_tiles
+    dense = matrix not in ("ldpc_vlist", "random_sparse")
+    assert (nbmm.matrix_tiles(idx, coef, n) is not None) == dense
     values = _random_bytes(rng, (4, n, wb), cuda_device)
     if not aligned:
         values = _misaligned_bytes(values)
     before = nbmm.gf_matvec_wide.launches
-    got = nbmm.gf_matvec_wide(values, idx, coef)
+    got = nbmm.gf_matvec_wide(values, idx, coef, tiles=tiles)
     torch.cuda.synchronize()
     assert nbmm.gf_matvec_wide.launches == before + 1
     torch.testing.assert_close(got, nbmm.gf_matvec_wide_reference(values, idx, coef),

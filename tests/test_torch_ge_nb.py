@@ -40,8 +40,11 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     gf_apply_scatter,
     gf_matmul_batched,
     gf_matmul_batched_reference,
+    gf_matvec_tiles_reference,
     gf_matvec_wide,
+    gf_matvec_wide_reference,
     matrix_rows,
+    matrix_tiles,
 )
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 from torch_port_cases import small_jax_code, to_port_code
@@ -120,6 +123,53 @@ def test_gf_matvec_wide_on_the_vlist_is_the_syndrome():
     np.testing.assert_array_equal(got.numpy(), words.view(torch.uint8).numpy())
     idx, coef = matrix_rows(arrays.h_nb.t().contiguous())  # the same H as lists
     assert torch.equal(gf_matvec_wide(y, idx, coef), got)
+
+
+@pytest.mark.parametrize("n,m,density,tiled", [
+    (255, 63, 1.0, True), (120, 100, 0.6, True), (40, 9, 1.0, True), (96, 32, 0.1, False),
+])
+def test_matrix_tiles_match_pallas(n, m, density, tiled):
+    """The dense route's tiles (``matrix_tiles``) and their plain product
+    against the Pallas kernel: one tile of 64 rows (the RS shape), two
+    tiles, a 16-row tile; a sparse matrix is left to the list route."""
+    rng = np.random.default_rng(n + m)
+    y = rng.integers(0, 256, (2, n, 8), dtype=np.uint8)
+    mat = rng.integers(0, 256, (n, m), dtype=np.uint8)
+    mat[rng.random((n, m)) >= density] = 0
+    want = np.asarray(jax_gf_matvec_wide(
+        jnp.asarray(y), jax_ge._bit_image_dev(jnp.asarray(mat)), interpret=True,
+        out_layout="mw"))[:, :m]
+    tiles = matrix_tiles(*matrix_rows(torch.from_numpy(mat)), n)
+    assert (tiles is not None) == tiled
+    if not tiled:
+        return
+    assert tiles.rows == (16 if m <= 16 else 64) and tiles.cols.shape[0] == -(-m // tiles.rows)
+    for t in range(tiles.cols.shape[0]):
+        cols = tiles.cols[t, : int(tiles.ncols[t])]
+        assert bool((cols[1:] > cols[:-1]).all())
+    np.testing.assert_array_equal(gf_matvec_tiles_reference(torch.from_numpy(y), tiles).numpy(),
+                                  want)
+
+
+def test_matrix_tiles_of_code_lists():
+    """The RS(255,192) Vlist tiles into one 64-row tile and equals the list
+    product, with repeated and out-of-range entries added to its lists;
+    the (2040,1530) GF(256) Vlist is sparse (None: the list route)."""
+    from ldpc_erasure_codes_tpu_torch.rs import rs_code
+
+    arrays = code_arrays(rs_code(255, 192), "cpu")
+    assert code_arrays(get_code("n2040_k1530_gf256"), "cpu").vlist_tiles is None
+    idx = torch.cat([arrays.vlist_idx, arrays.vlist_idx[:, :2], torch.full((63, 1), -1),
+                     torch.full((63, 1), 300)], dim=1).to(torch.int32).contiguous()
+    coef = torch.cat([arrays.vlist_val, torch.tensor([[7, 0xFF]]).expand(63, 2).to(torch.uint8),
+                      torch.full((63, 2), 5, dtype=torch.uint8)], dim=1).contiguous()
+    y = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (3, 255, 12), dtype=np.uint8))
+    for i, c in ((arrays.vlist_idx, arrays.vlist_val), (idx, coef)):
+        tiles = matrix_tiles(i, c, 255)
+        assert tiles.rows == 64 and int(tiles.ncols[0]) == 255
+        assert torch.equal(gf_matvec_tiles_reference(y, tiles), gf_matvec_wide_reference(y, i, c))
+    assert torch.equal(gf_matvec_tiles_reference(y, arrays.vlist_tiles),
+                       gf_matvec_wide(y, arrays.vlist_idx, arrays.vlist_val))
 
 
 def test_gf_apply_scatter_matches_pallas():

@@ -235,3 +235,42 @@ def test_codes_cli_matches_jax(capsys):
     got = capsys.readouterr().out
     assert jax_cli.main(["codes"]) == 0
     assert got == capsys.readouterr().out and got.count("\n") >= 3
+
+
+def test_sim_step_vmem_schedule_maps_as_jax(monkeypatch):
+    """``DecoderConfig(impl="vmem", schedule="jacobi")`` on packed symbols:
+    the JAX driver runs its sequential Pallas peel (interpret mode) for
+    every schedule but "unrolled", and so does the port's. One batch of the
+    toy code through both sim steps, on the same NumPy-made source and
+    mask, gives equal ``SimStats``, the iteration sum included; the Jacobi
+    schedule itself would report other counts on this batch."""
+    from ldpc_erasure_codes_tpu.codes.toy import toy_code as jax_toy_code
+    from ldpc_erasure_codes_tpu_torch.codes.toy import toy_code
+    from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
+
+    b, w, per = 16, 2, 0.2
+    code, jcode = toy_code(64, 32, row_weight=4), jax_toy_code(64, 32, row_weight=4)
+    rng = np.random.default_rng(21)
+    src = rng.integers(0, 2**32, (b, code.k, w), dtype=np.uint32)
+    mask = rng.random((b, code.n)) < per
+    dec = dict(kind="peel", impl="vmem", schedule="jacobi", max_iters=50)
+    cfg = sim.SimConfig(batch=b, symbol_words=w, decoder=sim.DecoderConfig(**dec))
+    jcfg = jax_sim.SimConfig(batch=b, symbol_words=w, decoder=jax_sim.DecoderConfig(**dec))
+    monkeypatch.setattr(driver, "_draw_source",
+                        lambda gen, c, k, device: torch.from_numpy(src.view(np.int32)))
+    monkeypatch.setattr(driver, "_erasure_mask",
+                        lambda gen, c, n, p, device: torch.from_numpy(mask))
+    monkeypatch.setattr(jax_driver, "_draw_source", lambda key, c, k: jnp.asarray(src))
+    monkeypatch.setattr(jax_driver, "_erasure_mask", lambda key, c, n, p: jnp.asarray(mask))
+    got = sim.make_sim_step(code, cfg, device="cpu")(0, per).to_host()
+    want = jax_driver.make_sim_step(jcode, jcfg)(jax.random.key(0), jnp.float32(per))
+    for f, wv in zip(got._fields, want):
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)), np.asarray(wv), err_msg=f)
+    assert got.frames == b and sum(got.iters_hist) == b
+    arrays = code_arrays(code, "cpu")
+    cw = driver._encode(arrays, cfg, torch.from_numpy(src.view(np.int32)))
+    erased = torch.from_numpy(mask)
+    seq_iters = peel_decode(arrays, cw, erased, max_iters=50)[2]
+    jacobi_iters = peel_decode(arrays, cw, erased, max_iters=50, schedule="jacobi")[2]
+    assert sum(i * c for i, c in enumerate(got.iters_hist)) == int(seq_iters.sum())
+    assert int(seq_iters.sum()) != int(jacobi_iters.sum())
