@@ -10,12 +10,15 @@ Phases, each fatal on failure:
 2. build the CUDA kernels from ``ldpc_erasure_codes_tpu_torch/csrc``;
 3. the encode and peel kernels against their plain PyTorch versions on
    the card, bit-exact: (2040,1530) at B=64 and (2000,1000) at B=16,
-   W=256; the decode with and without first-k early stop;
+   W=256; the decode with and without first-k early stop; every shipped
+   code (``SHIPPED``) in both fields at B=4: the encode takes its slab
+   route and H ``f2_matvec_wide``'s list route (asserted);
 3b. the hybrid decoder's GE kernels (elimination, topology syndrome, dense
    syndrome, transform rows, transform apply) against their plain versions,
    bit-exact, on peeled frames: (2040,1530) B=64 PER .2031 emax 512,
    (2000,1000) B=16 PER .3906 emax 768 (a 224 KB cube in shared memory),
-   and (4000,2000) B=4 emax 1024 (the cube in device memory);
+   and (4000,2000) B=4 emax 1024 (the cube in device memory); each H on
+   ``f2_matvec_wide``'s list route (asserted);
 4. the main path at full width through the entry points a user calls
    (``bench.MainPath``): (2040,1530), B=2048, W=256, PER 0.1406, first-k
    early stop, 50 sweeps at most. The launch counters are zeroed just
@@ -29,11 +32,16 @@ Phases, each fatal on failure:
 4c. ``hybrid_decode_escalated`` through ``compact_ge_solve`` with buckets
    too small for the batch (emax 128, 64 frames), so escalation fires;
    verified, and held against the production branch on the same mask;
+   the escalated decode timed;
 5. each kernel's time against its plain version's at the main path's
    shapes (phase 4 for encode and peel, phase 4b's GE bucket for the rest),
    with the outputs compared again, and the hybrid step's stages; the seq
    peel's schedule kernel against its plain version, timed alone, and the
-   whole peel at each slab width Wc;
+   whole peel at each slab width Wc; the encode (slab route) and
+   ``f2_matvec_wide`` (H's list route, on the GE bucket) at each slab
+   width Wc, beside the slab load alone (the kernel with its compute cut),
+   a copy of the same frames and the route each replaced (the per-warp
+   encode, the bit scan);
 6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
    (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
    their plain versions at small shapes, bit-exact;
@@ -52,8 +60,8 @@ Phases, each fatal on failure:
    systematic legs timed; the three GF(256) GE kernels launch on every
    decode;
 7. each GF(256) kernel's time against its plain version's: encode and peel
-   (with the schedule kernel and the Wc widths, as in phase 5) at phase
-   6a's shapes, the GE kernels at phase 6d's i.i.d. batch (``gf_matvec_wide``
+   (with the schedule kernel, the Wc widths and the splits, as in phase 5)
+   at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch (``gf_matvec_wide``
    on its dense route: the RS H's tiles; 6c's LDPC Vlist takes the list
    route);
 8. the ``throughput`` command by peel schedule (``bench.ThroughputPath``,
@@ -77,7 +85,9 @@ Phases, each fatal on failure:
    so 9b runs again at emax 512, where no frame escalates; 9c value
    tracking at the FPGA shape (hybrid, W=256, B=2048, the flat handoff with
    the masking fused in the peel kernel), counted, its FER and escalations
-   reported. 9b's rank check is the rank kernel (``csrc/rank.cu``),
+   reported, and its stages timed one by one at its shape (channel,
+   source, encode, peel, GE and within it the dense syndrome, the decode,
+   one sim step). 9b's rank check is the rank kernel (``csrc/rank.cu``),
    counted; every count of 9a-9c must equal the recorded counts of the
    same seeds (``RECORDED_COUNTS``);
 10. the last three kernels against their plain versions, bit-exact: the
@@ -129,7 +139,8 @@ from ldpc_erasure_codes_tpu_torch.channel.erasure import (
     iid_erasures_per64,
 )
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import _build, elim, peel, rank
+from ldpc_erasure_codes_tpu_torch.ops import _build, elim, nbmm, peel, rank
+from ldpc_erasure_codes_tpu_torch.ops import encode as enc
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.channel import (
     channel_apply_per64,
@@ -151,6 +162,7 @@ from ldpc_erasure_codes_tpu_torch.ops.ge import (
     erased_indices,
     ge_rank_check_reference,
     ge_solve,
+    ge_solve_packed,
     pivot_transforms,
 )
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
@@ -327,6 +339,10 @@ XTIME_OPS = 6
 HORNER_OPS = 7 * XTIME_OPS
 
 
+# The shipped codes; each takes the encode's slab route and f2_matvec_wide's
+# list route (asserted in phase 3).
+SHIPPED = ("n2040_k1530", "n2000_k1000", "n4000_k2000", "n4080_k3060")
+
 BINARY = ("encode_packed", "peel_decode", "f2_eliminate", "syndrome_from_topo",
           "f2_matvec_wide", "f2_matmul_batched", "f2_apply_scatter")
 
@@ -400,6 +416,27 @@ def compare_small(device, errs: dict) -> None:
         torch.cuda.synchronize()
         log(f"phase 3: {name} B={b} W={bench.W}: encode and peel (early_stop_k None, k) "
             "bit-exact against the plain versions")
+    for name in SHIPPED:
+        for gf_order in (2, 256):
+            code = get_code(name if gf_order == 2 else f"{name}_gf256")
+            arrays = code_arrays(code, device)
+            wc = enc.slab_words(arrays, bench.W, gf_order)
+            require(wc is not None, f"{code.name}: the encode should take the slab route")
+            src = (random_bytes((4, code.k, 4 * bench.W), 21, device) if gf_order == 256 else
+                   bench.random_words((4, code.k, bench.W), torch.Generator(device=device),
+                                      device))
+            e = max_abs_err(encode_packed(arrays, src, gf_order=gf_order),
+                            encode_packed_reference(arrays, src, gf_order=gf_order))
+            key = "encode_packed_gf256" if gf_order == 256 else "encode_packed"
+            errs[key] = max(errs[key], e)
+            require(e == 0, f"{code.name}: encode slab kernel != plain ({e})")
+            rows = nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W)
+            require(gf_order == 256 or rows is not None,
+                    f"{name}: H should take f2_matvec_wide's list route")
+            log(f"phase 3: {code.name} B=4 W={bench.W} words: the encode on its slab route "
+                f"(Wc {wc}, {arrays.enc_levels.levels} levels) bit-exact against the plain "
+                f"version" + (f"; H on f2_matvec_wide's list route (Wc {rows})"
+                              if gf_order == 2 else ""))
 
 
 def zero_counts() -> None:
@@ -523,7 +560,7 @@ class GEInputs:
                              lambda: f2_eliminate_reference(self.cube, self.nreal, **kw)),
             "syndrome_from_topo": (lambda: syndrome_from_topo(a, v),
                                    lambda: syndrome_from_topo_reference(a, v)),
-            "f2_matvec_wide": (lambda: f2_matvec_wide(v, a.h_words),
+            "f2_matvec_wide": (lambda: f2_matvec_wide(v, a.h_words, rows=a.h_rows),
                                lambda: f2_matvec_wide_reference(v, a.h_words)),
             "f2_matmul_batched": (lambda: f2_matmul_batched(rhs, t),
                                   lambda: f2_matmul_batched_reference(rhs, t)),
@@ -581,7 +618,9 @@ def compare_ge(device, errs: dict) -> None:
             base = kname.split()[0]
             errs[base] = max(errs[base], e)
             require(e == 0, f"{name}: {kname} kernel != plain (max abs err {e})")
-        dense = f2_matvec_wide(values, arrays.h_words)
+        require(nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W) is not None,
+                f"{name}: H should take f2_matvec_wide's list route")
+        dense = f2_matvec_wide(values, arrays.h_words, rows=arrays.h_rows)
         require(torch.equal(dense, ge.rhs), f"{name}: dense and topology syndromes differ")
         failed = ge.elim_out[2]
         torch.cuda.synchronize()
@@ -590,7 +629,8 @@ def compare_ge(device, errs: dict) -> None:
             f"words in {'shared' if in_smem else 'device'} memory; "
             f"{int(erased.any(dim=1).sum())} residual frames, max residual "
             f"{int(ge.nreal.max())}, {int(failed.sum())} failed; GE kernels bit-exact "
-            "against the plain versions")
+            "against the plain versions; H on f2_matvec_wide's list route (Wc "
+            f"{nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W)})")
 
 
 def hybrid_phase(device, card: str):
@@ -649,8 +689,11 @@ def escalation_phase(path, device) -> dict:
     both = ~f & ~f2
     require(not bool((f & ~f2).any()), "escalation failed a frame the production branch solved")
     require(torch.equal(v[both], v2[both]), "escalated and production values differ")
+    ms = cuda_ms(lambda: hybrid_decode_escalated(
+        path.arrays, path.codewords, mask, peel_iters=h["peel_iters"], emax=128,
+        ge_subbatch=64, impl="vmem"), 3)
     log(f"phase 4c: failed frames escalated {int(f.sum())}, production branch {int(f2.sum())}; "
-        "values equal on frames both solved")
+        f"values equal on frames both solved; the escalated decode {ms:.3f} ms (3 calls)")
     return counts
 
 
@@ -687,6 +730,9 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     stages["transform gather"] = cuda_ms(
         lambda: pivot_transforms(ge.elim_out[0], ge.elim_out[1], ge.wa), 5)
     stages["syndrome"] = times["syndrome_from_topo"]
+    split = f2_matvec_split(path.arrays, vs, errs)
+    log(f"phase 5: f2_matvec_wide (H, list route) on the GE bucket ({vs.shape[0]} frames, "
+        f"W={h['w']}): {times['f2_matvec_wide']:.3f} ms; by Wc: {split_line(split)}")
     stages["apply (rows)"] = times["f2_matmul_batched"]
     x = f2_matmul_batched(ge.rhs, ge.t_rows)
     keep = ge.idx < code.n
@@ -762,6 +808,83 @@ def peel_split(arrays, cw, mask, k_stop: int, gf_order: int, errs: dict, name: s
         out[f"wc{wc}_ms"] = cuda_ms(lambda: peel.launch_kernel(
             arrays, words, mask, k_stop, bench.MAX_ITERS, gf_order, wc), 5)
     return out
+
+
+def f2_matvec_split(arrays, values, errs: dict) -> dict:
+    """``f2_matvec_wide``'s list route on H at one shape: the whole kernel
+    at every slab width Wc that fits (the wrapper's choice is
+    ``nbmm.f2_slab_words``), each held to the wrapper's output; the slab
+    load alone (the same kernel with every row list cut to length 0, so
+    it loads the slab and writes zeros); a ``clone`` of the values (n rows
+    in and out, more bytes than the kernel's n in, m out); and the
+    bit-scan route on the same inputs."""
+    idx, length = arrays.h_rows
+    _, n, w = values.shape
+    m, d = idx.shape
+    want = f2_matvec_wide(values, arrays.h_words, rows=arrays.h_rows)
+    out = {"wc_default": nbmm.f2_slab_words(idx, n, w),
+           "wc": [wc for wc in nbmm.F2_SLAB_WORDS
+                  if nbmm.f2_rows_smem(n, m, d, wc) <= nbmm.SMEM_LIMIT]}
+    for wc in out["wc"]:
+        e = max_abs_err(nbmm.launch_rows(values, idx, length, wc), want)
+        errs["f2_matvec_wide"] = max(errs["f2_matvec_wide"], e)
+        require(e == 0, f"f2_matvec_wide list route at Wc {wc} != the default ({e})")
+        out[f"wc{wc}_ms"] = cuda_ms(lambda: nbmm.launch_rows(values, idx, length, wc), 5)
+    zero = torch.zeros_like(length)
+    out["load_ms"] = cuda_ms(lambda: nbmm.launch_rows(values, idx, zero, out["wc_default"]), 5)
+    out["clone_ms"] = cuda_ms(lambda: values.clone(), 5)
+    e = max_abs_err(nbmm.launch_scan(values, arrays.h_words), want)
+    errs["f2_matvec_wide"] = max(errs["f2_matvec_wide"], e)
+    require(e == 0, f"f2_matvec_wide bit-scan route != list route ({e})")
+    out["scan_ms"] = cuda_ms(lambda: nbmm.launch_scan(values, arrays.h_words), 3)
+    return out
+
+
+def encode_split(arrays, src, gf_order: int, errs: dict, name: str) -> dict:
+    """The encode's slab route at one shape: the whole kernel at every
+    slab width Wc that fits (the wrapper's choice is ``enc.slab_words``),
+    each held to the wrapper's output; the slab load and the stores alone
+    (the same kernel with its sums cut, ``compute=False``); a zero-padded copy
+    of the source (k rows in, n out: the bound's bytes); and the per-warp
+    route (the kernel this one replaced) on the same inputs."""
+    words = src.view(torch.int32) if gf_order == 256 else src
+    w = words.shape[2]
+    want = encode_packed(arrays, src, gf_order=gf_order)
+    want = want.view(torch.int32) if gf_order == 256 else want
+    lv = arrays.enc_levels
+    out = {"wc_default": enc.slab_words(arrays, w, gf_order), "levels": lv.levels,
+           "wc": [wc for wc in enc.SLAB_WORDS
+                  if enc.slab_smem(arrays, wc, gf_order) <= enc.SMEM_LIMIT]}
+    for wc in out["wc"]:
+        e = max_abs_err(enc.launch_slab(arrays, words, gf_order, wc), want)
+        errs[name] = max(errs[name], e)
+        require(e == 0, f"{name}: slab route at Wc {wc} != the default ({e})")
+        out[f"wc{wc}_ms"] = cuda_ms(lambda: enc.launch_slab(arrays, words, gf_order, wc), 5)
+    out["load_ms"] = cuda_ms(lambda: enc.launch_slab(
+        arrays, words, gf_order, out["wc_default"], compute=False), 5)
+    out["pad_ms"] = cuda_ms(
+        lambda: torch.nn.functional.pad(words, (0, 0, 0, arrays.m)), 5)
+    e = max_abs_err(enc.launch_warp(arrays, words, gf_order), want)
+    errs[name] = max(errs[name], e)
+    require(e == 0, f"{name}: per-warp route != slab route ({e})")
+    out["warp_ms"] = cuda_ms(lambda: enc.launch_warp(arrays, words, gf_order), 3)
+    return out
+
+
+def split_line(split: dict) -> str:
+    """The by-Wc times and the splits of :func:`f2_matvec_split` or
+    :func:`encode_split`, for a log line."""
+    head = (", ".join(f"{wc} words {split[f'wc{wc}_ms']:.3f} ms" for wc in split["wc"])
+            + f" (default Wc {split['wc_default']})")
+    if "clone_ms" in split:
+        tail = [f"the slab load alone {split['load_ms']:.3f} ms",
+                f"a clone of the values {split['clone_ms']:.3f} ms",
+                f"the bit-scan route {split['scan_ms']:.3f} ms"]
+    else:
+        tail = [f"the slab load and the stores alone (no sums) {split['load_ms']:.3f} ms",
+                f"a zero-padded copy of the source {split['pad_ms']:.3f} ms",
+                f"the per-warp route {split['warp_ms']:.3f} ms", f"{split['levels']} levels"]
+    return "; ".join([head, *tail])
 
 
 class GEInputsNB:
@@ -929,14 +1052,19 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     # 7a: encode and peel GF(256) against their plain versions at these shapes.
     arrays = path.arrays
     src = random_bytes((nb["b"], code.k, nb["wb"]), 15, device)
-    times["encode_packed_gf256"] = cuda_ms(lambda: encode_packed(arrays, src, gf_order=256), 3)
+    times["encode_packed_gf256"] = cuda_ms(lambda: encode_packed(arrays, src, gf_order=256), 5)
     want, plain["encode_packed_gf256"] = host_ms(
         lambda: encode_packed_reference(arrays, src, gf_order=256))
     e = max_abs_err(encode_packed(arrays, src, gf_order=256), want)
     errs["encode_packed_gf256"] = max(errs["encode_packed_gf256"], e)
     require(e == 0, f"NB main shape: GF(256) encode kernel != plain ({e})")
     bounds["encode_packed_gf256"] = encode_bound(arrays, nb["b"], nb["wb"], gf=True)
-    del src, want
+    del want
+    split = encode_split(arrays, src, 256, errs, "encode_packed_gf256")
+    log(f"phase 7: encode_packed_gf256 at B={nb['b']} {nb['wb']}-byte symbols: "
+        f"{times['encode_packed_gf256']:.3f} ms on the slab route; by Wc: {split_line(split)}; "
+        f"on {card}")
+    del src
     gen = torch.Generator(device=device)
     gen.manual_seed(16)
     mask = iid_erasures((nb["b"], code.n), nb["per"], generator=gen, device=device)
@@ -1268,7 +1396,50 @@ def sim_phase(device, card: str, launches: dict) -> dict:
         f"escalations {v['escalations']}, ml_failed {v['ml_failed']}, mean iterations "
         f"{v['mean_iters']:.3f}, {v['frames']} frames, {v['frames_per_sec']:.1f} frames/s "
         f"({v['info_gbps']:.3f} Gbps_info); launches {counts}; on {card}")
+    sim_9c_stages(device, card)
     return p
+
+
+def sim_9c_stages(device, card: str) -> None:
+    """9c's stages, each timed alone by CUDA events on one batch at 9c's
+    shape (the CLI's configuration: B = 2048, W = 256, PER .1875, 10 peel
+    sweeps, emax 128, the whole batch in one GE, the masking fused in the
+    peel kernel): the channel's mask, the source draw, the encode, the
+    peel, the GE and, within it, the dense syndrome; then the decode and
+    one sim step whole."""
+    cfg = cli.sim_config(cli.parser().parse_args(SIM_9C))
+    d = cfg.decoder
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    shape = (cfg.batch, code.n)
+    st = {"channel": cuda_ms(lambda: iid_erasures(shape, SIM_PER, generator=gen, device=device),
+                             5),
+          "source": cuda_ms(lambda: bench.random_words(
+              (cfg.batch, code.k, cfg.symbol_words), gen, device), 5)}
+    mask = iid_erasures(shape, SIM_PER, generator=gen, device=device)
+    src = bench.random_words((cfg.batch, code.k, cfg.symbol_words), gen, device)
+    st["encode"] = cuda_ms(lambda: encode_packed(arrays, src), 5)
+    cw = encode_packed(arrays, src)
+    del src
+    st["peel"] = cuda_ms(lambda: peel_decode(arrays, cw, mask, max_iters=d.peel_iters), 5)
+    v, e, _ = peel_decode(arrays, cw, mask, max_iters=d.peel_iters)
+    st["GE"] = cuda_ms(lambda: ge_solve_packed(arrays, v, e, emax=d.emax), 3)
+    st["dense syndrome"] = cuda_ms(
+        lambda: f2_matvec_wide(v, arrays.h_words, rows=arrays.h_rows), 5)
+    resid = int(e.any(dim=1).sum())
+    del v, e
+    st["decode"] = cuda_ms(lambda: hybrid_decode(
+        arrays, cw, mask, peel_iters=d.peel_iters, emax=d.emax, impl=d.impl,
+        ge_subbatch=d.ge_subbatch, tiled=cfg.tiled_pipeline, return_overflow=True), 3)
+    del cw, mask
+    step = sim.make_sim_step(code, cfg, device=device)
+    st["sim step"] = cuda_ms(lambda: step(0, SIM_PER), 3) / max(cfg.steps_per_call, 1)
+    log(f"phase 9c: stages of one batch (B={cfg.batch}, W={cfg.symbol_words}, PER {SIM_PER}, "
+        f"{resid} frames left for the GE), ms by CUDA events: " + "; ".join(
+            f"{k} {v:.3f}" for k, v in st.items()) + f" (GE includes the dense syndrome); on "
+        f"{card}")
 
 
 def rank_bound(arrays, erased: torch.Tensor, emax: int) -> dict:
@@ -1584,12 +1755,16 @@ def main() -> None:
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
     src = bench.random_words((bench.B, code.k, bench.W), gen, device)
-    times = {"encode_packed": cuda_ms(lambda: encode_packed(arrays, src), 3)}
+    times = {"encode_packed": cuda_ms(lambda: encode_packed(arrays, src), 5)}
     want, times_plain_enc = host_ms(lambda: encode_packed_reference(arrays, src))
     e = max_abs_err(encode_packed(arrays, src), want)
     errs["encode_packed"] = max(errs["encode_packed"], e)
     require(e == 0, f"main shape: encode kernel != plain ({e})")
-    del src, want
+    del want
+    split = encode_split(arrays, src, 2, errs, "encode_packed")
+    log(f"phase 5: encode_packed at B={bench.B} W={bench.W}: {times['encode_packed']:.3f} ms on "
+        f"the slab route; by Wc: {split_line(split)}; on {card}")
+    del src
     cw = main_path.codewords
     mask = iid_erasures((bench.B, code.n), bench.PER, generator=gen, device=device)
     kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=code.k)

@@ -58,3 +58,44 @@ template <>
 __device__ __forceinline__ Words<1> gf_mul<1>(Words<1> w, uint32_t c) {
     return {(int32_t)gf_mul4((uint32_t)w.v, c)};
 }
+
+// Word-vector helpers for bit-sliced sums of products: a multiply by x of
+// every byte, and a masked XOR (mk is 0 or all ones).
+__device__ __forceinline__ Words<4> xtime(Words<4> w) {
+    return {make_int4((int)gf_xtime4(w.v.x), (int)gf_xtime4(w.v.y), (int)gf_xtime4(w.v.z),
+                      (int)gf_xtime4(w.v.w))};
+}
+__device__ __forceinline__ Words<1> xtime(Words<1> w) { return {(int32_t)gf_xtime4(w.v)}; }
+__device__ __forceinline__ void xor_masked(Words<4>& a, const Words<4>& y, int mk) {
+    a.v.x ^= y.v.x & mk; a.v.y ^= y.v.y & mk; a.v.z ^= y.v.z & mk; a.v.w ^= y.v.w & mk;
+}
+__device__ __forceinline__ void xor_masked(Words<1>& a, const Words<1>& y, int mk) {
+    a.v ^= y.v & mk;
+}
+
+// sum_j c_j * y_j over GF(256), bit-sliced: the terms enter with one
+// masked XOR per coefficient bit into eight partial sums S_t (the words
+// whose coefficient has bit t), which Horner's rule folds at the end
+// (7 multiplies by x). Threads whose terms have different coefficients
+// then run the same instructions. Feed terms with add(), read with sum().
+template <int VEC>
+struct BitSlicedSum {
+    Words<VEC> s[8];
+    __device__ BitSlicedSum() {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) s[q] = Words<VEC>::zero();
+    }
+    __device__ __forceinline__ void add(const Words<VEC>& y, uint32_t c) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) xor_masked(s[q], y, -(int)((c >> q) & 1u));
+    }
+    __device__ __forceinline__ Words<VEC> sum() const {
+        Words<VEC> acc = s[7];
+#pragma unroll
+        for (int q = 6; q >= 0; --q) {
+            acc = xtime(acc);
+            acc ^= s[q];
+        }
+        return acc;
+    }
+};

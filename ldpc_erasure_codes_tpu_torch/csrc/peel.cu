@@ -76,16 +76,14 @@
 #include <cuda_runtime.h>
 
 #include "gf256.cuh"
+#include "slab.cuh"
 #include "words.cuh"
 
 namespace {
 
-constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may use
 constexpr int kSmemPerSm = 233472;   // bytes of shared memory on an SM
 constexpr int kApplyThreads = 1024;
 constexpr uint16_t kErased = 0xFFFF;
-
-__host__ __device__ inline int round16(int bytes) { return (bytes + 15) / 16 * 16; }
 
 // The Vlist staged in shared memory as uint16: m * dmax indices, m degrees.
 __host__ __device__ inline int vlist_bytes(int m, int dmax) {
@@ -304,37 +302,6 @@ __global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
     }
 }
 
-// Asynchronous copy of one lane's words into shared memory (cp.async),
-// with the hint that L2 fetch the whole 128-byte line: the other chunks of
-// the symbol, which neighbouring blocks load at about the same time, then
-// hit in L2 instead of each costing a device-memory access of its own.
-template <int VEC>
-__device__ __forceinline__ void copy_async(void* dst, const int32_t* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    if constexpr (VEC == 4)
-        asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-                     : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-                     : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Word-vector helpers for the GF(256) sums.
-__device__ __forceinline__ Words<4> xtime(Words<4> w) {
-    return {make_int4((int)gf_xtime4(w.v.x), (int)gf_xtime4(w.v.y), (int)gf_xtime4(w.v.z),
-                      (int)gf_xtime4(w.v.w))};
-}
-__device__ __forceinline__ Words<1> xtime(Words<1> w) { return {(int32_t)gf_xtime4(w.v)}; }
-__device__ __forceinline__ void xor_masked(Words<4>& a, const Words<4>& y, int mk) {
-    a.v.x ^= y.v.x & mk; a.v.y ^= y.v.y & mk; a.v.z ^= y.v.z & mk; a.v.w ^= y.v.w & mk;
-}
-__device__ __forceinline__ void xor_masked(Words<1>& a, const Words<1>& y, int mk) {
-    a.v ^= y.v & mk;
-}
-
 // A block per (frame, chunk of VEC * P words); the slab holds the chunk of
 // all n symbols, part p of symbol s at s * P + p. The slab's loads are
 // asynchronous copies (cp.async), all in flight at once; the Vlist, the
@@ -367,13 +334,8 @@ peel_apply_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict_
     int32_t* o = out + (size_t)b * n * W + w0;
     const uint8_t* er = erased + (size_t)b * n;
 
-    for (int i = threadIdx.x; i < n * P; i += kApplyThreads) {
-        const int s = i / P, p = i % P;
-        if (w0 + p * VEC < W && !er[s])
-            copy_async<VEC>(slab + i, in + (size_t)s * W + p * VEC);
-        else
-            slab[i] = V::zero();
-    }
+    slab_load<VEC, P>(slab, in, n, W, w0, threadIdx.x, kApplyThreads,
+                      [er](int s) { return !er[s]; });
     const int levels = __ldg(nlev + b);
     const int32_t* offg = lvl_off + (size_t)b * (n + 1);
     const int nres = __ldg(offg + n);
@@ -399,9 +361,7 @@ peel_apply_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict_
             const int d = vlen[c];
             V acc = V::zero();
             if (kNB) {
-                V sl[8];
-#pragma unroll
-                for (int q = 0; q < 8; ++q) sl[q] = V::zero();
+                BitSlicedSum<VEC> sum;
                 const uint8_t* cf = cval + c * dmax;
                 for (int j0 = 0; j0 < d; j0 += 4) {
                     int ix[4];
@@ -413,20 +373,9 @@ peel_apply_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict_
                         cj[u] = in ? cf[j0 + u] : 0u;  // a zero coefficient adds nothing
                     }
 #pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-                        const V y = slab[ix[u] * P + p];
-#pragma unroll
-                        for (int q = 0; q < 8; ++q)
-                            xor_masked(sl[q], y, -(int)((cj[u] >> q) & 1u));
-                    }
+                    for (int u = 0; u < 4; ++u) sum.add(slab[ix[u] * P + p], cj[u]);
                 }
-                acc = sl[7];
-#pragma unroll
-                for (int q = 6; q >= 0; --q) {
-                    acc = xtime(acc);
-                    acc ^= sl[q];
-                }
-                acc = gf_mul<VEC>(acc, cinv[c * dmax + es]);
+                acc = gf_mul<VEC>(sum.sum(), cinv[c * dmax + es]);
             } else {
                 // Neighbour indices eight at a time, so their reads and the
                 // slab reads they address overlap.
@@ -444,11 +393,7 @@ peel_apply_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict_
         __syncthreads();
     }
 
-#pragma unroll 4
-    for (int i = threadIdx.x; i < n * P; i += kApplyThreads) {
-        const int s = i / P, p = i % P;
-        if (w0 + p * VEC < W) slab[i].store(o + (size_t)s * W + p * VEC);
-    }
+    slab_store<VEC, P>(slab, o, n, W, w0, threadIdx.x, kApplyThreads);
 }
 
 template <int VEC, int P, bool kNB>

@@ -37,6 +37,7 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     f2_apply_scatter_reference,
     f2_matmul_batched,
     f2_matmul_batched_reference,
+    f2_matrix_rows,
     f2_matvec_wide,
     f2_matvec_wide_reference,
     gf_apply_scatter,
@@ -68,6 +69,7 @@ __all__ = [
     "f2_eliminate_reference",
     "f2_matmul_batched",
     "f2_matmul_batched_reference",
+    "f2_matrix_rows",
     "f2_matvec_wide",
     "f2_matvec_wide_reference",
     "f2_rank_check",

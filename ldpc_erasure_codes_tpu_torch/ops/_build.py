@@ -34,6 +34,16 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
+# Shared memory a block may use on the H100 (232,448 bytes): the kernels'
+# slabs and staged tables are sized against it.
+SMEM_LIMIT = 232448
+
+
+def round16(nbytes: int) -> int:
+    """``nbytes`` rounded up to 16, as the kernels align their shared arrays."""
+    return -(-nbytes // 16) * 16
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every pointer and the stream are c_void_p (a plain int
@@ -42,6 +52,9 @@ LAUNCHERS = {
     # src, enc_src_idx, enc_par_idx, enc_src_val, enc_par_val, enc_diag_inv,
     # out, B, k, m, W, dmax, pmax, nb, stream
     "ldpc_encode_launch": [*[_P] * 7, *[_I] * 7, _P],
+    # src, order, lvl_off, sidx, scoef, pidx, pcoef, plen, out, B, k, m, ds,
+    # dp, L, W, wc, compute, nb, stream
+    "ldpc_encode_slab_launch": [*[_P] * 9, *[_I] * 10, _P],
     # values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv_val,
     # clist_idx, clist_len, values_out, erased_out, iters_out, seq, res,
     # lvl_off, nlev, B, n, m, dmax, nc, cmax, W, k_stop, max_iters, wc, nb,
@@ -87,6 +100,8 @@ LAUNCHERS = {
     "ldpc_synd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # values, h_words, out, B, n, KW, m, W, stream
     "ldpc_f2_matvec_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # values, idx, len, out, B, K, m, d, W, wc, stream
+    "ldpc_f2_matvec_rows_launch": [*[_P] * 4, *[_I] * 6, _P],
     # rhs, t_words, out, B, K, KW, E, W, stream
     "ldpc_f2_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # rhs, t_words, idx, out, B, K, KW, E, W, n, stream

@@ -97,6 +97,23 @@ class CodeArrays:
     min_n: int
 
     @functools.cached_property
+    def h_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """:func:`.nbmm.f2_matrix_rows` of ``h_words`` over the n columns
+        (the list route of ``f2_matvec_wide``), built at first use."""
+        from ldpc_erasure_codes_tpu_torch.ops.nbmm import f2_matrix_rows
+
+        return f2_matrix_rows(self.h_words, self.n)
+
+    @functools.cached_property
+    def enc_levels(self):
+        """:func:`.encode.encode_levels`: the parity rows in level order
+        with their neighbour lists (the encode's slab route), built at
+        first use."""
+        from ldpc_erasure_codes_tpu_torch.ops.encode import encode_levels
+
+        return encode_levels(self)
+
+    @functools.cached_property
     def vlist_tiles(self):
         """:func:`.nbmm.matrix_tiles` of the Vlist (H's dense route for
         ``gf_matvec_wide``, None for a sparse H), built at first use."""

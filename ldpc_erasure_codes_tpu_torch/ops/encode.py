@@ -3,8 +3,12 @@
 Counterpart of ``ldpc_erasure_codes_tpu/ops/encode.py::encode_packed``
 (:57-137) and of the TPU kernel ``ops/pallas_encode.py::encode_packed_vmem``
 (:223-379), which compute the same codewords. :func:`encode_packed` launches
-the CUDA kernel ``csrc/encode.cu`` for CUDA tensors and runs
-:func:`encode_packed_reference` for CPU tensors.
+a CUDA kernel of ``csrc/encode.cu`` for CUDA tensors and runs
+:func:`encode_packed_reference` for CPU tensors. The kernel's route is
+chosen from the code's tables before launch: the slab route works the
+parity rows level by level (:func:`encode_levels`; the plain version of
+that order is :func:`encode_levels_reference`) wherever its block fits
+(:func:`slab_words`; every shipped code), the per-warp route elsewhere.
 
 Binary codes take int32 words. GF(256) codes take uint8 byte symbols
 (W % 4 == 0), viewed as int32 words of four bytes for the arithmetic, and
@@ -15,10 +19,15 @@ parity row i is ``dinv_i * (sum src_val * src + sum par_val * parity_j)``
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
+from ldpc_erasure_codes_tpu_torch.gf.tables import build_tables
 from ldpc_erasure_codes_tpu_torch.ops import _build
+from ldpc_erasure_codes_tpu_torch.ops._build import SMEM_LIMIT, round16 as _r16
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 
 
@@ -30,6 +39,9 @@ def _check(arrays: CodeArrays, source: torch.Tensor, gf_order: int) -> torch.Ten
         raise ValueError(f"source must be (B, k, W) with W >= 1, got {tuple(source.shape)}")
     if source.device != arrays.device:
         raise ValueError(f"source on {source.device}, code tables on {arrays.device}")
+    if source.shape[1] != arrays.n - arrays.m:
+        raise ValueError(f"source has {source.shape[1]} symbols, the code k = "
+                         f"{arrays.n - arrays.m}")
     if gf_order == 256:
         return as_words(source, "source")
     if source.dtype != torch.int32:
@@ -71,6 +83,212 @@ def encode_packed_reference(
     return _bytes_out(torch.cat([words, parity], dim=1), gf_order)
 
 
+class EncodeLevels(NamedTuple):
+    """The parity rows of a code in level order, for the encode's slab
+    route (``csrc/encode.cu``). A row's level is 0 when it has no parity
+    neighbour, else 1 + the highest level among its parity neighbours, so
+    the rows of one level depend only on earlier levels. Parity row r is
+    ``dinv_r * (sum sv * source + sum pv * parity)`` over GF(256), which
+    the tables carry as ``sum (dinv_r sv) * source + sum (dinv_r pv) *
+    parity``: the source sums of every row first, all at once, then the
+    parity terms level by level (binary codes: every coefficient 1).
+
+    order: (m,) int16, the rows sorted by level (stable: ascending within a
+      level); every table below is in this order. level_off: (L + 1,)
+      int32, level l holds positions [level_off[l], level_off[l + 1]).
+    src: (m, ds) int16, each row's source neighbours (symbols < k), pad n
+      (a symbol past the codeword, which reads zero); src_coef: (m, ds)
+      uint8 their coefficients times the row's diagonal inverse, pad 0.
+    par: (m, dp) int16, each row's parity neighbours as codeword symbols
+      k + p, pad n; par_coef: (m, dp) uint8 likewise; par_len: (m,) int16
+      their number.
+
+    The kernel copies the tables into shared memory as they are (16-byte
+    pieces), so the indices are 16-bit: codes of up to 32766 symbols.
+    """
+
+    order: torch.Tensor
+    level_off: torch.Tensor
+    src: torch.Tensor
+    src_coef: torch.Tensor
+    par: torch.Tensor
+    par_coef: torch.Tensor
+    par_len: torch.Tensor
+
+    @property
+    def levels(self) -> int:
+        return self.level_off.shape[0] - 1
+
+
+def row_levels(enc_par_idx: np.ndarray) -> np.ndarray:
+    """Each parity row's level (:class:`EncodeLevels`) from its
+    strictly-lower parity neighbours (m, pmax), pad m."""
+    m = enc_par_idx.shape[0]
+    lev = np.zeros(m, dtype=np.int64)
+    for r, row in enumerate(enc_par_idx.tolist()):
+        par = [p for p in row if p < m]
+        if par:
+            lev[r] = 1 + lev[par].max()
+    return lev
+
+
+def encode_levels(arrays: CodeArrays) -> EncodeLevels | None:
+    """The code's parity rows in level order with their neighbour tables,
+    built in NumPy from the encode tables (``CodeArrays.enc_levels``
+    caches them on the tables' device). Codes of 32767 symbols or more
+    get none (None): the per-warp route serves them."""
+    if arrays.n >= 32767:
+        return None
+    tabs = {f: getattr(arrays, f).cpu().numpy() for f in (
+        "enc_src_idx", "enc_src_val", "enc_par_idx", "enc_par_val", "enc_diag_inv")}
+    m, n = arrays.m, arrays.n
+    k = n - m
+    lev = row_levels(tabs["enc_par_idx"])
+    order = np.argsort(lev, kind="stable")
+    counts = np.bincount(lev, minlength=int(lev.max(initial=0)) + 1)
+    level_off = np.concatenate([[0], np.cumsum(counts)])
+    mul = build_tables().mul
+    dinv = tabs["enc_diag_inv"][order]
+
+    def table(idx, val, real, base):
+        """Each row's real entries first, as symbols ``base + idx``, pad n."""
+        idx, val, real = idx[order], val[order], real[order]
+        first = np.argsort(~real, axis=1, kind="stable")
+        real = np.take_along_axis(real, first, axis=1)
+        width = max(1, int(real.sum(axis=1).max(initial=0)))
+        sym = np.where(real, base + np.take_along_axis(idx, first, axis=1), n)[:, :width]
+        coef = np.where(real, mul[dinv[:, None], np.take_along_axis(val, first, axis=1)], 0)
+        return sym, coef[:, :width], real.sum(axis=1)
+
+    src, src_coef, _ = table(tabs["enc_src_idx"], tabs["enc_src_val"],
+                             tabs["enc_src_idx"] < k, 0)
+    par, par_coef, par_len = table(tabs["enc_par_idx"], tabs["enc_par_val"],
+                                   tabs["enc_par_idx"] < m, k)
+    dev = arrays.device
+
+    def t(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
+
+    return EncodeLevels(
+        order=t(order, np.int16), level_off=t(level_off, np.int32),
+        src=t(src, np.int16), src_coef=t(src_coef, np.uint8),
+        par=t(par, np.int16), par_coef=t(par_coef, np.uint8), par_len=t(par_len, np.int16))
+
+
+def encode_levels_reference(
+    arrays: CodeArrays, source: torch.Tensor, *, gf_order: int = 2
+) -> torch.Tensor:
+    """Plain PyTorch encode in the slab route's order: every row's
+    (GF(256): coefficient-weighted) source sum at once, then level by
+    level, all rows of a level at once, its parity terms over the codeword
+    built so far (:func:`encode_levels`)."""
+    words = _check(arrays, source, gf_order)
+    nb = gf_order == 256
+    lv = arrays.enc_levels
+    b, k, w = words.shape
+    m = arrays.m
+    n = k + m
+    cw = torch.cat([words, words.new_zeros(b, m + 1, w)], dim=1)  # symbol n stays zero
+
+    def terms(acc, idx, coef):
+        for j in range(idx.shape[1]):
+            term = cw[:, idx[:, j].long(), :]
+            acc ^= gf_mul_packed(term, coef[:, j, None]) if nb else term
+        return acc
+
+    rows = k + lv.order.long()
+    cw[:, rows] = terms(words.new_zeros(b, m, w), lv.src, lv.src_coef)
+    off = lv.level_off.tolist()
+    for l0, l1 in zip(off[1:-1], off[2:]):
+        cw[:, rows[l0:l1]] = terms(cw[:, rows[l0:l1]], lv.par[l0:l1], lv.par_coef[l0:l1])
+    return _bytes_out(cw[:, :n].contiguous(), gf_order)
+
+
+# Slab widths Wc of the slab route, in order of preference: the first whose
+# block fits. Not 12: its 48-byte runs split 32-byte sectors of device
+# memory between blocks (slower than 16 on the card, PERF.md), and no
+# shipped code's slab fits 12 words where 16 does not.
+SLAB_WORDS = (16, 8, 4)
+
+
+def slab_smem(arrays: CodeArrays, wc: int, gf_order: int) -> int:
+    """Shared memory of a slab-route block (csrc/encode.cu): the slab of n
+    symbols and a zero symbol x Wc words; the source and parity tables, the
+    parity counts and the rows as uint16; the level offsets (int32) and,
+    GF(256), the coefficients."""
+    lv = arrays.enc_levels
+    n, m = arrays.n, arrays.m
+    ds, dp = lv.src.shape[1], lv.par.shape[1]
+    nb = _r16(m * ds) + _r16(m * dp) if gf_order == 256 else 0
+    return (4 * (n + 1) * wc + _r16(2 * m * ds) + _r16(2 * m * dp) + 2 * _r16(2 * m)
+            + _r16(4 * (lv.levels + 1)) + nb)
+
+
+def slab_words(arrays: CodeArrays, w: int, gf_order: int = 2) -> int | None:
+    """Wc of the slab route for W = ``w`` words: the first of
+    :data:`SLAB_WORDS` no wider than W rounded up to 4 whose block fits in
+    shared memory; None (the per-warp route) where even 4 words do not fit
+    or the code has no level tables (32767 symbols or more)."""
+    if arrays.enc_levels is None:
+        return None
+    fits = [wc for wc in SLAB_WORDS if wc <= max(4, -(-w // 4) * 4)
+            and slab_smem(arrays, wc, gf_order) <= SMEM_LIMIT]
+    return fits[0] if fits else None
+
+
+def _count(gf_order: int) -> None:
+    if gf_order == 256:
+        encode_packed.launches_gf256 += 1
+    else:
+        encode_packed.launches += 1
+
+
+def launch_slab(arrays: CodeArrays, words: torch.Tensor, gf_order: int, wc: int, *,
+                compute: bool = True) -> torch.Tensor:
+    """The slab route's kernel on CUDA int32 words (B, k, W) with Wc =
+    ``wc`` words per block (one of :data:`SLAB_WORDS`, the block within
+    shared memory); int32 codewords. ``compute=False`` runs the kernel's
+    loads and stores alone (its parity rows are then garbage), to time
+    them apart. Counts one launch of ``encode_packed`` (``launches`` or
+    ``launches_gf256``)."""
+    if (arrays.enc_levels is None or wc not in SLAB_WORDS
+            or slab_smem(arrays, wc, gf_order) > SMEM_LIMIT):
+        raise ValueError(f"encode slab of {wc} words: Wc must be one of {SLAB_WORDS} with the "
+                         f"block's shared memory within {SMEM_LIMIT} bytes (n={arrays.n})")
+    b, k, w = words.shape
+    m = arrays.m
+    lv = arrays.enc_levels
+    out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
+    rc = _build.library().ldpc_encode_slab_launch(
+        words.data_ptr(), lv.order.data_ptr(), lv.level_off.data_ptr(), lv.src.data_ptr(),
+        lv.src_coef.data_ptr(), lv.par.data_ptr(), lv.par_coef.data_ptr(),
+        lv.par_len.data_ptr(), out.data_ptr(), b, k, m, lv.src.shape[1], lv.par.shape[1],
+        lv.levels, w, wc, int(compute), int(gf_order == 256),
+        torch.cuda.current_stream(words.device).cuda_stream,
+    )
+    _build.check(rc, "ldpc_encode_slab_launch")
+    _count(gf_order)
+    return out
+
+
+def launch_warp(arrays: CodeArrays, words: torch.Tensor, gf_order: int) -> torch.Tensor:
+    """The per-warp route's kernel on CUDA int32 words (B, k, W); int32
+    codewords. Counts one launch of ``encode_packed``."""
+    b, k, w = words.shape
+    m, pmax = arrays.enc_par_idx.shape
+    out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
+    rc = _build.library().ldpc_encode_launch(
+        words.data_ptr(), arrays.enc_src_idx.data_ptr(), arrays.enc_par_idx.data_ptr(),
+        arrays.enc_src_val.data_ptr(), arrays.enc_par_val.data_ptr(),
+        arrays.enc_diag_inv.data_ptr(), out.data_ptr(), b, k, m, w,
+        arrays.enc_src_idx.shape[1], pmax, int(gf_order == 256),
+        torch.cuda.current_stream(words.device).cuda_stream,
+    )
+    _build.check(rc, "ldpc_encode_launch")
+    _count(gf_order)
+    return out
+
+
 def encode_packed(
     arrays: CodeArrays, source: torch.Tensor, *, gf_order: int = 2
 ) -> torch.Tensor:
@@ -79,30 +297,21 @@ def encode_packed(
     ``source`` is (B, k, W) int32 words for ``gf_order=2`` and (B, k, W)
     uint8 bytes (W % 4 == 0) for ``gf_order=256``; the codewords come back
     in the same type. CPU tensors take :func:`encode_packed_reference`;
-    CUDA tensors launch the kernel (or raise). ``encode_packed.launches``
-    counts binary launches, ``encode_packed.launches_gf256`` GF(256) ones.
+    CUDA tensors launch a kernel (or raise): the slab route where
+    :func:`slab_words` gives a width, else the per-warp route.
+    ``encode_packed.launches`` counts binary launches of either,
+    ``encode_packed.launches_gf256`` GF(256) ones.
     """
     words = _check(arrays, source, gf_order)
     if words.device.type == "cpu":
         return encode_packed_reference(arrays, source, gf_order=gf_order)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    b, k, w = words.shape
-    m, pmax = arrays.enc_par_idx.shape
-    nb = gf_order == 256
-    out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
-    rc = _build.library().ldpc_encode_launch(
-        words.data_ptr(), arrays.enc_src_idx.data_ptr(), arrays.enc_par_idx.data_ptr(),
-        arrays.enc_src_val.data_ptr(), arrays.enc_par_val.data_ptr(),
-        arrays.enc_diag_inv.data_ptr(), out.data_ptr(), b, k, m, w,
-        arrays.enc_src_idx.shape[1], pmax, int(nb),
-        torch.cuda.current_stream(words.device).cuda_stream,
-    )
-    _build.check(rc, "ldpc_encode_launch")
-    if nb:
-        encode_packed.launches_gf256 += 1
+    wc = slab_words(arrays, words.shape[2], gf_order)
+    if wc is None:
+        out = launch_warp(arrays, words, gf_order)
     else:
-        encode_packed.launches += 1
+        out = launch_slab(arrays, words, gf_order, wc)
     return _bytes_out(out, gf_order)
 
 

@@ -153,7 +153,7 @@ def ge_solve_packed(
     if static_topo:
         rhs = syndrome_from_topo(arrays, values)
     else:
-        rhs = f2_matvec_wide(values, arrays.h_words)
+        rhs = f2_matvec_wide(values, arrays.h_words, rows=arrays.h_rows)
     writable = real & ~overflow[:, None]
     safe_idx = torch.where(writable, er_idx, n).to(torch.int32)
     erased = erased & failed[:, None]

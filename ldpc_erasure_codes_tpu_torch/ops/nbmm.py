@@ -9,9 +9,13 @@ packed, (E, ceil(K/32)) int32 words with bit ``j`` of a row in bit
 ``j & 31`` of word ``j >> 5`` (H as ``CodeArrays.h_words``, the transforms
 straight from the eliminated cube), and the values as (B, K, W) int32 words.
 A GF(2) product acts on each bit position alone, so the bits equal the
-byte-plane MXU form's. All three launch one CUDA body, ``csrc/f2mm.cu``,
-for CUDA tensors and run the plain versions for CPU tensors. Bits of a
-matrix row at or past K are ignored.
+byte-plane MXU form's. All three launch ``csrc/f2mm.cu`` for CUDA
+tensors and run the plain versions for CPU tensors. Bits of a matrix row at
+or past K are ignored. ``f2_matvec_wide`` takes one of two routes, chosen
+from the shapes and the row lists before launch: a sparse H (an LDPC
+code's) the list route, which sums each row's listed symbols out of a
+shared-memory slab (:func:`f2_matrix_rows`, cached as ``CodeArrays.
+h_rows``); a dense matrix the bit-scan body that the other two share.
 
 The GF(256) counterparts of the TPU kernels ``gf_matvec_wide`` (:132-213)
 and ``gf_apply_scatter`` (:556-651) contract an int8 bit image of a byte
@@ -34,6 +38,7 @@ import torch
 
 from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops import _build
+from ldpc_erasure_codes_tpu_torch.ops._build import SMEM_LIMIT, round16 as _r16
 from ldpc_erasure_codes_tpu_torch.ops.arrays import pack_bits, unpack_bits
 
 # Words per chunk of the plain product: bounds its unpacked float operand
@@ -118,17 +123,157 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def f2_matvec_wide(values: torch.Tensor, h_words: torch.Tensor) -> torch.Tensor:
+# The list route of f2_matvec_wide serves matrices whose heaviest row holds
+# at most one in F2_LIST_SPARSITY of the K columns (an LDPC H: 14 of 2040
+# at (2040,1530), 7 of 2000 and of 4000 at (2000,1000) and (4000,2000));
+# denser ones (a random dense matrix: half its bits) take the bit scan.
+F2_LIST_SPARSITY = 8
+# The list route's slab widths Wc, in order of preference (the fastest
+# first, by chip_smoke.py's sweep; PERF.md): the first whose block fits.
+F2_SLAB_WORDS = (16, 8, 4)
+
+
+def f2_matrix_rows(h_words: torch.Tensor, k: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The set columns of each row of a packed GF(2) matrix (m, KW) int32,
+    for the list route of :func:`f2_matvec_wide`: (idx (m, d) int32, each
+    row's columns below ``k`` in ascending order, padded with k; len (m,)
+    int32, their number), d the largest row weight (at least 1). ``k``
+    defaults to 32 * KW; bits at or past it are dropped. Built once per
+    matrix (``CodeArrays.h_rows`` caches H's)."""
+    if h_words.dtype != torch.int32 or h_words.dim() != 2:
+        raise ValueError(f"matrix must be (m, KW) int32 words, got {tuple(h_words.shape)} "
+                         f"{h_words.dtype}")
+    m, kw = h_words.shape
+    k = 32 * kw if k is None else k
+    if not 0 <= k <= 32 * kw:
+        raise ValueError(f"k={k} outside the matrix's {32 * kw} columns")
+    bits = unpack_bits(h_words)[:, :k] != 0  # (m, k)
+    length = bits.sum(dim=1)
+    d = max(1, int(length.max())) if m and k else 1
+    if k == 0:
+        return (torch.zeros((m, 1), dtype=torch.int32, device=h_words.device),
+                length.to(torch.int32))
+    order = torch.argsort((~bits).to(torch.uint8), dim=1, stable=True)[:, :d]  # set bits first
+    keep = torch.arange(order.shape[1], device=h_words.device)[None, :] < length[:, None]
+    idx = torch.where(keep, order, k)
+    return idx.to(torch.int32).contiguous(), length.to(torch.int32).contiguous()
+
+
+def f2_matvec_rows_reference(values: torch.Tensor, idx: torch.Tensor,
+                             length: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch list route: out[b, e] = XOR of values[b, idx[e, j]]
+    over j < length[e] (entries outside [0, K) add nothing), a loop over
+    the list slots, each a gather of one row per output row."""
+    _check_f2_rows(values, idx, length)
+    b, k, w = values.shape
+    d = idx.shape[1]
+    vp = torch.cat([values, values.new_zeros(b, 1, w)], dim=1)  # index K reads zero
+    live = ((torch.arange(d, device=idx.device)[None, :] < length[:, None].long())
+            & (idx >= 0) & (idx < k))
+    ix = torch.where(live, idx, k).long()
+    out = values.new_zeros(b, idx.shape[0], w)
+    for s in range(d):
+        out ^= vp[:, ix[:, s], :]
+    return out
+
+
+def _check_f2_rows(values: torch.Tensor, idx: torch.Tensor, length: torch.Tensor) -> None:
+    if values.dtype != torch.int32 or values.dim() != 3 or values.shape[2] < 1:
+        raise ValueError(f"values must be (B, K, W) int32 with W >= 1, got "
+                         f"{tuple(values.shape)} {values.dtype}")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[1] < 1:
+        raise ValueError(f"row lists must be (m, d) int32 with d >= 1, got {tuple(idx.shape)} "
+                         f"{idx.dtype}")
+    if length.dtype != torch.int32 or tuple(length.shape) != idx.shape[:1]:
+        raise ValueError(f"row lengths must be ({idx.shape[0]},) int32, got "
+                         f"{tuple(length.shape)} {length.dtype}")
+    if not (values.device == idx.device == length.device):
+        raise ValueError("values and row lists must be on one device")
+    if not (values.is_contiguous() and idx.is_contiguous() and length.is_contiguous()):
+        raise ValueError("values and row lists must be contiguous")
+
+
+def f2_rows_smem(k: int, m: int, d: int, wc: int) -> int:
+    """Shared memory of a list-route block (csrc/f2mm.cu): the slab of K
+    rows and a zero row of Wc words, the (m, d) lists and the lengths as
+    uint16."""
+    return 4 * (k + 1) * wc + _r16(2 * m * d) + _r16(2 * m)
+
+
+def f2_slab_words(idx: torch.Tensor, k: int, w: int) -> int | None:
+    """Wc of the list route for row lists ``idx`` (m, d) over K = ``k``
+    symbols of W = ``w`` words: the first of :data:`F2_SLAB_WORDS` no
+    wider than W rounded up to 4 whose block fits; None (the bit-scan
+    route) for lists wider than K // :data:`F2_LIST_SPARSITY` or a slab
+    that does not fit even at 4 words."""
+    m, d = idx.shape
+    if d > k // F2_LIST_SPARSITY or k >= 65535:
+        return None
+    fits = [wc for wc in F2_SLAB_WORDS if wc <= max(4, -(-w // 4) * 4)
+            and f2_rows_smem(k, m, d, wc) <= SMEM_LIMIT]
+    return fits[0] if fits else None
+
+
+def launch_rows(values: torch.Tensor, idx: torch.Tensor, length: torch.Tensor,
+                wc: int) -> torch.Tensor:
+    """The list route's kernel on CUDA tensors with Wc = ``wc`` words per
+    block (one of :data:`F2_SLAB_WORDS`, the block within shared memory).
+    Counts one launch of ``f2_matvec_wide``."""
+    _check_f2_rows(values, idx, length)
+    b, k, w = values.shape
+    m, d = idx.shape
+    if wc not in F2_SLAB_WORDS or f2_rows_smem(k, m, d, wc) > SMEM_LIMIT or k >= 65535:
+        raise ValueError(f"list-route slab of {wc} words: Wc must be one of {F2_SLAB_WORDS} "
+                         f"with the block's shared memory within {SMEM_LIMIT} bytes (K={k}, "
+                         f"lists ({m}, {d}))")
+    out = torch.empty((b, m, w), dtype=torch.int32, device=values.device)
+    rc = _build.library().ldpc_f2_matvec_rows_launch(
+        values.data_ptr(), idx.data_ptr(), length.data_ptr(), out.data_ptr(), b, k, m, d, w, wc,
+        _stream(values),
+    )
+    _build.check(rc, "ldpc_f2_matvec_rows_launch")
+    f2_matvec_wide.launches += 1
+    return out
+
+
+def f2_matvec_wide(values: torch.Tensor, h_words: torch.Tensor, *,
+                   rows: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """rhs[b] = H . values[b] over GF(2): (B, n, W) int32 -> (B, m, W).
 
     ``h_words`` is (m, ceil(n/32)), ``CodeArrays.h_words``. Erased slots of
     ``values`` hold zero, so this is the syndrome of the known symbols.
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise). ``f2_matvec_wide.launches`` counts kernel launches.
+    CPU tensors take the plain version; CUDA tensors launch a kernel (or
+    raise):
+
+    * the list route where :func:`f2_slab_words` gives a slab width (rows
+      of at most K // :data:`F2_LIST_SPARSITY` set columns, as an LDPC H's):
+      each row's listed symbols summed out of a shared-memory slab;
+      ``rows`` passes :func:`f2_matrix_rows` of ``h_words`` over n columns,
+      built once (``CodeArrays.h_rows``; else they are built here, on
+      every call);
+    * the bit-scan route otherwise (a dense matrix).
+
+    ``f2_matvec_wide.launches`` counts launches of either.
     """
     _check(values, h_words, per_frame=False)
     if values.device.type == "cpu":
         return f2_matvec_wide_reference(values, h_words)
+    b, n, w = values.shape
+    m = h_words.shape[0]
+    if rows is None:
+        rows = f2_matrix_rows(h_words, n)
+    if rows[0].shape[0] != m:
+        raise ValueError(f"row lists of {rows[0].shape[0]} rows for a matrix of {m}")
+    wc = f2_slab_words(rows[0], n, w)
+    if wc is not None:
+        return launch_rows(values, *rows, wc)
+    return launch_scan(values, h_words)
+
+
+def launch_scan(values: torch.Tensor, h_words: torch.Tensor) -> torch.Tensor:
+    """The bit-scan route's kernel on CUDA tensors (any packed matrix).
+    Counts one launch of ``f2_matvec_wide``."""
+    _check(values, h_words, per_frame=False)
     b, n, w = values.shape
     m, kw = h_words.shape
     out = torch.empty((b, m, w), dtype=torch.int32, device=values.device)

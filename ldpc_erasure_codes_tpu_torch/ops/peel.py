@@ -254,13 +254,9 @@ def apply_schedule_reference(
     return v.view(torch.uint8) if gf_order == 256 else v
 
 
-# Shared memory a block may use on the H100 (232,448 bytes).
-SMEM_LIMIT = 232448
+SMEM_LIMIT = _build.SMEM_LIMIT
 SLAB_WORDS = (16, 12, 8, 4)
-
-
-def _r16(nbytes: int) -> int:
-    return -(-nbytes // 16) * 16
+_r16 = _build.round16
 
 
 def schedule_smem(arrays: CodeArrays, n: int) -> int:

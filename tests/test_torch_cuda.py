@@ -15,7 +15,8 @@ import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, peel, rank
-from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
+from ldpc_erasure_codes_tpu_torch.ops import encode as enc
+from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, pack_bits
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_rank_check_reference, ge_solve_packed
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
@@ -53,6 +54,80 @@ def test_encode_kernel_matches_plain(cuda_device, w, aligned):
     torch.cuda.synchronize()
     assert encode_packed.launches == before + 1
     torch.testing.assert_close(got, encode_packed_reference(arrays, src), rtol=0, atol=0)
+
+
+SHIPPED = ("n2040_k1530", "n2000_k1000", "n4000_k2000", "n4080_k3060")
+
+
+def _slab_cases():
+    """(name, gf_order, w, aligned, Wc (None: the wrapper's choice), B):
+    every shipped code in both fields at the wrapper's Wc with W = 250
+    (ragged), 3 and misaligned; B = 1 at W = 8; then each Wc that fits
+    (from the host's size arithmetic, no card needed) at (2040,1530) and
+    (4080,3060)."""
+    cases = [(name, gf, w, aligned, None, b)
+             for name in SHIPPED for gf in (2, 256)
+             for w, aligned, b in ((250, True, 5), (3, True, 5), (256, False, 5), (8, True, 1))]
+    for name in ("n2040_k1530", "n4080_k3060"):
+        arrays = code_arrays(get_code(name), "cpu")
+        for gf in (2, 256):
+            cases += [(name, gf, 64, True, wc, 3) for wc in enc.SLAB_WORDS
+                      if enc.slab_smem(arrays, wc, gf) <= peel.SMEM_LIMIT]
+    return cases
+
+
+def _source(code, gf_order, b, w, rng, dev):
+    if gf_order == 256:
+        return torch.from_numpy(rng.integers(0, 256, (b, code.k, 4 * w), dtype=np.uint8)).to(dev)
+    return to_torch(random_words(rng, (b, code.k, w))).to(dev)
+
+
+@pytest.mark.parametrize("name,gf_order,w,aligned,wc,b", _slab_cases())
+def test_encode_slab_kernel_matches_plain(cuda_device, name, gf_order, w, aligned, wc, b):
+    """The slab route (levels of parity rows out of a shared-memory slab)
+    against the row-by-row plain version; every shipped code takes it."""
+    code = get_code(name if gf_order == 2 else f"{name}_gf256")
+    arrays = code_arrays(code, cuda_device)
+    assert enc.slab_words(arrays, w, gf_order) is not None
+    src = _source(code, gf_order, b, w, np.random.default_rng(w + b), cuda_device)
+    if not aligned:
+        src = _misaligned_bytes(src) if gf_order == 256 else _misaligned(src)
+    counter = "launches_gf256" if gf_order == 256 else "launches"
+    before = getattr(encode_packed, counter)
+    if wc is None:
+        got = encode_packed(arrays, src, gf_order=gf_order)
+    else:
+        words = src.view(torch.int32) if gf_order == 256 else src
+        got = enc.launch_slab(arrays, words, gf_order, wc)
+        got = got.view(torch.uint8) if gf_order == 256 else got
+    torch.cuda.synchronize()
+    assert getattr(encode_packed, counter) == before + 1
+    torch.testing.assert_close(got, encode_packed_reference(arrays, src, gf_order=gf_order),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("gf_order", [2, 256])
+@pytest.mark.parametrize("w,aligned", [(256, True), (5, True), (256, False)])
+def test_encode_warp_route_matches_plain(cuda_device, gf_order, w, aligned):
+    """The per-warp route, which codes whose slab does not fit take."""
+    code = get_code("n2040_k1530" if gf_order == 2 else "n2040_k1530_gf256")
+    arrays = code_arrays(code, cuda_device)
+    src = _source(code, gf_order, 4, w, np.random.default_rng(w), cuda_device)
+    if not aligned:
+        src = _misaligned_bytes(src) if gf_order == 256 else _misaligned(src)
+    words = src.view(torch.int32) if gf_order == 256 else src
+    got = enc.launch_warp(arrays, words, gf_order)
+    torch.cuda.synchronize()
+    want = encode_packed_reference(arrays, src, gf_order=gf_order)
+    torch.testing.assert_close(got, want.view(torch.int32) if gf_order == 256 else want,
+                               rtol=0, atol=0)
+
+
+def test_encode_slab_wrapper_refuses_blocks_over_shared_memory(cuda_device):
+    arrays = code_arrays(get_code("n4080_k3060"), cuda_device)
+    src = torch.zeros((1, 3060, 16), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="Wc must be"):
+        enc.launch_slab(arrays, src, 2, 16)
 
 
 # (name, early_stop, w, aligned, Wc (None: the wrapper's choice), B, edge
@@ -239,6 +314,7 @@ def test_f2mm_kernels_match_plain(cuda_device, w, aligned, k, e):
     idx[0, :3] = [-1, n, n + 100]  # dropped targets
     idx = torch.from_numpy(idx).to(dev)
     h = to_torch(random_words(rng, (k, -(-n // 32)))).to(dev)
+    assert nbmm.f2_slab_words(nbmm.f2_matrix_rows(h, n)[0], n, w) is None  # the bit scan
     counts = [nbmm.f2_matmul_batched.launches, nbmm.f2_apply_scatter.launches,
               nbmm.f2_matvec_wide.launches]
     got = (nbmm.f2_matmul_batched(rhs, t), nbmm.f2_apply_scatter(values, rhs, t, idx),
@@ -250,6 +326,77 @@ def test_f2mm_kernels_match_plain(cuda_device, w, aligned, k, e):
             nbmm.f2_apply_scatter_reference(values, rhs, t, idx),
             nbmm.f2_matvec_wide_reference(values, h))
     _equal(got, want)
+
+
+def _f2_rows_cases():
+    """(name, w, aligned, Wc (None: the wrapper's choice)): each shipped H
+    at the wrapper's Wc (W = 256, misaligned, 5, 3), then at each Wc that
+    fits (from the code's sizes, no card needed), ragged or misaligned."""
+    cases = [(name, w, aligned, None) for name in SHIPPED
+             for w, aligned in ((256, True), (256, False), (5, True), (3, True))]
+    for name in SHIPPED:
+        code = get_code(name)
+        d = int(code.vlist_len.max())
+        cases += [(name, 250 if wc != 8 else 64, wc != 8, wc) for wc in nbmm.F2_SLAB_WORDS
+                  if nbmm.f2_rows_smem(code.n, code.m, d, wc) <= peel.SMEM_LIMIT]
+    return cases
+
+
+@pytest.mark.parametrize("name,w,aligned,wc", _f2_rows_cases())
+def test_f2_matvec_list_route_matches_plain(cuda_device, name, w, aligned, wc):
+    """The list route on each shipped H (the route each takes), at every
+    slab width that fits, ragged and misaligned; erased slots hold zero."""
+    code = get_code(name)
+    arrays = code_arrays(code, cuda_device)
+    idx, length = arrays.h_rows
+    assert idx.shape[1] == int(code.vlist_len.max())
+    assert nbmm.f2_slab_words(idx, code.n, w) is not None
+    rng = np.random.default_rng(w)
+    v = random_words(rng, (4, code.n, w))
+    v[rng.random((4, code.n)) < 0.2] = 0
+    values = to_torch(v).to(cuda_device)
+    if not aligned:
+        values = _misaligned(values)
+    before = nbmm.f2_matvec_wide.launches
+    if wc is None:
+        got = nbmm.f2_matvec_wide(values, arrays.h_words, rows=arrays.h_rows)
+    else:
+        got = nbmm.launch_rows(values, idx, length, wc)
+    torch.cuda.synchronize()
+    assert nbmm.f2_matvec_wide.launches == before + 1
+    torch.testing.assert_close(got, nbmm.f2_matvec_wide_reference(values, arrays.h_words),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("w", [256, 5])
+def test_f2_matvec_list_route_edge_rows(cuda_device, w):
+    """A row of weight 0, one at the list route's weight threshold (K // 8)
+    and bits past K set in the packed matrix take the list route; one more
+    bit in a row moves the matrix to the bit scan, with the same product."""
+    rng = np.random.default_rng(11)
+    k, m, b = 300, 12, 3
+    top = k // nbmm.F2_LIST_SPARSITY
+    bits = rng.random((m, 320)) < 0.03
+    bits[0] = False
+    bits[1] = False
+    bits[1, rng.choice(k, top, replace=False)] = True
+    bits[:, k:] = rng.random((m, 320 - k)) < 0.5  # past K: ignored
+    h = pack_bits(torch.from_numpy(bits)).to(cuda_device)
+    values = to_torch(random_words(rng, (b, k, w))).to(cuda_device)
+    rows = nbmm.f2_matrix_rows(h, k)
+    assert rows[0].shape[1] == top and int(rows[1][0]) == 0
+    assert nbmm.f2_slab_words(rows[0], k, w) is not None
+    want = nbmm.f2_matvec_wide_reference(values, h)
+    got = nbmm.f2_matvec_wide(values, h, rows=rows)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    bits[2, :k] = False
+    bits[2, rng.choice(k, top + 1, replace=False)] = True
+    h = pack_bits(torch.from_numpy(bits)).to(cuda_device)
+    rows = nbmm.f2_matrix_rows(h, k)
+    assert nbmm.f2_slab_words(rows[0], k, w) is None
+    got = nbmm.f2_matvec_wide(values, h, rows=rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, nbmm.f2_matvec_wide_reference(values, h), rtol=0, atol=0)
 
 
 def _peeled(code, arrays, b, w, per, peel_iters, seed):
