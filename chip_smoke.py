@@ -18,7 +18,8 @@ Phases, each fatal on failure:
    bit-exact, on peeled frames: (2040,1530) B=64 PER .2031 emax 512,
    (2000,1000) B=16 PER .3906 emax 768 (a 224 KB cube in shared memory),
    and (4000,2000) B=4 emax 1024 (the cube in device memory); each H on
-   ``f2_matvec_wide``'s list route (asserted);
+   ``f2_matvec_wide``'s list route and each apply at its preferred slab
+   width (asserted);
 4. the main path at full width through the entry points a user calls
    (``bench.MainPath``): (2040,1530), B=2048, W=256, PER 0.1406, first-k
    early stop, 50 sweeps at most. The launch counters are zeroed just
@@ -41,7 +42,12 @@ Phases, each fatal on failure:
    ``f2_matvec_wide`` (H's list route, on the GE bucket) at each slab
    width Wc, beside the slab load alone (the kernel with its compute cut),
    a copy of the same frames and the route each replaced (the per-warp
-   encode, the bit scan);
+   encode, the bit scan); ``f2_eliminate`` on the GE bucket with the panels
+   it runs (from the panel order's plain version) against the column
+   order's steps, both memory modes and both cut settings held to the plain
+   versions, the device-memory mode timed; ``f2_apply_scatter`` at each
+   slab width Wc, its placed rows, the fused copy alone (no row placed)
+   beside a ``clone`` of the values;
 6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
    (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
    their plain versions at small shapes, bit-exact;
@@ -86,8 +92,10 @@ Phases, each fatal on failure:
    tracking at the FPGA shape (hybrid, W=256, B=2048, the flat handoff with
    the masking fused in the peel kernel), counted, its FER and escalations
    reported, and its stages timed one by one at its shape (channel,
-   source, encode, peel, GE and within it the dense syndrome, the decode,
-   one sim step). 9b's rank check is the rank kernel (``csrc/rank.cu``),
+   source, encode, peel, GE and within it the index and cube build, the
+   elimination, the transform gather, the dense syndrome and the apply,
+   the decode, one sim step; the elimination and the apply held to their
+   plain versions on that batch). 9b's rank check is the rank kernel (``csrc/rank.cu``),
    counted; every count of 9a-9c must equal the recorded counts of the
    same seeds (``RECORDED_COUNTS``);
 10. the last three kernels against their plain versions, bit-exact: the
@@ -538,6 +546,9 @@ class GEInputs:
         edges = int(a.vlist_len.sum())
         terms = (word_popcount(self.t_rows) - 1).clamp(min=0)  # (B, E) XORs per word
         placed = self.idx < n
+        # The apply needs the rhs of frames with a placed row and the T rows
+        # of placed rows only (the least work; the kernel reads no more).
+        live = int(placed.any(dim=1).sum())
         return {
             "f2_eliminate": bound(
                 8 * b * m * cw + 4 * b * e + 8 * b,
@@ -547,8 +558,9 @@ class GEInputs:
                                     b * w * (edges - m)),
             "f2_matmul_batched": bound(4 * (b * m * w + b * e * kw + b * e * w),
                                        w * int(terms.sum())),
-            "f2_apply_scatter": bound(4 * (2 * b * n * w + b * m * w + b * e * kw + b * e),
-                                      w * int(terms[placed].sum())),
+            "f2_apply_scatter": bound(
+                4 * (2 * b * n * w + live * m * w + int(placed.sum()) * kw + b * e),
+                w * int(terms[placed].sum())),
         }
 
     def kernels(self) -> dict:
@@ -620,6 +632,13 @@ def compare_ge(device, errs: dict) -> None:
             require(e == 0, f"{name}: {kname} kernel != plain (max abs err {e})")
         require(nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W) is not None,
                 f"{name}: H should take f2_matvec_wide's list route")
+        wc_apply = nbmm.f2_apply_slab_words(m, ge.emax, code.n, bench.W)
+        require(wc_apply == nbmm.F2_APPLY_WORDS[0],
+                f"{name}: the apply should take Wc {nbmm.F2_APPLY_WORDS[0]}, not {wc_apply}")
+        e = max_abs_err(nbmm.f2_apply_rows_reference(values, ge.rhs, ge.t_rows, ge.idx),
+                        f2_apply_scatter(values, ge.rhs, ge.t_rows, ge.idx))
+        errs["f2_apply_scatter"] = max(errs["f2_apply_scatter"], e)
+        require(e == 0, f"{name}: f2_apply_scatter != its plain list order ({e})")
         dense = f2_matvec_wide(values, arrays.h_words, rows=arrays.h_rows)
         require(torch.equal(dense, ge.rhs), f"{name}: dense and topology syndromes differ")
         failed = ge.elim_out[2]
@@ -630,7 +649,8 @@ def compare_ge(device, errs: dict) -> None:
             f"{int(erased.any(dim=1).sum())} residual frames, max residual "
             f"{int(ge.nreal.max())}, {int(failed.sum())} failed; GE kernels bit-exact "
             "against the plain versions; H on f2_matvec_wide's list route (Wc "
-            f"{nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W)})")
+            f"{nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W)}); the apply at Wc "
+            f"{wc_apply}")
 
 
 def hybrid_phase(device, card: str):
@@ -727,6 +747,13 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
         require(e == 0, f"phase-4b shape: {name} kernel != plain ({e})")
         del want
     stages["elimination"] = times["f2_eliminate"]
+    mode = "shared" if elim.fits_shared_memory(*ge.cube.shape[1:]) else "device"
+    log(f"phase 5: f2_eliminate on the GE bucket ({vs.shape[0]} frames, emax {ge.emax}, cube "
+        f"{tuple(ge.cube.shape[1:])} words in {mode} memory): {times['f2_eliminate']:.3f} ms; "
+        f"{elim_line(elim_split(ge.cube, ge.nreal, ge.emax, ge.wa, errs))}")
+    split = apply_split(vs, ge.rhs, ge.t_rows, ge.idx, errs)
+    log(f"phase 5: f2_apply_scatter on the GE bucket: {times['f2_apply_scatter']:.3f} ms; by Wc: "
+        f"{apply_line(split)}")
     stages["transform gather"] = cuda_ms(
         lambda: pivot_transforms(ge.elim_out[0], ge.elim_out[1], ge.wa), 5)
     stages["syndrome"] = times["syndrome_from_topo"]
@@ -838,6 +865,73 @@ def f2_matvec_split(arrays, values, errs: dict) -> dict:
     require(e == 0, f"f2_matvec_wide bit-scan route != list route ({e})")
     out["scan_ms"] = cuda_ms(lambda: nbmm.launch_scan(values, arrays.h_words), 3)
     return out
+
+
+def elim_split(cube, nreal, emax: int, wa: int, errs: dict) -> dict:
+    """``f2_eliminate`` on one set of cubes: the kernel held to the panel
+    order's plain version (which counts the work: frames x panels, the
+    panels not skipped as zero, their column steps) and, without the cuts,
+    to the column order's; the device-memory mode held and timed on the
+    same cubes."""
+    kw = dict(emax=emax, a_words=wa)
+    out = {}
+    want = elim.f2_eliminate_panels_reference(cube, nreal, stats=out, **kw)
+    checks = {
+        "a_words wa": (lambda: f2_eliminate(cube, nreal, **kw), want),
+        "a_words 0": (lambda: f2_eliminate(cube, nreal, emax=emax),
+                      f2_eliminate_reference(cube, nreal, emax=emax)),
+        "device memory": (lambda: elim.launch_kernel(cube, nreal, emax, wa, False), want),
+    }
+    for name, (kern, ref) in checks.items():
+        e = outputs_err(kern(), ref)
+        errs["f2_eliminate"] = max(errs["f2_eliminate"], e)
+        require(e == 0, f"f2_eliminate ({name}) != plain ({e})")
+    out["column_order_steps"] = cube.shape[0] * min(int(nreal.max()), emax)
+    out["device_ms"] = cuda_ms(checks["device memory"][0], 5)
+    return out
+
+
+def elim_line(split: dict) -> str:
+    """:func:`elim_split`'s counts and the device-memory time, for a log line."""
+    return (f"panels {split['live_panels']} of {split['panels']} not skipped as zero, "
+            f"{split['column_steps']} column steps in them against the column order's "
+            f"{split['column_order_steps']}; the device-memory mode "
+            f"{split['device_ms']:.3f} ms on the same cubes")
+
+
+def apply_split(values, rhs, t_rows, idx, errs: dict) -> dict:
+    """``f2_apply_scatter`` at one shape: the kernel at every slab width Wc
+    that fits (the wrapper's choice is ``nbmm.f2_apply_slab_words``), each
+    held to both plain versions; the placed rows; the fused copy alone
+    (the same kernel with every target out of range, so no row is placed)
+    and a ``clone`` of the same values."""
+    _, n, w = values.shape
+    k, e = rhs.shape[1], t_rows.shape[1]
+    want = f2_apply_scatter_reference(values, rhs, t_rows, idx)
+    e_rows = max_abs_err(nbmm.f2_apply_rows_reference(values, rhs, t_rows, idx), want)
+    require(e_rows == 0, f"f2_apply_rows_reference != f2_apply_scatter_reference ({e_rows})")
+    out = {"wc_default": nbmm.f2_apply_slab_words(k, e, n, w),
+           "wc": [wc for wc in nbmm.F2_APPLY_WORDS
+                  if nbmm.f2_apply_smem(k, e, n, wc) <= nbmm.SMEM_LIMIT],
+           "placed": int(((idx >= 0) & (idx < n)).sum()), "rows": idx.numel()}
+    for wc in out["wc"]:
+        err = max_abs_err(nbmm.launch_apply(values, rhs, t_rows, idx, wc), want)
+        errs["f2_apply_scatter"] = max(errs["f2_apply_scatter"], err)
+        require(err == 0, f"f2_apply_scatter at Wc {wc} != plain ({err})")
+        out[f"wc{wc}_ms"] = cuda_ms(lambda: nbmm.launch_apply(values, rhs, t_rows, idx, wc), 5)
+    none = torch.full_like(idx, n)
+    out["copy_ms"] = cuda_ms(
+        lambda: nbmm.launch_apply(values, rhs, t_rows, none, out["wc_default"]), 5)
+    out["clone_ms"] = cuda_ms(lambda: values.clone(), 5)
+    return out
+
+
+def apply_line(split: dict) -> str:
+    """:func:`apply_split`'s times and counts, for a log line."""
+    return (", ".join(f"{wc} words {split[f'wc{wc}_ms']:.3f} ms" for wc in split["wc"])
+            + f" (default Wc {split['wc_default']}); placed rows {split['placed']} of "
+            f"{split['rows']}; the fused copy alone (no row placed) {split['copy_ms']:.3f} ms, "
+            f"a clone of the values {split['clone_ms']:.3f} ms")
 
 
 def encode_split(arrays, src, gf_order: int, errs: dict, name: str) -> dict:
@@ -1322,7 +1416,7 @@ def hybrid_sim_config(code):
                                                    ge_subbatch=4096 // 8))
 
 
-def sim_phase(device, card: str, launches: dict) -> dict:
+def sim_phase(device, card: str, launches: dict, errs: dict) -> dict:
     """Phase 9: the FER simulation at (2040,1530), PER .1875. Returns 9a's
     point."""
     argv = SIM_9A
@@ -1396,17 +1490,21 @@ def sim_phase(device, card: str, launches: dict) -> dict:
         f"escalations {v['escalations']}, ml_failed {v['ml_failed']}, mean iterations "
         f"{v['mean_iters']:.3f}, {v['frames']} frames, {v['frames_per_sec']:.1f} frames/s "
         f"({v['info_gbps']:.3f} Gbps_info); launches {counts}; on {card}")
-    sim_9c_stages(device, card)
+    sim_9c_stages(device, card, errs)
     return p
 
 
-def sim_9c_stages(device, card: str) -> None:
+def sim_9c_stages(device, card: str, errs: dict) -> None:
     """9c's stages, each timed alone by CUDA events on one batch at 9c's
     shape (the CLI's configuration: B = 2048, W = 256, PER .1875, 10 peel
     sweeps, emax 128, the whole batch in one GE, the masking fused in the
     peel kernel): the channel's mask, the source draw, the encode, the
-    peel, the GE and, within it, the dense syndrome; then the decode and
-    one sim step whole."""
+    peel, the GE and, within it, its steps as ``ge_solve_packed`` runs them
+    (``erased_indices`` with the cube build, the elimination, the transform
+    gather, the dense syndrome, the apply); then the decode and one sim
+    step whole. The elimination (both memory modes, with the cuts and
+    without) and the apply are held to their plain versions on this
+    batch."""
     cfg = cli.sim_config(cli.parser().parse_args(SIM_9C))
     d = cfg.decoder
     code = get_code("n2040_k1530")
@@ -1426,10 +1524,33 @@ def sim_9c_stages(device, card: str) -> None:
     st["peel"] = cuda_ms(lambda: peel_decode(arrays, cw, mask, max_iters=d.peel_iters), 5)
     v, e, _ = peel_decode(arrays, cw, mask, max_iters=d.peel_iters)
     st["GE"] = cuda_ms(lambda: ge_solve_packed(arrays, v, e, emax=d.emax), 3)
-    st["dense syndrome"] = cuda_ms(
+    emax = min(d.emax, code.n)
+    wa = -(-emax // 32)
+
+    def build():
+        er_idx, real, nreal = erased_indices(e, emax)
+        return er_idx, real, nreal, coefficient_cube(arrays, er_idx, real)
+
+    st["GE: indices and cube"] = cuda_ms(build, 5)
+    er_idx, real, nreal, cube = build()
+    st["GE: elimination"] = cuda_ms(lambda: f2_eliminate(cube, nreal, emax=emax, a_words=wa), 5)
+    r, pivrow, _ = f2_eliminate(cube, nreal, emax=emax, a_words=wa)
+    st["GE: transform gather"] = cuda_ms(lambda: pivot_transforms(r, pivrow, wa), 5)
+    t_rows = pivot_transforms(r, pivrow, wa)
+    st["GE: dense syndrome"] = cuda_ms(
         lambda: f2_matvec_wide(v, arrays.h_words, rows=arrays.h_rows), 5)
+    rhs = f2_matvec_wide(v, arrays.h_words, rows=arrays.h_rows)
+    safe_idx = torch.where(real & (nreal <= emax)[:, None], er_idx, code.n).to(torch.int32)
+    st["GE: apply"] = cuda_ms(lambda: f2_apply_scatter(v, rhs, t_rows, safe_idx), 5)
+    elim_line_9c = elim_line(elim_split(cube, nreal, emax, wa, errs))
+    err = max_abs_err(f2_apply_scatter(v, rhs, t_rows, safe_idx),
+                      nbmm.f2_apply_rows_reference(v, rhs, t_rows, safe_idx))
+    errs["f2_apply_scatter"] = max(errs["f2_apply_scatter"], err)
+    require(err == 0, f"9c: f2_apply_scatter != plain ({err})")
+    placed = int((safe_idx < code.n).sum())
+    placing = int((safe_idx < code.n).any(dim=1).sum())
     resid = int(e.any(dim=1).sum())
-    del v, e
+    del v, e, cube, r, t_rows, rhs
     st["decode"] = cuda_ms(lambda: hybrid_decode(
         arrays, cw, mask, peel_iters=d.peel_iters, emax=d.emax, impl=d.impl,
         ge_subbatch=d.ge_subbatch, tiled=cfg.tiled_pipeline, return_overflow=True), 3)
@@ -1438,8 +1559,11 @@ def sim_9c_stages(device, card: str) -> None:
     st["sim step"] = cuda_ms(lambda: step(0, SIM_PER), 3) / max(cfg.steps_per_call, 1)
     log(f"phase 9c: stages of one batch (B={cfg.batch}, W={cfg.symbol_words}, PER {SIM_PER}, "
         f"{resid} frames left for the GE), ms by CUDA events: " + "; ".join(
-            f"{k} {v:.3f}" for k, v in st.items()) + f" (GE includes the dense syndrome); on "
+            f"{k} {v:.3f}" for k, v in st.items()) + f" (\"GE: ...\" are steps of \"GE\"); on "
         f"{card}")
+    log(f"phase 9c: the GE's elimination {elim_line_9c}; the apply places {placed} rows of "
+        f"{safe_idx.numel()} ({placing} frames of {cfg.batch} place any); both kernels equal to "
+        "their plain versions")
 
 
 def rank_bound(arrays, erased: torch.Tensor, emax: int) -> dict:
@@ -1810,7 +1934,7 @@ def main() -> None:
     gf_matmul_phase(rs_ge, card, errs, times, plain, bounds, launches)
     del rs_ge
     schedule_phase(device, card, errs, times, plain, bounds, launches)
-    sim_9a = sim_phase(device, card, launches)
+    sim_9a = sim_phase(device, card, launches, errs)
     rank_phase(device, card, errs, times, plain, bounds)
     channel_phase(device, card, errs, times, plain, bounds)
     decoder_top_phase(device, card, launches)

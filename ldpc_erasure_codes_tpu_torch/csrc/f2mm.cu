@@ -1,13 +1,15 @@
-// GF(2) products of packed 0/1 matrices with word rows, one body, three
-// entries:
+// GF(2) products of packed 0/1 matrices with word rows:
 //   x[b, e, :] = XOR over the set bits j < K of row e of M_b of rhs[b, j, :]
 // with M packed (E, ceil(K/32)) words (bit j of a row is bit j & 31 of word
-// j >> 5) and rhs (B, K, W) 32-bit words.
-//   - ldpc_f2_matvec_launch: one M for every frame (H, the dense syndrome);
-//   - ldpc_f2_matmul_launch: a matrix per frame, x written as (B, E, W);
-//   - ldpc_f2_apply_launch:  a matrix per frame, row e XORed into
-//     out[b, idx[b, e], :] (out holds the frame's values, erased slots
-//     zero); rows whose target is outside [0, n) are dropped.
+// j >> 5) and rhs (B, K, W) 32-bit words. Entries:
+//   - ldpc_f2_matvec_launch: one M for every frame (a dense H), bit scan;
+//   - ldpc_f2_matvec_rows_launch: one M given as its rows' column lists (an
+//     LDPC H), the list route;
+//   - ldpc_f2_matmul_launch: a matrix per frame, x written as (B, E, W), bit
+//     scan;
+//   - ldpc_f2_apply_rows_launch: a matrix per frame, out = values with row e
+//     XORed into out[b, idx[b, e], :]; rows whose target is outside [0, n)
+//     are dropped.
 //
 // Replaces the TPU kernels of ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:
 // f2_matvec_wide, f2_matmul_batched and f2_apply_scatter, which share the
@@ -16,20 +18,14 @@
 // places rows with a one-hot MXU product. A GF(2) product acts on every
 // bit position alone, so XOR of whole 32-bit rows gives the same bits.
 //
-// What bounds it on an H100: shared-memory XORs. At the (2040,1530) GE
-// point the transform apply is 448 frames x 512 rows x ~255 set bits x 256
-// words ~ 1.5e10 word XORs (plus a bit scan per set bit); device memory
-// sees the rhs once (0.23 GB), the matrices once per W chunk and the output
-// once. The dense syndrome (K = n = 2040, ~13 bits per row) is bound by
-// staging the values (0.9 GB) instead.
-//
-// Design: a block per (frame, chunk of WC words); it stages the chunk of
-// all K rhs rows in shared memory (WC = 32 words: 65 KB at K = 510; WC
-// shrinks for larger K to stay within 128 KB), then each thread owns one
-// output word (row e, word w) and walks the set bits of row e with __ffs.
-// The lanes that share a row read consecutive words (no bank conflict) and
-// the same matrix word (a broadcast). The tensor-core route (mma b1 with
-// XOR/popc) is left for a later change.
+// The bit scan (f2mm_kernel). What bounds it on an H100: shared-memory
+// reads, one per set bit per output word, plus a scan of every matrix word
+// per output word. Design: a block per (frame, chunk of WC words); it
+// stages the chunk of all K rhs rows in shared memory (WC = 32 words: 65 KB
+// at K = 510; WC shrinks for larger K to stay within 128 KB), then each
+// thread owns one output word (row e, word w) and walks the set bits of row
+// e with __ffs. The lanes that share a row read consecutive words (no bank
+// conflict) and the same matrix word (a broadcast).
 //
 // The list route of the matvec (ldpc_f2_matvec_rows_launch), for sparse
 // matrices such as an LDPC H (~13 set bits in 2040 per row at (2040,1530)):
@@ -45,6 +41,30 @@
 // and no matrix word per output word. Each output word is written once.
 // What bounds it: the values read once (0.94 GB at 448 frames, W = 256);
 // the lists are 13 KB per block from L2.
+//
+// The transform apply (f2_apply_rows_kernel). At the (2040,1530) GE bucket
+// (448 frames, K = m = 510 syndrome rows, E = 512 transform rows, W = 256)
+// 37% of the rows have a target in [0, n), each with ~96 set bits of 510;
+// at the whole-batch GE of the simulation's value-tracking shape (2048
+// frames, E = 128) 1.2% have one, and most frames place none. What bounds
+// it: device memory, the frame's values copied to the output (0.94 GB each
+// way at the bucket) and the rhs read once (0.23 GB); the placed rows' ~2e9
+// word XORs are shared-memory reads well below that. Design, a block per
+// (frame, chunk of Wc = VEC * P words):
+//   1. the frame's placed rows are listed first (a ballot per 32 rows and a
+//      shared count); discarded rows are never computed;
+//   2. a block with a placed row starts cp.async copies of the chunk of the
+//      K rhs rows into a slab (slab.cuh);
+//   3. every block copies 1 / n_chunks of the frame's symbols to the
+//      output, whole rows (contiguous, as a clone reads them), 16 bytes a
+//      lane, while the slab loads, skipping the targets (a bit per symbol
+//      in shared memory); a block without a placed row does only this;
+//   4. a warp per placed row lists the row's set columns in its own uint16
+//      list (popc and a warp prefix count over the row's words), then its
+//      lanes, P on each part of the chunk, sum a share of the listed slab
+//      rows each, eight reads in flight, XOR-reduce the shares (shfl) and
+//      write values[idx] ^ sum to the chunk's words of out[idx]; no other
+//      write touches them.
 
 #include <cstdint>
 
@@ -58,11 +78,10 @@ namespace {
 constexpr int kThreads = 512;
 constexpr size_t kSmemBudget = 128 * 1024;
 
-template <bool kShared, bool kScatter>
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
-f2mm_kernel(const int32_t* __restrict__ rhs, const uint32_t* __restrict__ mat,
-            const int32_t* __restrict__ idx, int32_t* out, int K, int KW, int E, int W,
-            int n, int wc_shift) {
+f2mm_kernel(const int32_t* __restrict__ rhs, const uint32_t* __restrict__ mat, int32_t* out,
+            int K, int KW, int E, int W, int wc_shift) {
     extern __shared__ int32_t s_rhs[];
     const int WC = 1 << wc_shift;
     const int n_chunks = (W + WC - 1) >> wc_shift;
@@ -94,13 +113,7 @@ f2mm_kernel(const int32_t* __restrict__ rhs, const uint32_t* __restrict__ mat,
                 acc ^= s[j << wc_shift];
             }
         }
-        if (!own) continue;
-        if (kScatter) {
-            const int t = __ldg(idx + (size_t)b * E + e);
-            if (t >= 0 && t < n) out[((size_t)b * n + t) * W + w0 + w] ^= acc;
-        } else {
-            out[((size_t)b * E + e) * W + w0 + w] = acc;
-        }
+        if (own) out[((size_t)b * E + e) * W + w0 + w] = acc;
     }
 }
 
@@ -114,22 +127,21 @@ int chunk_shift(int K, int W) {
     return s;
 }
 
-template <bool kShared, bool kScatter>
-int launch(const int32_t* rhs, const uint32_t* mat, const int32_t* idx, int32_t* out, int B,
-           int K, int KW, int E, int W, int n, cudaStream_t stream) {
+template <bool kShared>
+int launch(const int32_t* rhs, const uint32_t* mat, int32_t* out, int B, int K, int KW, int E,
+           int W, cudaStream_t stream) {
     if (B == 0 || E == 0) return (int)cudaSuccess;
     const int s = chunk_shift(K, W);
     if (s < 0) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)K * (1u << s) * sizeof(int32_t);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            f2mm_kernel<kShared, kScatter>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            f2mm_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
     const long long blocks = (long long)B * ((W + (1 << s) - 1) >> s);
-    f2mm_kernel<kShared, kScatter><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        rhs, mat, idx, out, K, KW, E, W, n, s);
+    f2mm_kernel<kShared><<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mat, out, K, KW, E,
+                                                                       W, s);
     return (int)cudaGetLastError();
 }
 
@@ -203,6 +215,149 @@ cudaError_t launch_rows(const int32_t* values, const int32_t* idx, const int32_t
     return cudaGetLastError();
 }
 
+constexpr int kApplyThreads = 512;
+constexpr int kApplyWarps = kApplyThreads / 32;
+
+// The apply's shared memory: the slab of K rows of Wc words, a list of up
+// to K uint16 columns per warp, the placed rows, a bit per symbol (set
+// where a row is placed), and the count.
+__host__ __device__ inline int apply_bytes(int K, int E, int n, int wc) {
+    return 4 * K * wc + round16(2 * kApplyWarps * K) + round16(4 * E) +
+           round16(4 * ((n + 31) / 32)) + 16;
+}
+
+template <int VEC, int P>
+__global__ void __launch_bounds__(kApplyThreads)
+f2_apply_rows_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__ rhs,
+                     const uint32_t* __restrict__ t, const int32_t* __restrict__ idx,
+                     int32_t* __restrict__ out, int K, int KW, int E, int W, int n,
+                     int n_chunks) {
+    using V = Words<VEC>;
+    constexpr int kShares = 32 / P;  // lanes on each part of the chunk
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    V* slab = reinterpret_cast<V*>(smem_raw);
+    uint16_t* lists = reinterpret_cast<uint16_t*>(smem_raw + (size_t)4 * K * VEC * P);
+    int* placed = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(lists) +
+                                         round16(2 * kApplyWarps * K));
+    uint32_t* targets = reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(placed) +
+                                                    round16(4 * E));
+    const int nw = (n + 31) / 32;
+    int* count = reinterpret_cast<int*>(targets + round16(4 * nw) / 4);
+    const int chunk = blockIdx.x % n_chunks;
+    const int b = blockIdx.x / n_chunks;
+    const int w0 = chunk * VEC * P;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int32_t* tg = idx + (size_t)b * E;
+
+    // 1. The rows with a target in [0, n), in any order (targets are
+    //    distinct), and the targets as a bit per symbol.
+    if (threadIdx.x == 0) *count = 0;
+    for (int i = threadIdx.x; i < nw; i += kApplyThreads) targets[i] = 0;
+    __syncthreads();
+    for (int e0 = 32 * warp; e0 < E; e0 += kApplyThreads) {
+        const int e = e0 + lane;
+        const int to = e < E ? __ldg(tg + e) : -1;
+        const bool keep = to >= 0 && to < n;
+        const uint32_t bal = __ballot_sync(0xffffffffu, keep);
+        int base = 0;
+        if (lane == 0 && bal) base = atomicAdd(count, __popc(bal));
+        base = __shfl_sync(0xffffffffu, base, 0);
+        if (keep) {
+            placed[base + __popc(bal & ((1u << lane) - 1u))] = e;
+            atomicOr(targets + (to >> 5), 1u << (to & 31));
+        }
+    }
+    __syncthreads();
+    const int np = *count;
+
+    // 2-3. The slab in flight while the block copies its share of the
+    //    frame's symbols, whole rows (n / n_chunks of them), all but the
+    //    targets: step 4 writes those, so no barrier orders the two.
+    if (np > 0)
+        slab_load<VEC, P>(slab, rhs + (size_t)b * K * W + w0, K, W, w0, threadIdx.x,
+                          kApplyThreads);
+    const int32_t* vf = values + (size_t)b * n * W;
+    int32_t* of = out + (size_t)b * n * W;
+    {
+        const int s0 = (int)((long long)chunk * n / n_chunks);
+        const int s1 = (int)((long long)(chunk + 1) * n / n_chunks);
+        const int wv = W / VEC;
+#pragma unroll 4
+        for (int i = threadIdx.x; i < (s1 - s0) * wv; i += kApplyThreads) {
+            const int s = s0 + i / wv;
+            const size_t off = (size_t)s * W + (i % wv) * VEC;
+            if (!((targets[s >> 5] >> (s & 31)) & 1u)) V::load_ro(vf + off).store(of + off);
+        }
+    }
+    if (np == 0) return;
+    copy_async_wait();
+    __syncthreads();
+
+    // 4. A warp per placed row: its list of set columns, then its sum.
+    uint16_t* list = lists + warp * K;
+    const int p = lane % P, share = lane / P;
+    const uint32_t last = (K & 31) ? (1u << (K & 31)) - 1u : 0xffffffffu;
+    for (int q = warp; q < np; q += kApplyWarps) {
+        const int e = placed[q];
+        const uint32_t* row = t + ((size_t)b * E + e) * KW;
+        int len = 0;
+        for (int kw0 = 0; kw0 < KW; kw0 += 32) {
+            const int kw = kw0 + lane;
+            uint32_t bits = kw < KW ? __ldg(row + kw) : 0u;
+            if (kw == KW - 1) bits &= last;
+            const int c = __popc(bits);
+            int incl = c;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int v = __shfl_up_sync(0xffffffffu, incl, o);
+                if (lane >= o) incl += v;
+            }
+            for (int pos = len + incl - c; bits; bits &= bits - 1)
+                list[pos++] = (uint16_t)(32 * kw + __ffs(bits) - 1);
+            len += __shfl_sync(0xffffffffu, incl, 31);
+        }
+        __syncwarp();
+        V acc = V::zero();
+        for (int j0 = share; j0 < len; j0 += 8 * kShares) {
+            V v[8];  // eight predicated reads in flight, none past the list
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const int j = j0 + u * kShares;
+                v[u] = j < len ? slab[list[j] * P + p] : V::zero();
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u) acc ^= v[u];
+        }
+#pragma unroll
+        for (int o = P; o < 32; o <<= 1) acc ^= acc.shfl_xor(o);
+        if (share == 0 && w0 + p * VEC < W) {
+            const size_t off = (size_t)__ldg(tg + e) * W + w0 + p * VEC;
+            V v = V::load_ro(vf + off);
+            v ^= acc;
+            v.store(of + off);
+        }
+        __syncwarp();  // the list is rewritten for the next row
+    }
+}
+
+template <int VEC, int P>
+cudaError_t launch_apply(const int32_t* values, const int32_t* rhs, const uint32_t* t,
+                         const int32_t* idx, int32_t* out, int B, int K, int KW, int E, int W,
+                         int n, cudaStream_t stream) {
+    const size_t smem = apply_bytes(K, E, n, VEC * P);
+    const auto kernel = f2_apply_rows_kernel<VEC, P>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    const int n_chunks = (W + VEC * P - 1) / (VEC * P);
+    kernel<<<(unsigned)((long long)B * n_chunks), kApplyThreads, smem, stream>>>(
+        values, rhs, t, idx, out, K, KW, E, W, n, n_chunks);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // The list route: out (B, m, W) = M . values (B, K, W), row e of M given
@@ -238,19 +393,41 @@ extern "C" int ldpc_f2_matvec_rows_launch(const int32_t* values, const int32_t* 
 extern "C" int ldpc_f2_matvec_launch(const int32_t* values, const uint32_t* h, int32_t* out,
                                      int B, int n, int KW, int m, int W,
                                      cudaStream_t stream) {
-    return launch<true, false>(values, h, nullptr, out, B, n, KW, m, W, 0, stream);
+    return launch<true>(values, h, out, B, n, KW, m, W, stream);
 }
 
 // out (B, E, W) = T_b (E rows of KW words over K columns) . rhs_b (K, W).
 extern "C" int ldpc_f2_matmul_launch(const int32_t* rhs, const uint32_t* t, int32_t* out,
                                      int B, int K, int KW, int E, int W,
                                      cudaStream_t stream) {
-    return launch<false, false>(rhs, t, nullptr, out, B, K, KW, E, W, 0, stream);
+    return launch<false>(rhs, t, out, B, K, KW, E, W, stream);
 }
 
-// out (B, n, W), holding the values, ^= rows of T_b . rhs_b placed at idx (B, E).
-extern "C" int ldpc_f2_apply_launch(const int32_t* rhs, const uint32_t* t, const int32_t* idx,
-                                    int32_t* out, int B, int K, int KW, int E, int W, int n,
-                                    cudaStream_t stream) {
-    return launch<false, true>(rhs, t, idx, out, B, K, KW, E, W, n, stream);
+// out (B, n, W) = values with row e of T_b . rhs_b (T_b: E rows of KW words
+// over K columns) XORed into symbol idx[b, e] where that lies in [0, n);
+// Wc = wc words (4, 8 or 16) per block. K < 65535, and the slab with the
+// lists must fit a block's shared memory.
+extern "C" int ldpc_f2_apply_rows_launch(const int32_t* values, const int32_t* rhs,
+                                         const uint32_t* t, const int32_t* idx, int32_t* out,
+                                         int B, int K, int KW, int E, int W, int n, int wc,
+                                         cudaStream_t stream) {
+    if (B == 0) return (int)cudaSuccess;
+    if (K >= 65535 || apply_bytes(K, E, n, wc) > kMaxSmem) return (int)cudaErrorInvalidValue;
+#define F2_APPLY(VEC, P) \
+    return (int)launch_apply<VEC, P>(values, rhs, t, idx, out, B, K, KW, E, W, n, stream)
+    if (vec4_ok(W, {values, rhs, out})) {
+        switch (wc) {
+            case 4: F2_APPLY(4, 1);
+            case 8: F2_APPLY(4, 2);
+            case 16: F2_APPLY(4, 4);
+        }
+    } else {
+        switch (wc) {
+            case 4: F2_APPLY(1, 4);
+            case 8: F2_APPLY(1, 8);
+            case 16: F2_APPLY(1, 16);
+        }
+    }
+#undef F2_APPLY
+    return (int)cudaErrorInvalidValue;
 }

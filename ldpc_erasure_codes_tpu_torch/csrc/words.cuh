@@ -1,4 +1,4 @@
-// Per-lane word vectors shared by the encode and peel kernels.
+// Per-lane word vectors shared by the encode, peel and GF(2) product kernels.
 //
 // A lane owns VEC consecutive 32-bit words of every symbol of its frame
 // (VEC = 4: one 16-byte access, so a warp moves 512 contiguous bytes of a
@@ -30,6 +30,12 @@ struct Words<4> {
     __device__ void operator^=(const Words& o) {
         v.x ^= o.v.x; v.y ^= o.v.y; v.z ^= o.v.z; v.w ^= o.v.w;
     }
+    // The words of lane (this lane ^ o), all 32 lanes taking part.
+    __device__ Words shfl_xor(int o) const {
+        constexpr unsigned kAll = 0xffffffffu;
+        return {make_int4(__shfl_xor_sync(kAll, v.x, o), __shfl_xor_sync(kAll, v.y, o),
+                          __shfl_xor_sync(kAll, v.z, o), __shfl_xor_sync(kAll, v.w, o))};
+    }
 };
 
 template <>
@@ -40,6 +46,7 @@ struct Words<1> {
     __device__ static Words load(const int32_t* p) { return {*p}; }
     __device__ void store(int32_t* p) const { *p = v; }
     __device__ void operator^=(const Words& o) { v ^= o.v; }
+    __device__ Words shfl_xor(int o) const { return {__shfl_xor_sync(0xffffffffu, v, o)}; }
 };
 
 // True when every pointer is 16-byte aligned and W is a multiple of 4 words:

@@ -104,8 +104,8 @@ LAUNCHERS = {
     "ldpc_f2_matvec_rows_launch": [*[_P] * 4, *[_I] * 6, _P],
     # rhs, t_words, out, B, K, KW, E, W, stream
     "ldpc_f2_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # rhs, t_words, idx, out, B, K, KW, E, W, n, stream
-    "ldpc_f2_apply_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # values, rhs, t_words, idx, out, B, K, KW, E, W, n, wc, stream
+    "ldpc_f2_apply_rows_launch": [*[_P] * 5, *[_I] * 7, _P],
 }
 
 

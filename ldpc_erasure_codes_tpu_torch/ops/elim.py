@@ -7,7 +7,10 @@ ge_solve_packed`` (step :266-283). The TPU kernel keeps the batch on its
 128 lanes, (C, m_pad, B); the port keeps one frame's rows together,
 (B, m, C), because on Hopper a frame's cube is one block's shared memory.
 :func:`f2_eliminate` launches ``csrc/elim.cu`` for CUDA tensors and runs
-:func:`f2_eliminate_reference` for CPU tensors.
+:func:`f2_eliminate_reference` for CPU tensors. The kernel computes the
+same function 32 columns (one word) at a time, skipping words that are
+zero in every row of a frame; :func:`f2_eliminate_panels_reference` is
+that order in plain PyTorch.
 
 With ``a_words`` > 0 both apply the TPU kernel's two exact cuts: the
 column loop stops at the batch's widest residual ``min(max(nreal), emax)``,
@@ -83,11 +86,91 @@ def f2_eliminate_reference(
     return r, pivrow, failed
 
 
+def f2_eliminate_panels_reference(
+    cube: torch.Tensor, nreal: torch.Tensor, *, emax: int, a_words: int = 0,
+    stats: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch elimination in the kernel's order (``csrc/elim.cu``):
+    32 columns (one word j) at a time. Equal to
+    :func:`f2_eliminate_reference` on every output.
+
+    Per panel j and frame: (1) a panel whose word j is zero in every row
+    finds no pivot and changes nothing; it only sets ``failed`` where
+    32j < nreal. (2) Otherwise the column steps run on word j alone, and
+    each row r keeps a combination word S_r of the panel's pivots whose
+    starting rows it has absorbed: row r taking pivot i (row p_i) sets
+    S_r ^= S_{p_i} | (1 << i). (3) The pivot rows as they were before the
+    panel are staged, and every row takes row ^= XOR over i in S_r of
+    staged row i on words [c0, C) (c0 = min(j, a_words) with the cuts, 0
+    without): the words the column order updates for each column of the
+    panel, so the cuts stay exact.
+
+    ``stats``, where given, receives the work in this order: ``panels``
+    (frames x panels), ``live_panels`` (those not skipped), and
+    ``column_steps`` (the column steps of the live panels), against the
+    column order's ``B x ub`` column steps."""
+    _check(cube, nreal, emax, a_words)
+    b, m, c = cube.shape
+    dev = cube.device
+    r = cube.clone()
+    used = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    pivrow = torch.zeros((b, emax), dtype=torch.int32, device=dev)
+    failed = torch.zeros((b,), dtype=torch.bool, device=dev)
+    rows = torch.arange(m, device=dev)
+    ub = emax
+    if a_words:
+        ub = min(int(nreal.max()), emax) if b else 0
+    count = {"panels": b * -(-ub // 32), "live_panels": 0, "column_steps": 0}
+    for j in range(-(-ub // 32)):
+        ncol = min(32, ub - 32 * j)
+        live = (r[:, :, j] != 0).any(dim=1)  # (1) the zero-panel skip
+        failed |= ~live & (32 * j < nreal)
+        act = live.nonzero()[:, 0]
+        count["live_panels"] += len(act)
+        count["column_steps"] += len(act) * ncol
+        if not len(act):
+            continue
+        frames = torch.arange(len(act), device=dev)
+        pw = r[act, :, j].long() & 0xFFFFFFFF  # (A, m) the panel words
+        s = torch.zeros_like(pw)  # combination words
+        u = used[act]
+        piv = torch.zeros((len(act), 32), dtype=torch.long, device=dev)
+        has = torch.zeros((len(act), 32), dtype=torch.bool, device=dev)
+        for i in range(ncol):  # (2) the column steps on word j alone
+            colv = ((pw >> i) & 1).bool()
+            cand = colv & ~u
+            has[:, i] = cand.any(dim=1)
+            piv[:, i] = torch.where(has[:, i], cand.to(torch.uint8).argmax(dim=1), 0)
+            is_piv = (rows[None, :] == piv[:, i, None]) & has[:, i, None]
+            u |= is_piv
+            pivrow[act, 32 * j + i] = piv[:, i].to(torch.int32)
+            failed[act] |= ~has[:, i] & (32 * j + i < nreal[act])
+            take = colv & ~is_piv & has[:, i, None]
+            pw ^= torch.where(take, pw[frames, piv[:, i]][:, None], 0)
+            s ^= torch.where(take, (s[frames, piv[:, i]] | (1 << i))[:, None], 0)
+        used[act] = u
+        c0 = min(j, a_words) if a_words else 0
+        staged = r[act[:, None], piv, c0:]  # (3) (A, 32, C - c0), before the panel
+        block = r[act, :, c0:]
+        for i in range(ncol):
+            block ^= torch.where(((s >> i) & 1).bool()[:, :, None], staged[:, i, None, :], 0)
+        r[act, :, c0:] = block
+    if stats is not None:
+        stats.update(count)
+    return r, pivrow, failed
+
+
+# Rows a frame's cube may have on the kernel: warp 0 holds up to 64 per lane.
+MAX_ROWS = 64 * 32
+
+
 def launch_kernel(cube, nreal, emax: int, a_words: int, in_smem: bool):
     """Launch the kernel with the cube in shared memory (``in_smem``) or in
     device memory; :func:`f2_eliminate` picks the mode by size, the card
     tests force each."""
     b, m, c = cube.shape
+    if m > MAX_ROWS:
+        raise ValueError(f"a cube of {m} rows: the kernel takes at most {MAX_ROWS}")
     out = torch.empty_like(cube)
     pivrow = torch.empty((b, emax), dtype=torch.int32, device=cube.device)
     failed = torch.empty((b,), dtype=torch.int32, device=cube.device)

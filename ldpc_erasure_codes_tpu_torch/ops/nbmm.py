@@ -15,7 +15,10 @@ or past K are ignored. ``f2_matvec_wide`` takes one of two routes, chosen
 from the shapes and the row lists before launch: a sparse H (an LDPC
 code's) the list route, which sums each row's listed symbols out of a
 shared-memory slab (:func:`f2_matrix_rows`, cached as ``CodeArrays.
-h_rows``); a dense matrix the bit-scan body that the other two share.
+h_rows``); a dense matrix the bit-scan body that ``f2_matmul_batched``
+shares. ``f2_apply_scatter`` computes only the rows that it places, each
+over the list of its transform row's set columns, made in the kernel, and
+copies the values in the same kernel.
 
 The GF(256) counterparts of the TPU kernels ``gf_matvec_wide`` (:132-213)
 and ``gf_apply_scatter`` (:556-651) contract an int8 bit image of a byte
@@ -100,6 +103,33 @@ def f2_apply_scatter_reference(
     frames = torch.arange(values.shape[0], device=values.device)[:, None].expand_as(idx)
     f, t = frames[keep], idx[keep].long()
     out[f, t] ^= x[keep]
+    return out
+
+
+def f2_apply_rows_reference(
+    values: torch.Tensor, rhs: torch.Tensor, t_words: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch apply in the kernel's order (``csrc/f2mm.cu``): the
+    placed rows (target in [0, n)) listed first, the values copied, then
+    each placed row's sum of the rhs rows its transform row lists (a loop
+    over the list slots, as :func:`f2_matvec_rows_reference`) XORed into
+    its target. Equal to :func:`f2_apply_scatter_reference`."""
+    _check_apply(values, rhs, t_words, idx)
+    b, k, w = rhs.shape
+    out = values.clone()
+    frames, rows = ((idx >= 0) & (idx < values.shape[1])).nonzero(as_tuple=True)
+    if not len(frames):
+        return out
+    bits = unpack_bits(t_words[frames, rows])[:, :k] != 0  # (P, K)
+    length = bits.sum(dim=1)
+    d = max(1, int(length.max()))
+    order = torch.argsort((~bits).to(torch.uint8), dim=1, stable=True)[:, :d]  # set bits first
+    cols = torch.where(torch.arange(d, device=idx.device)[None, :] < length[:, None], order, k)
+    padded = torch.cat([rhs, rhs.new_zeros(b, 1, w)], dim=1)  # column K reads zero
+    acc = rhs.new_zeros(len(frames), w)
+    for s in range(d):
+        acc ^= padded[frames, cols[:, s]]
+    out[frames, idx[frames, rows].long()] ^= acc
     return out
 
 
@@ -306,6 +336,56 @@ def f2_matmul_batched(rhs: torch.Tensor, t_words: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The apply's slab widths Wc, in order of preference (the fastest first, by
+# chip_smoke.py's sweep; PERF.md): the first whose block fits.
+F2_APPLY_WORDS = (16, 8, 4)
+# Warps of an apply block, each with its own list of up to K columns.
+F2_APPLY_WARPS = 16
+
+
+def f2_apply_smem(k: int, e: int, n: int, wc: int) -> int:
+    """Shared memory of an apply block (csrc/f2mm.cu): the slab of K rows
+    of Wc words, a uint16 list of K columns per warp, the placed rows, a
+    bit per symbol of the n, and the count."""
+    return (4 * k * wc + _r16(2 * F2_APPLY_WARPS * k) + _r16(4 * e)
+            + _r16(4 * -(-n // 32)) + 16)
+
+
+def f2_apply_slab_words(k: int, e: int, n: int, w: int) -> int | None:
+    """Wc of the apply for K = ``k`` rhs rows, E = ``e`` transform rows, n
+    symbols and W = ``w`` words: the first of :data:`F2_APPLY_WORDS` no wider than W
+    rounded up to 4 whose block fits; None where none fits (K >= 65535, or
+    a slab too large even at 4 words)."""
+    if k >= 65535:
+        return None
+    fits = [wc for wc in F2_APPLY_WORDS if wc <= max(4, -(-w // 4) * 4)
+            and f2_apply_smem(k, e, n, wc) <= SMEM_LIMIT]
+    return fits[0] if fits else None
+
+
+def launch_apply(values: torch.Tensor, rhs: torch.Tensor, t_words: torch.Tensor,
+                 idx: torch.Tensor, wc: int) -> torch.Tensor:
+    """The apply's kernel on CUDA tensors with Wc = ``wc`` words per block
+    (one of :data:`F2_APPLY_WORDS`, the block within shared memory). Counts
+    one launch of ``f2_apply_scatter``."""
+    _check_apply(values, rhs, t_words, idx)
+    b, k, w = rhs.shape
+    _, e, kw = t_words.shape
+    n = values.shape[1]
+    if wc not in F2_APPLY_WORDS or f2_apply_smem(k, e, n, wc) > SMEM_LIMIT or k >= 65535:
+        raise ValueError(f"apply slab of {wc} words: Wc must be one of {F2_APPLY_WORDS} with "
+                         f"the block's shared memory within {SMEM_LIMIT} bytes (K={k}, E={e}, "
+                         f"n={n})")
+    out = torch.empty_like(values)
+    rc = _build.library().ldpc_f2_apply_rows_launch(
+        values.data_ptr(), rhs.data_ptr(), t_words.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        b, k, kw, e, w, n, wc, _stream(values),
+    )
+    _build.check(rc, "ldpc_f2_apply_rows_launch")
+    f2_apply_scatter.launches += 1
+    return out
+
+
 def f2_apply_scatter(
     values: torch.Tensor, rhs: torch.Tensor, t_words: torch.Tensor, idx: torch.Tensor
 ) -> torch.Tensor:
@@ -316,23 +396,20 @@ def f2_apply_scatter(
     int32. Targets outside [0, n) are dropped (the TPU kernel's dump rows,
     cut off at ge.py:412-414); targets in range must be distinct within a
     frame. Returns a new (B, n, W) tensor. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise).
-    ``f2_apply_scatter.launches`` counts kernel launches.
+    version; CUDA tensors launch the kernel (or raise) at the slab width of
+    :func:`f2_apply_slab_words`: only the placed rows are computed, each
+    over its list of set columns, and the copy of the values is the
+    kernel's own. ``f2_apply_scatter.launches`` counts kernel launches.
     """
     _check_apply(values, rhs, t_words, idx)
     if values.device.type == "cpu":
         return f2_apply_scatter_reference(values, rhs, t_words, idx)
-    b, k, w = rhs.shape
-    _, e, kw = t_words.shape
-    stream = _stream(values)
-    out = values.clone()
-    rc = _build.library().ldpc_f2_apply_launch(
-        rhs.data_ptr(), t_words.data_ptr(), idx.data_ptr(), out.data_ptr(), b, k, kw, e, w,
-        values.shape[1], stream,
-    )
-    _build.check(rc, "ldpc_f2_apply_launch")
-    f2_apply_scatter.launches += 1
-    return out
+    k, e, n = rhs.shape[1], t_words.shape[1], values.shape[1]
+    wc = f2_apply_slab_words(k, e, n, rhs.shape[2])
+    if wc is None:
+        raise ValueError(f"apply: no slab width in {F2_APPLY_WORDS} fits shared memory "
+                         f"({SMEM_LIMIT} bytes) at K={k}, E={e}, n={n}")
+    return launch_apply(values, rhs, t_words, idx, wc)
 
 
 f2_matvec_wide.launches = 0

@@ -243,16 +243,28 @@ def _random_cube(rng, b, m, c, emax, zero_pad_columns):
     return to_torch(r), torch.from_numpy(nreal)
 
 
+def _zero_panels(cube):
+    """Zero word 0 of frame 0 and word 1 of frame 1 in every row: panels
+    the kernel skips, in front of and between live ones."""
+    cube[0, :, 0] = 0
+    if cube.shape[0] > 1 and cube.shape[2] > 1:
+        cube[1, :, 1] = 0
+    return cube
+
+
 @pytest.mark.parametrize("in_smem", [True, False], ids=["smem", "device_memory"])
 @pytest.mark.parametrize("a_words", [False, True], ids=["a_words_0", "a_words_wa"])
-@pytest.mark.parametrize("b,m,c,emax", [(64, 510, 32, 512), (16, 1000, 56, 768), (3, 40, 3, 40)])
+@pytest.mark.parametrize("b,m,c,emax", [(64, 510, 32, 512), (16, 1000, 56, 768), (3, 40, 3, 40),
+                                        (8, 200, 10, 96), (1, 510, 32, 512), (5, 70, 4, 40)])
 def test_eliminate_kernel_matches_plain(cuda_device, in_smem, a_words, b, m, c, emax):
     """Both modes of the kernel, with and without the a_words cuts, at the
-    (2040,1530) and (2000,1000) GE cubes (65 KB and 224 KB per frame)."""
+    (2040,1530) and (2000,1000) GE cubes (65 KB and 224 KB per frame), at
+    B = 1, and with a partial last panel (emax 40, 96); frames 0 and 1 hold
+    a panel that is zero in every row, and the last two are all zero."""
     rng = np.random.default_rng(m + c)
     wa = -(-emax // 32)
     cube, nreal = _random_cube(rng, b, m, c, emax, zero_pad_columns=a_words)
-    cube, nreal = cube.to(cuda_device), nreal.to(cuda_device)
+    cube, nreal = _zero_panels(cube).to(cuda_device), nreal.to(cuda_device)
     aw = wa if a_words else 0
     if in_smem:
         assert elim.fits_shared_memory(m, c)
@@ -262,17 +274,20 @@ def test_eliminate_kernel_matches_plain(cuda_device, in_smem, a_words, b, m, c, 
     assert elim.f2_eliminate.launches == before + 1
     want = elim.f2_eliminate_reference(cube, nreal, emax=emax, a_words=aw)
     _equal(got, want)
+    _equal(got, elim.f2_eliminate_panels_reference(cube, nreal, emax=emax, a_words=aw))
     if b >= 16:  # solved and failed frames both occur
         assert want[2].any() and not want[2].all()
 
 
-def test_eliminate_device_memory_mode_at_4000(cuda_device):
+@pytest.mark.parametrize("b", [3, 1])
+def test_eliminate_device_memory_mode_at_4000(cuda_device, b):
     """(4000,2000) at emax 1024: 2000 rows x 95 words do not fit in shared
-    memory, so the wrapper takes the device-memory mode."""
+    memory, so the wrapper takes the device-memory mode; with zero panels
+    and at B = 1."""
     m, c, emax = 2000, 32 + 63, 1024
     assert not elim.fits_shared_memory(m, c)
-    cube, nreal = _random_cube(np.random.default_rng(40), 3, m, c, emax, zero_pad_columns=True)
-    cube, nreal = cube.to(cuda_device), nreal.to(cuda_device)
+    cube, nreal = _random_cube(np.random.default_rng(40), b, m, c, emax, zero_pad_columns=True)
+    cube, nreal = _zero_panels(cube).to(cuda_device), nreal.to(cuda_device)
     got = elim.f2_eliminate(cube, nreal, emax=emax, a_words=emax // 32)
     torch.cuda.synchronize()
     _equal(got, elim.f2_eliminate_reference(cube, nreal, emax=emax, a_words=emax // 32))
@@ -326,6 +341,54 @@ def test_f2mm_kernels_match_plain(cuda_device, w, aligned, k, e):
             nbmm.f2_apply_scatter_reference(values, rhs, t, idx),
             nbmm.f2_matvec_wide_reference(values, h))
     _equal(got, want)
+
+
+def _apply_cases():
+    """(k, e, w, aligned, placed share, Wc (None: the wrapper's choice)):
+    the (2040,1530) GE bucket's shape with 37% of the rows placed and with
+    1% (most frames none); W = 3 and 5, misaligned; each Wc that fits."""
+    cases = [(510, 512, 256, True, 0.37, None), (510, 512, 256, True, 0.01, None),
+             (510, 512, 256, False, 0.37, None), (510, 512, 5, True, 0.37, None),
+             (510, 512, 3, True, 0.01, None), (1000, 768, 64, True, 0.37, None),
+             (40, 9, 5, False, 0.37, None), (2000, 1024, 32, True, 0.1, None)]
+    cases += [(510, 512, w, aligned, 0.37, wc) for wc in nbmm.F2_APPLY_WORDS
+              for w, aligned in ((250, True), (256, False))]
+    return cases
+
+
+@pytest.mark.parametrize("k,e,w,aligned,share,wc", _apply_cases())
+def test_f2_apply_kernel_matches_plain(cuda_device, k, e, w, aligned, share, wc):
+    """The apply with a share of its rows placed (the rest discards at -1, n
+    and beyond), two whole frames placing none, transform rows of ~96 set
+    bits and bits past K set; against both plain versions."""
+    rng = np.random.default_rng(k + w)
+    b, n = 6, 4 * k
+    kw = -(-k // 32)
+    dev = cuda_device
+    rhs = to_torch(random_words(rng, (b, k, w))).to(dev)
+    bits = rng.random((b, e, 32 * kw)) < 96 / k
+    bits[:, :, k:] = rng.random((b, e, 32 * kw - k)) < 0.5  # past K: ignored
+    t = pack_bits(torch.from_numpy(bits)).to(dev)
+    values = to_torch(random_words(rng, (b, n, w))).to(dev)
+    if not aligned:
+        rhs, values = _misaligned(rhs), _misaligned(values)
+    idx = np.stack([rng.permutation(n)[:e] for _ in range(b)]).astype(np.int32)
+    drop = rng.random((b, e)) >= share
+    idx[drop] = rng.choice([-1, n, n + 100], int(drop.sum()))
+    idx[-2:] = n  # frames with no placed row
+    idx = torch.from_numpy(idx).to(dev)
+    before = nbmm.f2_apply_scatter.launches
+    if wc is None:
+        assert nbmm.f2_apply_slab_words(k, e, n, w) is not None
+        got = nbmm.f2_apply_scatter(values, rhs, t, idx)
+    else:
+        got = nbmm.launch_apply(values, rhs, t, idx, wc)
+    torch.cuda.synchronize()
+    assert nbmm.f2_apply_scatter.launches == before + 1
+    want = nbmm.f2_apply_scatter_reference(values, rhs, t, idx)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, nbmm.f2_apply_rows_reference(values, rhs, t, idx),
+                               rtol=0, atol=0)
 
 
 def _f2_rows_cases():

@@ -184,7 +184,7 @@ def test_xor_reduce(n):
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert {"ldpc_encode_launch", "ldpc_peel_launch", "ldpc_elim_launch", "ldpc_synd_launch",
-            "ldpc_f2_matvec_launch", "ldpc_f2_matmul_launch", "ldpc_f2_apply_launch"} <= set(
+            "ldpc_f2_matvec_launch", "ldpc_f2_matmul_launch", "ldpc_f2_apply_rows_launch"} <= set(
         _build.LAUNCHERS)
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
