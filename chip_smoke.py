@@ -75,11 +75,15 @@ Phases, each fatal on failure:
    .1406, first-k early stop, for each of "seq", "unrolled", "counted",
    "grouped" and "jacobi"; counted and timed per schedule, and the step's
    digest timed apart. On one fixed
-   batch the three research kernels (``csrc/peel_sched.cu``) are held
-   against their plain versions on the whole batch, "counted" and
-   "grouped" against the "seq" kernel, "jacobi" against the Jacobi decoder
-   on the first k (``check_schedule``); their GF(256) modes against the
-   plain versions at B=16, 1 KB. The CLI runs once as a subprocess;
+   batch the three research kernels ("counted", ``csrc/peel_sched.cu``;
+   "grouped" and "jacobi", visit orders of ``csrc/peel.cu``'s schedule
+   kernel before its slab value kernel) are held against their plain
+   versions on the whole batch, "counted" and "grouped" against the "seq"
+   kernel, "jacobi" against the Jacobi decoder on the first k
+   (``check_schedule``); the grouped and Jacobi schedule kernels alone
+   against their plain versions (grouped's also against seq's schedule
+   kernel) and timed beside seq's; their GF(256) modes against the plain
+   versions at B=16, 1 KB. The CLI runs once as a subprocess;
 9. the FER simulation at the paper's Table-I point (2040,1530), PER .1875:
    9a the CLI's pattern-only peel sweep (B=4096, 16 batches per call,
    VALIDATION.md:9-13), 9b the pattern-only hybrid of the JAX CLI's ``plot``
@@ -264,11 +268,11 @@ KERNELS = {
         replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:586",
     ),
     "peel_grouped": dict(
-        source="ldpc_erasure_codes_tpu_torch/csrc/peel_sched.cu",
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:1101",
     ),
     "peel_jacobi": dict(
-        source="ldpc_erasure_codes_tpu_torch/csrc/peel_sched.cu",
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:377",
     ),
     "ge_rank": dict(
@@ -309,6 +313,9 @@ COUNTERS = {
 # The research schedules' kernel entries; their GF(256) modes are held to
 # the plain versions under the same entry.
 SCHED_KERNELS = {"counted": "peel_counted", "grouped": "peel_grouped", "jacobi": "peel_jacobi"}
+# The plain versions of csrc/peel.cu's schedule kernel, by visit order.
+ORDER_PLAIN = {"grouped": peel.grouped_schedule_reference,
+               "jacobi": peel.jacobi_schedule_reference}
 # Phase 9's bands at (2040,1530), PER .1875: VALIDATION.md:19 (peel FER
 # 1.95e-2, +-3 sigma; the paper's 2e-2, tex:207), the analytic RS(255,192)
 # per-window FER 7.34e-3, the Jacobi schedule's mean sweeps with first-k
@@ -837,6 +844,26 @@ def peel_split(arrays, cw, mask, k_stop: int, gf_order: int, errs: dict, name: s
     return out
 
 
+def order_split(arrays, mask, k_stop: int, schedule: str, errs: dict, name: str) -> dict:
+    """A research schedule's kernel of ``csrc/peel.cu`` (its visit order of
+    the schedule kernel) alone: held against its plain version on the whole
+    batch ("grouped" also against the seq order's kernel, whose schedule it
+    must equal) and timed beside the seq order's."""
+    got = peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS, schedule)
+    want = ORDER_PLAIN[schedule](arrays, mask, max_iters=bench.MAX_ITERS, early_stop_k=k_stop)
+    e = outputs_err(got, want)
+    if schedule == "grouped":
+        e = max(e, outputs_err(got, peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS)))
+    errs[name] = max(errs[name], e)
+    require(e == 0, f"{name}: schedule kernel != plain ({e})")
+    return {"schedule_ms": cuda_ms(lambda: peel.launch_schedule(
+                arrays, mask, k_stop, bench.MAX_ITERS, schedule), 5),
+            "seq_schedule_ms": cuda_ms(lambda: peel.launch_schedule(
+                arrays, mask, k_stop, bench.MAX_ITERS), 5),
+            "levels_max": int(got[2].max()),
+            "resolutions_mean": float(got[1][:, -1].float().mean())}
+
+
 def f2_matvec_split(arrays, values, errs: dict) -> dict:
     """``f2_matvec_wide``'s list route on H at one shape: the whole kernel
     at every slab width Wc that fits (the wrapper's choice is
@@ -1348,8 +1375,13 @@ def schedule_phase(device, card: str, errs: dict, times: dict, plain: dict, boun
         times[name] = cuda_ms(
             lambda: peel_decode(arrays, cw, mask, schedule=schedule, **kw), 5)
         bounds[name] = peel_bound(arrays, mask, got[1], w * 4, gf=False)
-        log(f"phase 8: {name} at B={b} W={w}: kernel {times[name]:.3f} ms (seq {seq_ms:.3f}), "
-            f"plain {plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+        split = order_split(arrays, mask, k, schedule, errs, name) if schedule in ORDER_PLAIN \
+            else None
+        log(f"phase 8: {name} at B={b} W={w}: kernel {times[name]:.3f} ms (seq {seq_ms:.3f}"
+            + (f"; its schedule kernel {split['schedule_ms']:.3f} ms against seq's "
+               f"{split['seq_schedule_ms']:.3f}, levels max {split['levels_max']}, "
+               f"resolutions mean {split['resolutions_mean']:.1f}" if split else "")
+            + f"), plain {plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
             f"({bounds[name]['bound_by']}), sweeps max {int(got[2].max())} mean "
             f"{float(got[2].float().mean()):.2f}, max abs err {errs[name]} on {card}")
         del got

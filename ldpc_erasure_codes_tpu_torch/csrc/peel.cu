@@ -1,16 +1,22 @@
-// Sequential (Gauss-Seidel) peeling decode of LDPC erasure codes on packed
-// 32-bit words, with the channel masking fused into the copy-in: a
-// per-frame schedule kernel, then a value kernel that decodes each
-// (frame, chunk of Wc words) out of a shared-memory slab.
+// Peeling decode of LDPC erasure codes on packed 32-bit words, with the
+// channel masking fused into the copy-in: a per-frame schedule kernel, then
+// a value kernel that decodes each (frame, chunk of Wc words) out of a
+// shared-memory slab. The schedule kernel sweeps in one of three visit
+// orders; the value kernel is the same for all three.
 //
 // Replaces the TPU kernels of ldpc_erasure_codes_tpu/ops/pallas_peel.py::
 // peel_decode_vmem: the constant-topology program _make_unrolled_kernel
-// (with fence_gate) and the runtime-topology _make_kernel "seq" body, in
-// both of their gf_order modes. Both compute one function, the MATLAB sweep
-// (utils/oracle.py::peel_decode): every sweep visits the checks in ROM
-// order; a check whose neighbours hold exactly one erasure sets that symbol
-// to the sum of its neighbours (erased slots hold zero) and clears its flag
-// at once, so later checks of the same sweep see it. Binary: the XOR of the
+// (with fence_gate), the runtime-topology _make_kernel "seq" body, and the
+// research schedules _make_grouped_kernel (:1101) and _make_jacobi_kernel
+// (:377), in both of their gf_order modes. seq, unrolled and grouped
+// compute one function, the MATLAB sweep (utils/oracle.py::peel_decode):
+// every sweep visits the checks in ROM order; a check whose neighbours hold
+// exactly one erasure sets that symbol to the sum of its neighbours (erased
+// slots hold zero) and clears its flag at once, so later checks of the same
+// sweep see it. jacobi computes the Jacobi sweep of the XLA decoders
+// (ops/peel_jacobi.py): every check tests its count on the sweep-start
+// flags, every degree-1 check solves, and where several solve one symbol
+// the highest-numbered check's value is kept. Binary: the XOR of the
 // neighbours. GF(256) (four byte symbols per word): acc = sum_j coef_j * y_j
 // and the symbol is inv_s * acc, inv_s the inverse of the erased slot's
 // coefficient (pallas_peel.py:295-300, :1009-1036). Stopping is per frame
@@ -45,7 +51,20 @@
 //     sort, stable, so the order is canonical) and writes the erased flags,
 //     the iteration count, the sorted list res[b, :] (c << 8 | es, -1 past
 //     the end), the level count and lvl_off[b, l] = the resolutions of
-//     level <= l, l = 0..n.
+//     level <= l, l = 0..n. The visit order is a template argument:
+//     kSeq, check by check, one ballot per check for the warp's frames;
+//     kGrouped, CodeArrays.check_groups (consecutive checks in pairwise
+//     disjoint runs of up to 4): a member's resolution changes no other
+//     member's count or neighbours, so the members are tested together on
+//     the group-start counts (one ballot per group), G / 4 lanes per member
+//     find its slot and level, and the members record in member order: the
+//     list is seq's, bit for bit; kJacobi, every check tested on the
+//     sweep-start counts G at a time, the degree-1 checks' symbols claimed
+//     by the highest-numbered check, the owners recorded in check order,
+//     and only then the counts updated (shared-memory atomics). A Jacobi
+//     resolution's level is its sweep (the check had two erased neighbours
+//     a sweep earlier, one of which resolved then), and each symbol has one
+//     owner, so one level writes distinct symbols.
 // (b) peel_apply_kernel, a block of 1024 threads per (frame, chunk of Wc
 //     words), copies the chunk of all n symbols into a shared-memory slab
 //     with asynchronous copies (cp.async, all in flight at once; erased
@@ -58,18 +77,21 @@
 //     words whose block fits (ops/peel.py::slab_words): longer runs of each
 //     symbol row use device memory better than more blocks per SM did.
 //
-// Bit-exact with the sequential sweep for any input, codewords or not: the
-// schedule records the sweep's own (check, slot) pairs, and each resolution
-// reads only symbols that were known when the sweep resolved it. GF(256)
+// Bit-exact with its sweep for any input, codewords or not: the schedule
+// records the sweep's own (check, slot) pairs, and each resolution reads
+// only symbols that were known when the sweep resolved it (a Jacobi
+// target holds zero until its one owner writes it). GF(256)
 // sums run bit-sliced: per neighbour, eight masked XORs into the partial
 // sums S_t of the words whose coefficient has bit t, then Horner's rule
 // over t (7 multiplies by x), so threads working on checks with different
 // coefficients do not diverge.
 //
-// Measured by chip_smoke.py on NVIDIA H100 80GB HBM3, 700 W: 4.848 ms at
-// B = 2048, W = 256, PER .1406 against the 2.557 ms byte bound (the
-// schedule kernel 0.525 ms of it); GF(256) at B = 512, 1 KB symbols 2.496 ms
-// against 0.639 (PERF.md section 6, rows 1-2).
+// Measured by chip_smoke.py on NVIDIA H100 80GB HBM3, 700 W, at B = 2048,
+// W = 256, PER .1406 against the 2.557 ms byte bound: seq 4.907 ms (its
+// schedule kernel 0.505), grouped 4.735 (0.426), jacobi 4.416 (0.316); the
+// per-warp kernels these two replaced took 7.987 and 7.170. GF(256) seq at
+// B = 512, 1 KB symbols 2.502 ms against 0.639 (PERF.md section 6, rows
+// 1-5).
 
 #include <cstdint>
 
@@ -84,6 +106,13 @@ namespace {
 constexpr int kSmemPerSm = 233472;   // bytes of shared memory on an SM
 constexpr int kApplyThreads = 1024;
 constexpr uint16_t kErased = 0xFFFF;
+// Jacobi schedule, within a sweep: a symbol whose owner is chosen, and the
+// count of a degree-1 check (| its erased slot).
+constexpr uint16_t kClaimed = 0xFFFE;
+constexpr uint16_t kDegreeOne = 0x8000;
+
+// The visit order of the schedule kernel's sweep.
+enum Order { kSeq = 0, kGrouped = 1, kJacobi = 2 };
 
 // The Vlist staged in shared memory as uint16: m * dmax indices, m degrees.
 __host__ __device__ inline int vlist_bytes(int m, int dmax) {
@@ -147,14 +176,25 @@ __device__ __forceinline__ unsigned group_max(unsigned v, int G) {
     return v;
 }
 
+// One less erased neighbour for check c, by an atomic on the 32-bit word
+// that holds its uint16 count (counts never fall below 0, so the other half
+// is left alone): lanes resolving different symbols may share a check.
+__device__ __forceinline__ void count_down(uint16_t* cnt_of, int c) {
+    atomicSub(reinterpret_cast<unsigned*>(cnt_of) + c / 2, 1u << (16 * (c & 1)));
+}
+
 // A group of G lanes per frame, 32 / G frames per warp. Every loop that
 // holds a warp-wide exchange runs to the same count in all lanes; a frame
-// whose sweep has ended (or past B) takes part without effect.
+// whose sweep has ended (or past B) takes part without effect. kOrder is
+// the visit order of a sweep (kSeq, kGrouped, kJacobi); the staging, the
+// counts, the stop rule and the sort are the same for all three.
+template <int kOrder>
 __global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
                                      const int32_t* __restrict__ vlist_idx,
                                      const int32_t* __restrict__ vlist_len,
                                      const int32_t* __restrict__ clist_idx,
                                      const int32_t* __restrict__ clist_len,
+                                     const int4* __restrict__ groups, int ngroups,
                                      int32_t* __restrict__ seq_all, int32_t* __restrict__ res,
                                      int32_t* __restrict__ lvl_off,
                                      int32_t* __restrict__ nlev_out,
@@ -206,51 +246,173 @@ __global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
     __syncwarp();
 
     int nres = 0, iters = max_iters;
-    unsigned maxlev = 0;
+    unsigned maxlev = 0;  // this lane's; a group maximum after the sweeps
     bool done = !live;
     for (int it = 0; it < max_iters; ++it) {
-        int changed = 0;
-        for (int c = 0; c < m; ++c) {
-            const bool solve = !done && cnt_of[c] == 1;  // the same in the group's lanes
-            if (__ballot_sync(full, solve) == 0) continue;
-            const uint16_t* nb = vl + c * dmax;
-            const int d = vlen[c];
-            int es = 0;
-            bool found = false;
-            unsigned mx = 0;  // this lane's largest known-neighbour level
-            for (int j0 = 0; j0 < d; j0 += G) {
-                const int j = j0 + gl;
-                bool er = false;
-                if (j < d && solve) {
-                    const unsigned l = lev[nb[j]];
-                    er = l == kErased;
-                    if (!er) mx = max(mx, l);
+        const int nres0 = nres;
+        int solved_k = 0;  // this lane's resolutions among the first k_stop
+        if constexpr (kOrder == kSeq) {
+            // Check by check; one ballot tells whether any frame of the warp
+            // solves check c.
+            for (int c = 0; c < m; ++c) {
+                const bool solve = !done && cnt_of[c] == 1;  // the same in the group's lanes
+                if (__ballot_sync(full, solve) == 0) continue;
+                const uint16_t* nb = vl + c * dmax;
+                const int d = vlen[c];
+                int es = 0;
+                bool found = false;
+                unsigned mx = 0;  // this lane's largest known-neighbour level
+                for (int j0 = 0; j0 < d; j0 += G) {
+                    const int j = j0 + gl;
+                    bool er = false;
+                    if (j < d && solve) {
+                        const unsigned l = lev[nb[j]];
+                        er = l == kErased;
+                        if (!er) mx = max(mx, l);
+                    }
+                    const unsigned bal = __ballot_sync(full, er) & gmask;
+                    if (bal != 0 && !found) es = j0 + __ffs(bal) - 1 - g * G, found = true;
                 }
-                const unsigned bal = __ballot_sync(full, er) & gmask;
-                if (bal != 0 && !found) es = j0 + __ffs(bal) - 1 - g * G, found = true;
+                const unsigned lv = group_max(mx, G) + 1;
+                if (solve) {
+                    const int e = nb[es];
+                    if (gl == 0) {
+                        lev[e] = (uint16_t)lv;
+                        seq[nres] = c << 8 | es;
+                        solved_k += e < k_stop;
+                    }
+                    for (int q = gl; q < clen[e]; q += G) --cnt_of[cl[e * cmax + q]];
+                    ++nres;
+                    maxlev = max(maxlev, lv);
+                }
+                __syncwarp();
             }
-            const unsigned lv = group_max(mx, G) + 1;
-            if (solve) {
-                const int e = nb[es];
-                if (gl == 0) {
-                    lev[e] = (uint16_t)lv;
-                    seq[nres] = c << 8 | es;
+        } else if constexpr (kOrder == kGrouped) {
+            // Group by group (check_groups: consecutive checks, pairwise
+            // disjoint, pad = m). A member's resolution changes no other
+            // member's count or neighbours, so testing the members together
+            // on the group-start counts is the sequential sweep: one ballot
+            // per group, then G / 4 lanes per member find its erased slot
+            // and level, and the members record in member order.
+            const int S = G / 4;
+            const int q = gl / S, s = gl % S;
+            int4 next = ngroups > 0 ? __ldg(groups) : int4{};
+            for (int gi = 0; gi < ngroups; ++gi) {
+                const int4 mem = next;  // one broadcast load, a group ahead
+                if (gi + 1 < ngroups) next = __ldg(groups + gi + 1);
+                unsigned fire = 0;  // bit u: member u solves (the same in the group's lanes)
+                if (!done) {
+                    fire = (mem.x < m && cnt_of[mem.x] == 1) |
+                           (mem.y < m && cnt_of[mem.y] == 1) << 1 |
+                           (mem.z < m && cnt_of[mem.z] == 1) << 2 |
+                           (mem.w < m && cnt_of[mem.w] == 1) << 3;
                 }
-                for (int q = gl; q < clen[e]; q += G) --cnt_of[cl[e * cmax + q]];
-                ++nres;
-                ++changed;
-                maxlev = max(maxlev, lv);
-                left -= e < k_stop;
+                if (__ballot_sync(full, fire != 0) == 0) continue;
+                const bool mine = fire >> q & 1;
+                const int c = q == 0 ? mem.x : q == 1 ? mem.y : q == 2 ? mem.z : mem.w;
+                int es = -1;
+                unsigned mx = 0;
+                if (mine) {
+                    const uint16_t* nb = vl + c * dmax;
+                    const int d = vlen[c];
+                    for (int j = s; j < d; j += S) {
+                        const unsigned l = lev[nb[j]];
+                        if (l == kErased) es = j;
+                        else mx = max(mx, l);
+                    }
+                }
+                for (int o = S / 2; o > 0; o /= 2) {  // over the member's S lanes
+                    es = max(es, __shfl_xor_sync(full, es, o));
+                    mx = max(mx, __shfl_xor_sync(full, mx, o));
+                }
+                if (mine) {
+                    const int e = vl[c * dmax + es];
+                    const unsigned lv = mx + 1;
+                    if (s == 0) {
+                        lev[e] = (uint16_t)lv;
+                        seq[nres + __popc(fire & ((1u << q) - 1))] = c << 8 | es;
+                        solved_k += e < k_stop;
+                    }
+                    for (int i = s; i < clen[e]; i += S) count_down(cnt_of, cl[e * cmax + i]);
+                    maxlev = max(maxlev, lv);
+                }
+                nres += __popc(fire);
+                __syncwarp();
+            }
+        } else {
+            // Jacobi: every check tests its count at the start of the sweep
+            // and every degree-1 check solves its erased symbol from
+            // neighbours known then, so the sweep's resolutions are level
+            // it + 1. Where several checks solve one symbol, the highest
+            // numbered owns it (the Jacobi decoders keep its value).
+            // (1) Claims, highest window first: a degree-1 check marks its
+            //     count kDegreeOne | es; the highest lane of a window that
+            //     names a symbol claims it unless a higher window did
+            //     (kClaimed, owner in cur[]).
+            for (int c0 = (m - 1) / G * G; c0 >= 0; c0 -= G) {
+                const int c = c0 + gl;
+                const bool deg1 = !done && c < m && cnt_of[c] == 1;
+                if (__ballot_sync(full, deg1) == 0) continue;
+                int es = 0, e = 0;
+                if (deg1) {
+                    const uint16_t* nb = vl + c * dmax;
+                    while (lev[nb[es]] < kClaimed) ++es;  // its one erased neighbour
+                    e = nb[es];
+                }
+                const unsigned key = (deg1 ? (unsigned)e : 1u << 16) | (unsigned)g << 17;
+                const unsigned peers = __match_any_sync(full, key);
+                if (deg1) {
+                    cnt_of[c] = (uint16_t)(kDegreeOne | es);
+                    if ((peers >> lane) == 1 && lev[e] == kErased) {
+                        lev[e] = kClaimed;
+                        cur[e] = (uint16_t)c;
+                    }
+                }
+                __syncwarp();
+            }
+            // (2) Owners record in check order, at level it + 1; every
+            //     degree-1 count goes back to 1.
+            const unsigned lv = it + 1;
+            for (int c0 = 0; c0 < m; c0 += G) {
+                const int c = c0 + gl;
+                const unsigned k = c < m ? cnt_of[c] : 0;
+                const bool marked = (k & kDegreeOne) != 0;
+                if (__ballot_sync(full, marked) == 0) continue;
+                bool own = false;
+                int es = 0, e = 0;
+                if (marked) {
+                    es = k & 255;
+                    e = vl[c * dmax + es];
+                    own = cur[e] == c;
+                    cnt_of[c] = 1;
+                }
+                const unsigned bal = __ballot_sync(full, own) & gmask;
+                if (own) {
+                    seq[nres + __popc(bal & lt)] = c << 8 | es;
+                    lev[e] = (uint16_t)lv;
+                    solved_k += e < k_stop;
+                }
+                nres += __popc(bal);
             }
             __syncwarp();
+            // (3) Only now the counts: each resolved symbol's checks.
+            for (int r = nres0 + gl; r < nres; r += G) {
+                const int t = seq[r];
+                const int e = vl[(t >> 8) * dmax + (t & 255)];
+                for (int i = 0; i < clen[e]; ++i) count_down(cnt_of, cl[e * cmax + i]);
+            }
+            if (nres > nres0) maxlev = lv;
+            __syncwarp();
         }
+        left -= group_sum(solved_k, G);
         if (!done && left == 0) {
             iters = it + 1;
             done = true;
         }
-        if (changed == 0) done = true;
+        if (nres == nres0) done = true;
         if (__all_sync(full, done)) break;
     }
+    maxlev = group_max(maxlev, G);
 
     if (live)
         for (int i = gl; i < n; i += G) erased_out[(size_t)b * n + i] = lev[i] == kErased;
@@ -445,56 +607,84 @@ cudaError_t apply_field(const int32_t* values, const uint8_t* erased, const int3
     return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// The schedule of B frames: res (B, n), lvl_off (B, n + 1), nlev (B,),
-// erased_out (B, n), iters (B,); seq (B, n) is scratch. The Clist has nc
-// rows. dmax <= 256, n, m < 65535, and the Vlist and Clist (as uint16) with one warp's frames
-// must fit in a block's shared memory.
-extern "C" int ldpc_peel_schedule_launch(const uint8_t* erased, const int32_t* vlist_idx,
-                                         const int32_t* vlist_len, const int32_t* clist_idx,
-                                         const int32_t* clist_len, int32_t* seq, int32_t* res,
-                                         int32_t* lvl_off, int32_t* nlev, uint8_t* erased_out,
-                                         int32_t* iters_out, int B, int n, int m, int dmax,
-                                         int nc, int cmax, int k_stop, int max_iters,
-                                         cudaStream_t stream) {
-    if (B == 0) return (int)cudaSuccess;
+template <int kOrder>
+cudaError_t launch_schedule(const uint8_t* erased, const int32_t* vlist_idx,
+                            const int32_t* vlist_len, const int32_t* clist_idx,
+                            const int32_t* clist_len, const int32_t* groups, int ngroups,
+                            int32_t* seq, int32_t* res, int32_t* lvl_off, int32_t* nlev,
+                            uint8_t* erased_out, int32_t* iters_out, int B, int n, int m,
+                            int dmax, int nc, int cmax, int k_stop, int max_iters,
+                            cudaStream_t stream) {
     const int warps = sched_warps(n, m, dmax, nc, cmax);
-    if (dmax > 256 || n >= kErased || m >= kErased || warps == 0)
-        return (int)cudaErrorInvalidValue;
     const int frames = warps * (32 / sched_lanes(dmax));  // per block
     const size_t smem = (size_t)vlist_bytes(m, dmax) + clist_bytes(nc, cmax) +
                         (size_t)frames * sched_frame_bytes(n, m);
+    const auto kernel = peel_schedule_kernel<kOrder>;
     if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            peel_schedule_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
     }
     const unsigned blocks = (unsigned)((B + frames - 1) / frames);
-    peel_schedule_kernel<<<blocks, warps * 32, smem, stream>>>(
-        erased, vlist_idx, vlist_len, clist_idx, clist_len, seq, res, lvl_off, nlev, erased_out,
+    kernel<<<blocks, warps * 32, smem, stream>>>(
+        erased, vlist_idx, vlist_len, clist_idx, clist_len,
+        reinterpret_cast<const int4*>(groups), ngroups, seq, res, lvl_off, nlev, erased_out,
         iters_out, B, n, m, dmax, nc, cmax, k_stop, max_iters);
-    return (int)cudaGetLastError();
+    return cudaGetLastError();
 }
 
-// The decode of B frames: the schedule kernel, then the value kernel with
-// Wc = wc words (4, 8, 12 or 16) per block, on one stream. res, lvl_off
-// and nlev receive the schedule; seq is scratch. nb = 0: GF(2), the
-// coefficient tables are not read; nb = 1: GF(256).
-extern "C" int ldpc_peel_launch(const int32_t* values, const uint8_t* erased,
+}  // namespace
+
+// The schedule of B frames in visit order `order` (0 sequential, 1 the
+// check groups (ngroups, 4), pad = m, a 16-byte aligned table read by that
+// order only, 2 Jacobi): res (B, n), lvl_off (B, n + 1), nlev (B,),
+// erased_out (B, n), iters (B,); seq (B, n) is scratch. The Clist has nc
+// rows. dmax <= 256, n < 65534, m < 65535, and the Vlist and Clist (as
+// uint16) with one warp's frames must fit in a block's shared memory.
+extern "C" int ldpc_peel_schedule_launch(int order, const uint8_t* erased,
+                                         const int32_t* vlist_idx, const int32_t* vlist_len,
+                                         const int32_t* clist_idx, const int32_t* clist_len,
+                                         const int32_t* groups, int ngroups, int32_t* seq,
+                                         int32_t* res, int32_t* lvl_off, int32_t* nlev,
+                                         uint8_t* erased_out, int32_t* iters_out, int B, int n,
+                                         int m, int dmax, int nc, int cmax, int k_stop,
+                                         int max_iters, cudaStream_t stream) {
+    if (B == 0) return (int)cudaSuccess;
+    if (dmax > 256 || n >= kClaimed || m >= kErased || sched_warps(n, m, dmax, nc, cmax) == 0)
+        return (int)cudaErrorInvalidValue;
+#define PEEL_SCHEDULE(ORDER)                                                                 \
+    return (int)launch_schedule<ORDER>(erased, vlist_idx, vlist_len, clist_idx, clist_len,  \
+                                       groups, ngroups, seq, res, lvl_off, nlev, erased_out, \
+                                       iters_out, B, n, m, dmax, nc, cmax, k_stop, max_iters,\
+                                       stream)
+    switch (order) {
+        case kSeq: PEEL_SCHEDULE(kSeq);
+        case kGrouped: PEEL_SCHEDULE(kGrouped);
+        case kJacobi: PEEL_SCHEDULE(kJacobi);
+    }
+#undef PEEL_SCHEDULE
+    return (int)cudaErrorInvalidValue;
+}
+
+// The decode of B frames: the schedule kernel in visit order `order`, then
+// the value kernel with Wc = wc words (4, 8, 12 or 16) per block, on one
+// stream. res, lvl_off and nlev receive the schedule; seq is scratch. nb =
+// 0: GF(2), the coefficient tables are not read; nb = 1: GF(256).
+extern "C" int ldpc_peel_launch(int order, const int32_t* values, const uint8_t* erased,
                                 const int32_t* vlist_idx, const int32_t* vlist_len,
                                 const uint8_t* vlist_val, const uint8_t* vlist_inv,
                                 const int32_t* clist_idx, const int32_t* clist_len,
-                                int32_t* out, uint8_t* erased_out, int32_t* iters_out,
-                                int32_t* seq, int32_t* res, int32_t* lvl_off, int32_t* nlev,
-                                int B, int n, int m, int dmax, int nc, int cmax, int W,
-                                int k_stop, int max_iters, int wc, int nb,
-                                cudaStream_t stream) {
+                                const int32_t* groups, int ngroups, int32_t* out,
+                                uint8_t* erased_out, int32_t* iters_out, int32_t* seq,
+                                int32_t* res, int32_t* lvl_off, int32_t* nlev, int B, int n,
+                                int m, int dmax, int nc, int cmax, int W, int k_stop,
+                                int max_iters, int wc, int nb, cudaStream_t stream) {
     if (B == 0) return (int)cudaSuccess;
     if (apply_bytes(n, m, dmax, wc, nb != 0) > kMaxSmem) return (int)cudaErrorInvalidValue;
-    const int rc = ldpc_peel_schedule_launch(erased, vlist_idx, vlist_len, clist_idx, clist_len,
-                                             seq, res, lvl_off, nlev, erased_out, iters_out, B,
-                                             n, m, dmax, nc, cmax, k_stop, max_iters, stream);
+    const int rc = ldpc_peel_schedule_launch(order, erased, vlist_idx, vlist_len, clist_idx,
+                                             clist_len, groups, ngroups, seq, res, lvl_off, nlev,
+                                             erased_out, iters_out, B, n, m, dmax, nc, cmax,
+                                             k_stop, max_iters, stream);
     if (rc != (int)cudaSuccess) return rc;
     if (nb)
         return (int)apply_field<true>(values, erased, res, lvl_off, nlev, vlist_idx, vlist_len,

@@ -55,20 +55,19 @@ LAUNCHERS = {
     # src, order, lvl_off, sidx, scoef, pidx, pcoef, plen, out, B, k, m, ds,
     # dp, L, W, wc, compute, nb, stream
     "ldpc_encode_slab_launch": [*[_P] * 9, *[_I] * 10, _P],
+    # order, values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv_val,
+    # clist_idx, clist_len, check_groups, ngroups, values_out, erased_out,
+    # iters_out, seq, res, lvl_off, nlev, B, n, m, dmax, nc, cmax, W, k_stop,
+    # max_iters, wc, nb, stream
+    "ldpc_peel_launch": [_I, *[_P] * 9, _I, *[_P] * 7, *[_I] * 11, _P],
+    # order, erased, vlist_idx, vlist_len, clist_idx, clist_len,
+    # check_groups, ngroups, seq, res, lvl_off, nlev, erased_out, iters_out,
+    # B, n, m, dmax, nc, cmax, k_stop, max_iters, stream
+    "ldpc_peel_schedule_launch": [_I, *[_P] * 6, _I, *[_P] * 6, *[_I] * 8, _P],
     # values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv_val,
-    # clist_idx, clist_len, values_out, erased_out, iters_out, seq, res,
-    # lvl_off, nlev, B, n, m, dmax, nc, cmax, W, k_stop, max_iters, wc, nb,
-    # stream
-    "ldpc_peel_launch": [*[_P] * 15, *[_I] * 11, _P],
-    # erased, vlist_idx, vlist_len, clist_idx, clist_len, seq, res, lvl_off,
-    # nlev, erased_out, iters_out, B, n, m, dmax, nc, cmax, k_stop,
-    # max_iters, stream
-    "ldpc_peel_schedule_launch": [*[_P] * 11, *[_I] * 8, _P],
-    # schedule, values, erased, vlist_idx, vlist_len, vlist_val,
-    # vlist_inv_val, clist_idx, clist_len, check_groups, values_out,
-    # erased_out, iters_out, B, n, m, dmax, cmax, ngroups, W, k_stop,
-    # max_iters, nb, stream
-    "ldpc_peel_sched_launch": [_I, *[_P] * 12, *[_I] * 10, _P],
+    # clist_idx, clist_len, values_out, erased_out, iters_out, B, n, m, dmax,
+    # cmax, W, k_stop, max_iters, nb, stream
+    "ldpc_peel_counted_launch": [*[_P] * 11, *[_I] * 9, _P],
     # in, out, nreal, ncols, pivrow, failed, B, m, C, emax, a_words,
     # in_smem, stream
     "ldpc_elim_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -6,17 +6,20 @@ peel_decode_vmem`` (:1281-1786) and its ``schedule`` argument
 port keeps the plain (B, n, W) layout end to end. For CUDA tensors
 :func:`peel_decode` launches, per schedule:
 
-* "seq" and "unrolled" (+ fence gate; the production schedules, one
-  function): ``csrc/peel.cu``, the sequential (Gauss-Seidel) sweep in two
-  kernels: a per-frame schedule of the sweep's resolutions, sorted into
-  independent levels, then the values of each (frame, chunk of Wc words)
-  out of a shared-memory slab (:func:`launch_kernel`; their plain halves
-  are :func:`peel_schedule_reference` and :func:`apply_schedule_reference`);
-* "counted" and "grouped": ``csrc/peel_sched.cu``, the same sequential
-  function with live per-check counts, or with disjoint check groups whose
-  loads are issued together;
-* "jacobi": ``csrc/peel_sched.cu``, the Jacobi sweep with sweep-start
-  detection (the XLA decoders' schedule, :mod:`.peel_jacobi`).
+* "seq", "unrolled" (+ fence gate; the production schedules, one function),
+  "grouped" and "jacobi": ``csrc/peel.cu``, two kernels: a per-frame
+  schedule of the sweep's resolutions, sorted into independent levels, then
+  the values of each (frame, chunk of Wc words) out of a shared-memory slab
+  (:func:`launch_kernel`). The schedule kernel visits the checks in one of
+  three orders: check by check (seq, unrolled; plain version
+  :func:`peel_schedule_reference`), by the disjoint check groups of
+  ``CodeArrays.check_groups`` (grouped, the same list bit for bit;
+  :func:`grouped_schedule_reference`), or with sweep-start detection
+  (jacobi, the XLA decoders' schedule, :mod:`.peel_jacobi`;
+  :func:`jacobi_schedule_reference`). The value kernel's plain version is
+  :func:`apply_schedule_reference`;
+* "counted": ``csrc/peel_sched.cu``, the sequential function with live
+  per-check counts, a warp per (frame, 128-word chunk).
 
 For CPU tensors it runs the plain versions: :func:`peel_decode_reference`
 for the four sequential schedules, which compute one function bit for bit,
@@ -49,7 +52,8 @@ from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi_reference
 
 SCHEDULES = ("seq", "unrolled", "counted", "grouped", "jacobi")
-_SCHED_CODE = {"counted": 0, "grouped": 1, "jacobi": 2}
+# The schedule kernel's visit order (csrc/peel.cu) per schedule.
+_ORDER = {"seq": 0, "unrolled": 0, "grouped": 1, "jacobi": 2}
 
 
 def _words(values: torch.Tensor, gf_order: int) -> torch.Tensor:
@@ -151,30 +155,35 @@ def peel_decode_reference(
     return (v.view(torch.uint8) if nbin else v), er, iters
 
 
-def peel_schedule_reference(
-    arrays: CodeArrays,
-    erased: torch.Tensor,
-    *,
-    max_iters: int = 50,
-    early_stop_k: int | None = None,
-) -> tuple[torch.Tensor, ...]:
-    """Plain version of the schedule kernel of ``csrc/peel.cu``: the
-    sequential mask sweep of :func:`peel_decode_reference`, which records
-    each resolution and its level.
-
-    Returns (res (B, n) int32, lvl_off (B, n + 1) int32, nlev (B,) int32,
-    erased (B, n) bool, iters (B,) int32). A resolution is ``c << 8 | es``:
-    check ``c`` solved its erased neighbour at list slot ``es``. Its level
-    is 1 + the largest level among the check's other neighbours (known
-    inputs are level 0), so resolutions of one level are independent.
-    ``res[b]`` lists frame b's resolutions sorted by level, in sweep order
-    within a level, then -1; ``lvl_off[b, l]`` counts those of level <= l;
-    ``nlev[b]`` is the largest level (0 when nothing resolved).
-    """
+def _check_erased(erased: torch.Tensor, early_stop_k: int | None) -> int:
     if erased.dtype != torch.bool or erased.dim() != 2:
         raise ValueError(f"erased must be (B, n) bool, got {tuple(erased.shape)} {erased.dtype}")
+    return erased.shape[1] if early_stop_k is None else int(early_stop_k)
+
+
+def _sorted_schedule(seq, seq_lev, erased, iters) -> tuple[torch.Tensor, ...]:
+    """The schedule kernels' format from each frame's resolutions in sweep
+    order (``seq``, -1 past the end) and their levels (``seq_lev``, n + 1
+    past the end): the list sorted by level, stable; the level offsets; the
+    level counts; then ``erased`` and ``iters``."""
+    b, n = seq.shape
+    order = torch.sort(seq_lev, dim=1, stable=True).indices
+    res = seq.gather(1, order)
+    valid = seq_lev <= n
+    hist = torch.zeros((b, n + 1), dtype=torch.int32, device=seq.device)
+    hist.scatter_add_(1, seq_lev.clamp(max=n).long(), valid.to(torch.int32))
+    lvl_off = hist.cumsum(dim=1, dtype=torch.int32)
+    nlev = torch.where(valid, seq_lev, 0).max(dim=1).values.to(torch.int32)
+    return res, lvl_off, nlev, erased, iters
+
+
+def _visit_schedule(arrays: CodeArrays, erased: torch.Tensor, visits: list[list[int]],
+                    max_iters: int, early_stop_k: int | None) -> tuple[torch.Tensor, ...]:
+    """The sequential mask sweep, visiting the checks of each entry of
+    ``visits`` together: every member is tested on the state at the entry's
+    start, then the members' resolutions are recorded in member order."""
+    k_stop = _check_erased(erased, early_stop_k)
     b, n = erased.shape
-    k_stop = n if early_stop_k is None else int(early_stop_k)
     dev = erased.device
     lev = torch.where(erased, -1, 0).to(torch.int32)  # -1: erased
     seq = torch.full((b, n), -1, dtype=torch.int32, device=dev)
@@ -187,32 +196,117 @@ def peel_schedule_reference(
               for row, d in zip(arrays.vlist_idx.tolist(), lens)]
     for it in range(max_iters):
         changed = torch.zeros(b, dtype=torch.bool, device=dev)
-        for c, nb in enumerate(checks):
-            l_nb = lev[:, nb]  # (B, d)
-            deg1 = ((l_nb < 0).sum(dim=1) == 1) & active
-            if not bool(deg1.any()):
-                continue
-            f = deg1.nonzero().squeeze(1)
-            pos = (l_nb[f] < 0).to(torch.int8).argmax(dim=1)
-            level = l_nb[f].clamp(min=0).max(dim=1).values + 1
-            lev[f, nb[pos]] = level
-            seq[f, nres[f]] = (c << 8) | pos.to(torch.int32)
-            seq_lev[f, nres[f]] = level
-            nres[f] += 1
-            changed[f] = True
+        for members in visits:
+            found = []
+            for c in members:
+                l_nb = lev[:, checks[c]]  # (B, d)
+                deg1 = ((l_nb < 0).sum(dim=1) == 1) & active
+                if bool(deg1.any()):
+                    f = deg1.nonzero().squeeze(1)
+                    pos = (l_nb[f] < 0).to(torch.int8).argmax(dim=1)
+                    found.append((c, f, pos, l_nb[f].clamp(min=0).max(dim=1).values + 1))
+            for c, f, pos, level in found:
+                lev[f, checks[c][pos]] = level
+                seq[f, nres[f]] = (c << 8) | pos.to(torch.int32)
+                seq_lev[f, nres[f]] = level
+                nres[f] += 1
+                changed[f] = True
         fin = active & ((lev[:, :k_stop] < 0).sum(dim=1) == 0)
         iters[fin] = it + 1
         active = active & ~fin & changed
         if not bool(active.any()):
             break
-    order = torch.sort(seq_lev, dim=1, stable=True).indices
-    res = seq.gather(1, order)
-    valid = seq_lev <= n
-    hist = torch.zeros((b, n + 1), dtype=torch.int32, device=dev)
-    hist.scatter_add_(1, seq_lev.clamp(max=n).long(), valid.to(torch.int32))
-    lvl_off = hist.cumsum(dim=1, dtype=torch.int32)
-    nlev = torch.where(valid, seq_lev, 0).max(dim=1).values.to(torch.int32)
-    return res, lvl_off, nlev, lev < 0, iters
+    return _sorted_schedule(seq, seq_lev, lev < 0, iters)
+
+
+def peel_schedule_reference(
+    arrays: CodeArrays,
+    erased: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the schedule kernel of ``csrc/peel.cu`` in its
+    check-by-check order: the sequential mask sweep of
+    :func:`peel_decode_reference`, which records each resolution and its
+    level.
+
+    Returns (res (B, n) int32, lvl_off (B, n + 1) int32, nlev (B,) int32,
+    erased (B, n) bool, iters (B,) int32). A resolution is ``c << 8 | es``:
+    check ``c`` solved its erased neighbour at list slot ``es``. Its level
+    is 1 + the largest level among the check's other neighbours (known
+    inputs are level 0), so resolutions of one level are independent.
+    ``res[b]`` lists frame b's resolutions sorted by level, in sweep order
+    within a level, then -1; ``lvl_off[b, l]`` counts those of level <= l;
+    ``nlev[b]`` is the largest level (0 when nothing resolved).
+    """
+    return _visit_schedule(arrays, erased, [[c] for c in range(arrays.m)], max_iters,
+                           early_stop_k)
+
+
+def grouped_schedule_reference(
+    arrays: CodeArrays,
+    erased: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the schedule kernel in its grouped order: the
+    groups of ``arrays.check_groups`` in turn, each group's members tested
+    together on the group-start state, then recorded in member order. The
+    members share no symbol, so this equals :func:`peel_schedule_reference`
+    on every output; same format."""
+    m = arrays.m
+    visits = [[c for c in row if c < m] for row in arrays.check_groups.tolist()]
+    return _visit_schedule(arrays, erased, visits, max_iters, early_stop_k)
+
+
+def jacobi_schedule_reference(
+    arrays: CodeArrays,
+    erased: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the schedule kernel in its Jacobi order, the mask
+    sweep of :func:`.peel_jacobi.peel_decode_jacobi_reference` with its
+    per-frame stop: every check is tested on the sweep-start flags; each
+    erased symbol with a degree-1 check is resolved by the highest-numbered
+    one (its owner), at level = the sweep's number. Format of
+    :func:`peel_schedule_reference`; within a level the owners are in check
+    order. :func:`apply_schedule_reference` on it gives the Jacobi decode's
+    values."""
+    k_stop = _check_erased(erased, early_stop_k)
+    b, n = erased.shape
+    m, dev = arrays.m, erased.device
+    idx = arrays.vlist_idx.long()  # (m, dmax), pad = n
+    checks = torch.arange(m, device=dev)
+    er = erased.clone()
+    seq = torch.full((b, n), -1, dtype=torch.int32, device=dev)
+    seq_lev = torch.full((b, n), n + 1, dtype=torch.int32, device=dev)
+    nres = torch.zeros(b, dtype=torch.long, device=dev)
+    iters = torch.full((b,), max_iters, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    for it in range(max_iters):
+        ev = torch.cat([er, er.new_zeros(b, 1)], dim=1)[:, idx]  # (B, m, dmax)
+        deg1 = (ev.sum(dim=2) == 1) & active[:, None]
+        es = ev.to(torch.int8).argmax(dim=2)  # (B, m) the erased slot
+        target = torch.where(deg1, idx[checks, es], n)
+        owner = torch.full((b, n + 1), -1, dtype=torch.long, device=dev)
+        owner = owner.scatter_reduce(1, target, checks.expand(b, m), reduce="amax")
+        own = deg1 & (owner.gather(1, target) == checks)
+        fi, ci = own.nonzero(as_tuple=True)  # by frame, then check
+        pos = nres[fi] + (own.cumsum(dim=1) - 1)[fi, ci]
+        seq[fi, pos] = ((ci << 8) | es[fi, ci]).to(torch.int32)
+        seq_lev[fi, pos] = it + 1
+        er[fi, target[fi, ci]] = False
+        nres += own.sum(dim=1)
+        fin = active & ~er[:, :k_stop].any(dim=1)
+        iters[fin] = it + 1
+        active = active & ~fin & own.any(dim=1)
+        if not bool(active.any()):
+            break
+    return _sorted_schedule(seq, seq_lev, er, iters)
 
 
 def apply_schedule_reference(
@@ -307,10 +401,18 @@ def _schedule_buffers(b: int, n: int, dev) -> tuple[torch.Tensor, ...]:
             torch.empty((b,), dtype=torch.int32, device=dev))
 
 
-def launch_schedule(arrays: CodeArrays, erased: torch.Tensor, k_stop: int, max_iters: int):
-    """The schedule kernel of ``csrc/peel.cu`` on CUDA tensors: (res (B, n),
-    lvl_off (B, n + 1), nlev (B,), erased (B, n) bool, iters (B,)), in the
-    format of :func:`peel_schedule_reference`."""
+def _counter(schedule: str, gf_order: int) -> str:
+    """The launch counter of ``peel_decode`` that a schedule's kernel adds to."""
+    base = "launches" if schedule in ("seq", "unrolled") else f"launches_{schedule}"
+    return base + ("_gf256" if gf_order == 256 else "")
+
+
+def launch_schedule(arrays: CodeArrays, erased: torch.Tensor, k_stop: int, max_iters: int,
+                    schedule: str = "seq"):
+    """The schedule kernel of ``csrc/peel.cu`` on CUDA tensors, in the
+    visit order of ``schedule`` ("seq"/"unrolled", "grouped" or "jacobi"):
+    (res (B, n), lvl_off (B, n + 1), nlev (B,), erased (B, n) bool, iters
+    (B,)), in the format of :func:`peel_schedule_reference`."""
     b, n = erased.shape
     if arrays.dmax > 256 or schedule_smem(arrays, n) > SMEM_LIMIT:
         raise ValueError(f"the schedule kernel takes dmax <= 256 and the Vlist and Clist in "
@@ -321,8 +423,9 @@ def launch_schedule(arrays: CodeArrays, erased: torch.Tensor, k_stop: int, max_i
     er_out = torch.empty((b, n), dtype=torch.bool, device=dev)
     iters = torch.empty((b,), dtype=torch.int32, device=dev)
     rc = _build.library().ldpc_peel_schedule_launch(
-        erased.data_ptr(), arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
-        arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(), seq.data_ptr(),
+        _ORDER[schedule], erased.data_ptr(), arrays.vlist_idx.data_ptr(),
+        arrays.vlist_len.data_ptr(), arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(),
+        arrays.check_groups.data_ptr(), arrays.check_groups.shape[0], seq.data_ptr(),
         res.data_ptr(), lvl_off.data_ptr(), nlev.data_ptr(), er_out.data_ptr(),
         iters.data_ptr(), b, n, arrays.m, arrays.dmax, *arrays.clist_idx.shape, k_stop,
         max_iters,
@@ -333,11 +436,14 @@ def launch_schedule(arrays: CodeArrays, erased: torch.Tensor, k_stop: int, max_i
 
 
 def launch_kernel(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, k_stop: int,
-                  max_iters: int, gf_order: int, wc: int | None = None):
-    """The sequential peel on CUDA tensors (``words`` int32): the schedule
-    kernel, then the value kernel with ``wc`` words per block
-    (:func:`slab_words` by default). Counts one launch of ``peel_decode``
-    (``launches``, or ``launches_gf256``). Returns int32 words."""
+                  max_iters: int, gf_order: int, wc: int | None = None, schedule: str = "seq"):
+    """The peel of ``csrc/peel.cu`` on CUDA tensors (``words`` int32): the
+    schedule kernel in the visit order of ``schedule`` ("seq"/"unrolled",
+    "grouped" or "jacobi"), then the value kernel with ``wc`` words per
+    block (:func:`slab_words` by default). Counts one launch of
+    ``peel_decode`` under the schedule's counter (``launches`` for
+    seq/unrolled, ``launches_<schedule>`` otherwise; ``_gf256`` for
+    GF(256)). Returns int32 words."""
     b, n, w = words.shape
     if arrays.dmax > 256:
         raise ValueError(f"the peel kernel keeps a check's slot in 8 bits: dmax={arrays.dmax}")
@@ -351,16 +457,41 @@ def launch_kernel(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor,
     iters = torch.empty((b,), dtype=torch.int32, device=dev)
     sched = _schedule_buffers(b, n, dev)
     rc = _build.library().ldpc_peel_launch(
-        words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
+        _ORDER[schedule], words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
         arrays.vlist_len.data_ptr(), arrays.vlist_val.data_ptr(),
         arrays.vlist_inv_val.data_ptr(), arrays.clist_idx.data_ptr(),
-        arrays.clist_len.data_ptr(), out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
+        arrays.clist_len.data_ptr(), arrays.check_groups.data_ptr(),
+        arrays.check_groups.shape[0], out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
         *(t.data_ptr() for t in sched), b, n, arrays.m, arrays.dmax, *arrays.clist_idx.shape,
         w, k_stop, max_iters, wc, int(gf_order == 256),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "ldpc_peel_launch")
-    counter = "launches_gf256" if gf_order == 256 else "launches"
+    counter = _counter(schedule, gf_order)
+    setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
+    return out, er_out, iters
+
+
+def launch_counted(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, k_stop: int,
+                   max_iters: int, gf_order: int):
+    """The "counted" kernel of ``csrc/peel_sched.cu`` on CUDA tensors
+    (``words`` int32); counts ``launches_counted`` (``_gf256``)."""
+    if arrays.dmax > 255:
+        raise ValueError(f"schedule 'counted' keeps byte counts: dmax={arrays.dmax} > 255")
+    b, n, w = words.shape
+    out = torch.empty_like(words)
+    er_out = torch.empty((b, n), dtype=torch.bool, device=words.device)
+    iters = torch.empty((b,), dtype=torch.int32, device=words.device)
+    rc = _build.library().ldpc_peel_counted_launch(
+        words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
+        arrays.vlist_len.data_ptr(), arrays.vlist_val.data_ptr(),
+        arrays.vlist_inv_val.data_ptr(), arrays.clist_idx.data_ptr(),
+        arrays.clist_len.data_ptr(), out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
+        b, n, arrays.m, arrays.dmax, arrays.clist_idx.shape[1], w, k_stop, max_iters,
+        int(gf_order == 256), torch.cuda.current_stream(words.device).cuda_stream,
+    )
+    _build.check(rc, "ldpc_peel_counted_launch")
+    counter = _counter("counted", gf_order)
     setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
     return out, er_out, iters
 
@@ -383,10 +514,10 @@ def peel_decode(
     into the decode, and erased output slots hold zero. ``schedule`` is one
     of :data:`SCHEDULES` (the module docstring says which kernel runs
     each). CPU tensors take the plain versions; CUDA tensors launch the
-    kernel (or raise). ``peel_decode.launches`` counts binary launches of
-    ``csrc/peel.cu``, ``peel_decode.launches_gf256`` its GF(256) ones, and
-    ``launches_<schedule>`` / ``launches_<schedule>_gf256`` those of
-    ``csrc/peel_sched.cu``'s schedules.
+    kernel (or raise). ``peel_decode.launches`` counts binary seq/unrolled
+    launches of ``csrc/peel.cu``, ``peel_decode.launches_gf256`` its GF(256)
+    ones, and ``launches_<schedule>`` / ``launches_<schedule>_gf256`` those
+    of "counted", "grouped" and "jacobi".
     """
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
@@ -399,29 +530,12 @@ def peel_decode(
         return peel_decode_reference(arrays, values, erased, **kw)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    nb = gf_order == 256
-    if schedule in ("seq", "unrolled"):
-        out, er_out, iters = launch_kernel(arrays, words, erased, k_stop, max_iters, gf_order)
-        return (out.view(torch.uint8) if nb else out), er_out, iters
-    if schedule == "counted" and arrays.dmax > 255:
-        raise ValueError(f"schedule 'counted' keeps byte counts: dmax={arrays.dmax} > 255")
-    b, n, w = words.shape
-    out = torch.empty_like(words)
-    er_out = torch.empty((b, n), dtype=torch.bool, device=words.device)
-    iters = torch.empty((b,), dtype=torch.int32, device=words.device)
-    rc = _build.library().ldpc_peel_sched_launch(
-        _SCHED_CODE[schedule], words.data_ptr(), erased.data_ptr(),
-        arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
-        arrays.vlist_val.data_ptr(), arrays.vlist_inv_val.data_ptr(),
-        arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(),
-        arrays.check_groups.data_ptr(), out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
-        b, n, arrays.m, arrays.dmax, arrays.clist_idx.shape[1], arrays.check_groups.shape[0],
-        w, k_stop, max_iters, int(nb), torch.cuda.current_stream(words.device).cuda_stream,
-    )
-    _build.check(rc, "ldpc_peel_sched_launch")
-    counter = f"launches_{schedule}" + ("_gf256" if nb else "")
-    setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
-    return (out.view(torch.uint8) if nb else out), er_out, iters
+    if schedule == "counted":
+        out, er_out, iters = launch_counted(arrays, words, erased, k_stop, max_iters, gf_order)
+    else:
+        out, er_out, iters = launch_kernel(arrays, words, erased, k_stop, max_iters, gf_order,
+                                           schedule=schedule)
+    return (out.view(torch.uint8) if gf_order == 256 else out), er_out, iters
 
 
 peel_decode.launches = 0

@@ -11,14 +11,15 @@ tensor code here too, on the card as on the CPU.
 
 The sweep (:func:`jacobi_sweep`) is shared by :func:`peel_decode_jacobi`,
 with the JAX functions' batch-wide stop, and :func:`peel_decode_jacobi_reference`,
-the plain version of the "jacobi" CUDA kernel (``csrc/peel_sched.cu``),
-with the kernel's per-frame stop. A degree-1 check's value is the sum of
-its other neighbours (GF(256): their coefficient-weighted sum times the
+the plain version of the "jacobi" route of the CUDA peel (``csrc/peel.cu``,
+its schedule kernel in the Jacobi order, then the slab value kernel), with
+the kernel's per-frame stop. A degree-1 check's value is the sum of its
+other neighbours (GF(256): their coefficient-weighted sum times the
 inverse of the erased slot's coefficient). Where two degree-1 checks solve
-the same symbol in one sweep, the higher-numbered check's value is kept,
-as the kernel's in-order writes leave it; on a codeword all such values are
-equal, so the outputs equal the JAX decoders' (which OR the candidates
-together, or scatter one of them).
+the same symbol in one sweep, the higher-numbered check's value is kept
+(the kernel's schedule makes it the symbol's one owner); on a codeword all
+such values are equal, so the outputs equal the JAX decoders' (which OR the
+candidates together, or scatter one of them).
 
 Stop and count rules of the JAX loop (peel.py:189-238; peel_wide.py and
 peel_decode_mask keep the same): sweeps run while some frame is not done

@@ -193,6 +193,72 @@ def test_peel_schedule_kernel_matches_plain(cuda_device, name, per, max_iters, e
     _equal(got, want)
 
 
+_ORDER_PLAIN = {"grouped": peel.grouped_schedule_reference,
+                "jacobi": peel.jacobi_schedule_reference}
+
+
+@pytest.mark.parametrize("schedule", ["grouped", "jacobi"])
+@pytest.mark.parametrize("name,per,max_iters", [
+    ("n2040_k1530", 0.1406, 50), ("n2040_k1530", 0.3, 10), ("n4080_k3060", 0.2, 50),
+    ("n4000_k2000", 0.3, 50)])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_schedule_kernel_orders_match_plain(cuda_device, schedule, name, per, max_iters,
+                                            early_stop):
+    """The schedule kernel alone in its grouped and Jacobi visit orders,
+    against their plain versions on every output; the grouped order's
+    outputs equal the check-by-check order's (the seq schedule kernel)."""
+    code = get_code(name)
+    arrays = code_arrays(code, cuda_device)
+    mask = torch.from_numpy(np.random.default_rng(5).random((16, code.n)) < per)
+    mask[1], mask[2] = True, False
+    mask = mask.to(cuda_device)
+    esk = code.k if early_stop else None
+    k_stop = code.k if early_stop else code.n
+    got = peel.launch_schedule(arrays, mask, k_stop, max_iters, schedule)
+    torch.cuda.synchronize()
+    _equal(got, _ORDER_PLAIN[schedule](arrays, mask, max_iters=max_iters, early_stop_k=esk))
+    if schedule == "grouped":
+        _equal(got, peel.launch_schedule(arrays, mask, k_stop, max_iters, "seq"))
+
+
+def _shared_slot_frames(arrays, mask):
+    """``mask`` with frame f >= 3 (up to 8) erasing one symbol of column
+    degree >= 2 alone, so that its checks all solve it in the first
+    sweep."""
+    deg = arrays.clist_len.cpu()
+    syms = (deg >= 2).nonzero().squeeze(1)
+    for f in range(3, min(8, mask.shape[0])):
+        mask[f] = False
+        mask[f, int(syms[(37 * f) % len(syms)])] = True
+    return mask
+
+
+@pytest.mark.parametrize("gf_order", [2, 256])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_jacobi_route_on_random_words_with_shared_slots(cuda_device, gf_order, early_stop):
+    """The Jacobi route on random words (no codeword, so the checks that
+    solve one symbol in one sweep give different values): equal to its
+    plain version on every output, the highest-numbered check's value kept;
+    frames 3..7 erase a single symbol that all its checks solve at once."""
+    name = "n2040_k1530" if gf_order == 2 else "n2040_k1530_gf256"
+    code = get_code(name)
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(23)
+    if gf_order == 2:
+        vals = to_torch(random_words(rng, (16, code.n, 64))).to(cuda_device)
+    else:
+        vals = _random_bytes(rng, (16, code.n, 256), cuda_device)
+    mask = torch.from_numpy(rng.random((16, code.n)) < 0.1406)
+    mask = _shared_slot_frames(arrays, mask).to(cuda_device)
+    kw = dict(max_iters=50, early_stop_k=code.k if early_stop else None, gf_order=gf_order)
+    counter = "launches_jacobi" + ("_gf256" if gf_order == 256 else "")
+    before = getattr(peel_decode, counter)
+    got = peel_decode(arrays, vals, mask, schedule="jacobi", **kw)
+    torch.cuda.synchronize()
+    assert getattr(peel_decode, counter) == before + 1
+    _equal(got, peel_decode_jacobi_reference(arrays, vals, mask, **kw))
+
+
 def test_peel_wrapper_refuses_slabs_over_shared_memory(cuda_device):
     """A slab of n x 4 words with the staged tables above a block's shared
     memory raises; so does a Wc whose slab does not fit (16 words at
@@ -743,11 +809,12 @@ def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
     _equal([x.cpu() for x in got[1:4]], want[1:4])
 
 
-# The research schedules of csrc/peel_sched.cu. "counted" and "grouped" are
-# the sequential function (csrc/peel.cu's, peel_decode_reference's);
-# "jacobi" is peel_decode_jacobi_reference's. W=200 is ragged (not a
-# multiple of 128 words), W=5 takes the one-word path; n4000_k2000 sizes the
-# shared memory (counted n + m, jacobi n + 4m bytes per warp).
+# The research schedules. "counted" (csrc/peel_sched.cu) and "grouped" (a
+# visit order of csrc/peel.cu's schedule kernel) are the sequential function
+# (peel_decode_reference's); "jacobi" (another visit order of csrc/peel.cu)
+# is peel_decode_jacobi_reference's. W=200 is ragged (not a multiple of the
+# slab width), W=5 takes the one-word path; n4000_k2000 sizes the shared
+# memory of both csrc/peel.cu kernels and of counted's n + m bytes per warp.
 def _sched_plain(schedule):
     return peel_decode_jacobi_reference if schedule == "jacobi" else peel_decode_reference
 
@@ -756,7 +823,8 @@ def _sched_plain(schedule):
 @pytest.mark.parametrize("name", ["n2040_k1530", "n4000_k2000"])
 @pytest.mark.parametrize("early_stop", [False, True])
 @pytest.mark.parametrize("w,aligned", [(256, True), (256, False), (200, True), (5, True)])
-def test_peel_schedule_kernel_matches_plain(cuda_device, schedule, name, early_stop, w, aligned):
+def test_research_schedule_kernel_matches_plain(cuda_device, schedule, name, early_stop, w,
+                                                aligned):
     code = get_code(name)
     arrays = code_arrays(code, cuda_device)
     rng = np.random.default_rng(17)

@@ -52,3 +52,29 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+def check_levels(arrays, erased, res, lvl_off, nlev) -> None:
+    """Each resolution solves a symbol erased on input, no symbol twice,
+    from neighbours of lower levels (known inputs are level 0); the list is
+    sorted by level and ``lvl_off``/``nlev`` describe it."""
+    vidx, vlen = arrays.vlist_idx.numpy(), arrays.vlist_len.numpy()
+    n = erased.shape[1]
+    for f in range(erased.shape[0]):
+        off = lvl_off[f]
+        nres = off[-1]
+        assert (np.diff(off) >= 0).all() and off[0] == 0
+        assert (off[nlev[f]:] == nres).all() and (nlev[f] == 0 or off[nlev[f] - 1] < nres)
+        assert (res[f, nres:] == -1).all()
+        level = np.where(erased[f], n + 1, 0)  # unresolved: never readable
+        entries = []
+        for lv in range(1, nlev[f] + 1):
+            for r in range(off[lv - 1], off[lv]):
+                c, es = res[f, r] >> 8, res[f, r] & 255
+                e = vidx[c, es]
+                assert erased[f, e] and level[e] == n + 1, (f, r)
+                entries.append((lv, c, es, e))
+                level[e] = lv
+        for lv, c, es, e in entries:
+            others = [vidx[c, j] for j in range(vlen[c]) if j != es]
+            assert all(level[s] < lv for s in others), (f, c, lv)
