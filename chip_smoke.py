@@ -75,15 +75,14 @@ Phases, each fatal on failure:
    .1406, first-k early stop, for each of "seq", "unrolled", "counted",
    "grouped" and "jacobi"; counted and timed per schedule, and the step's
    digest timed apart. On one fixed
-   batch the three research kernels ("counted", ``csrc/peel_sched.cu``;
-   "grouped" and "jacobi", visit orders of ``csrc/peel.cu``'s schedule
-   kernel before its slab value kernel) are held against their plain
-   versions on the whole batch, "counted" and "grouped" against the "seq"
-   kernel, "jacobi" against the Jacobi decoder on the first k
-   (``check_schedule``); the grouped and Jacobi schedule kernels alone
-   against their plain versions (grouped's also against seq's schedule
-   kernel) and timed beside seq's; their GF(256) modes against the plain
-   versions at B=16, 1 KB. The CLI runs once as a subprocess;
+   batch the three research kernels ("counted", "grouped" and "jacobi",
+   visit orders of ``csrc/peel.cu``'s schedule kernel before its slab value
+   kernel) are held against their plain versions on the whole batch,
+   "counted" and "grouped" against the "seq" kernel, "jacobi" against the
+   Jacobi decoder on the first k (``check_schedule``); each order's
+   schedule kernel alone against its plain version (counted's and
+   grouped's also against seq's schedule kernel) and timed beside seq's;
+   their GF(256) modes against the plain versions at B=16, 1 KB. The CLI runs once as a subprocess;
 9. the FER simulation at the paper's Table-I point (2040,1530), PER .1875:
    9a the CLI's pattern-only peel sweep (B=4096, 16 batches per call,
    VALIDATION.md:9-13), 9b the pattern-only hybrid of the JAX CLI's ``plot``
@@ -103,8 +102,12 @@ Phases, each fatal on failure:
    counted; every count of 9a-9c must equal the recorded counts of the
    same seeds (``RECORDED_COUNTS``);
 10. the last three kernels against their plain versions, bit-exact: the
-   rank kernel on 9b's 512-frame bucket at emax 256 and 512 (both matrix
-   modes) and on (4000,2000) at emax 1024 (the matrix in device memory);
+   rank kernel on 9b's 512-frame bucket at emax 256 and 512 (each route:
+   rows in registers, the matrix in shared memory, in device memory; the
+   widest eliminated frame's column steps and the time per step), on
+   (4000,2000) i.i.d. masks at emax 128 and 256 as the ML decoder checks
+   them (shared and device memory, timed) and at emax 1024 (the matrix in
+   device memory);
    ``channel_apply_per64`` at B=64 and at the main path's shape (beside the
    unfused ``iid_erasures_per64`` + ``apply_erasures``); ``gf_matmul_batched``
    on phase 6d's RS i.i.d. batch (counted, and held against the rows
@@ -264,7 +267,7 @@ KERNELS = {
         replaces="ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:556",
     ),
     "peel_counted": dict(
-        source="ldpc_erasure_codes_tpu_torch/csrc/peel_sched.cu",
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_peel.py:586",
     ),
     "peel_grouped": dict(
@@ -315,7 +318,8 @@ COUNTERS = {
 SCHED_KERNELS = {"counted": "peel_counted", "grouped": "peel_grouped", "jacobi": "peel_jacobi"}
 # The plain versions of csrc/peel.cu's schedule kernel, by visit order.
 ORDER_PLAIN = {"grouped": peel.grouped_schedule_reference,
-               "jacobi": peel.jacobi_schedule_reference}
+               "jacobi": peel.jacobi_schedule_reference,
+               "counted": peel.counted_schedule_reference}
 # Phase 9's bands at (2040,1530), PER .1875: VALIDATION.md:19 (peel FER
 # 1.95e-2, +-3 sigma; the paper's 2e-2, tex:207), the analytic RS(255,192)
 # per-window FER 7.34e-3, the Jacobi schedule's mean sweeps with first-k
@@ -847,12 +851,12 @@ def peel_split(arrays, cw, mask, k_stop: int, gf_order: int, errs: dict, name: s
 def order_split(arrays, mask, k_stop: int, schedule: str, errs: dict, name: str) -> dict:
     """A research schedule's kernel of ``csrc/peel.cu`` (its visit order of
     the schedule kernel) alone: held against its plain version on the whole
-    batch ("grouped" also against the seq order's kernel, whose schedule it
-    must equal) and timed beside the seq order's."""
+    batch ("grouped" and "counted" also against the seq order's kernel,
+    whose schedule they must equal) and timed beside the seq order's."""
     got = peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS, schedule)
     want = ORDER_PLAIN[schedule](arrays, mask, max_iters=bench.MAX_ITERS, early_stop_k=k_stop)
     e = outputs_err(got, want)
-    if schedule == "grouped":
+    if schedule != "jacobi":
         e = max(e, outputs_err(got, peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS)))
     errs[name] = max(errs[name], e)
     require(e == 0, f"{name}: schedule kernel != plain ({e})")
@@ -1375,13 +1379,12 @@ def schedule_phase(device, card: str, errs: dict, times: dict, plain: dict, boun
         times[name] = cuda_ms(
             lambda: peel_decode(arrays, cw, mask, schedule=schedule, **kw), 5)
         bounds[name] = peel_bound(arrays, mask, got[1], w * 4, gf=False)
-        split = order_split(arrays, mask, k, schedule, errs, name) if schedule in ORDER_PLAIN \
-            else None
-        log(f"phase 8: {name} at B={b} W={w}: kernel {times[name]:.3f} ms (seq {seq_ms:.3f}"
-            + (f"; its schedule kernel {split['schedule_ms']:.3f} ms against seq's "
-               f"{split['seq_schedule_ms']:.3f}, levels max {split['levels_max']}, "
-               f"resolutions mean {split['resolutions_mean']:.1f}" if split else "")
-            + f"), plain {plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+        split = order_split(arrays, mask, k, schedule, errs, name)
+        log(f"phase 8: {name} at B={b} W={w}: kernel {times[name]:.3f} ms (seq {seq_ms:.3f}; "
+            f"its schedule kernel {split['schedule_ms']:.3f} ms against seq's "
+            f"{split['seq_schedule_ms']:.3f}, levels max {split['levels_max']}, resolutions "
+            f"mean {split['resolutions_mean']:.1f}), plain {plain[name]:.1f} ms, bound "
+            f"{bounds[name]['bound_ms']:.4f} ms "
             f"({bounds[name]['bound_by']}), sweeps max {int(got[2].max())} mean "
             f"{float(got[2].float().mean()):.2f}, max abs err {errs[name]} on {card}")
         del got
@@ -1604,7 +1607,10 @@ def rank_bound(arrays, erased: torch.Tensor, emax: int) -> dict:
     are the forward elimination's XOR word-operations, counted by replaying
     it as the kernel runs it (rows past the real block's words untouched, a
     frame stopping at its first column without a pivot, overflowing and
-    empty frames doing no work), as ``elim_ops`` counts the GE's."""
+    empty frames doing no work), as ``elim_ops`` counts the GE's. Also
+    returns the widest eliminated frame's columns (``width_max``) and the
+    most column steps a frame takes (``steps_max``: its chain of dependent
+    steps, the failing one included)."""
     b, n = erased.shape
     emax = min(emax, n)
     nreal = erased.sum(dim=1)
@@ -1619,8 +1625,10 @@ def rank_bound(arrays, erased: torch.Tensor, emax: int) -> dict:
     alive = work.clone()
     frames = torch.arange(b, device=erased.device)
     total = torch.zeros((), dtype=torch.int64, device=erased.device)
+    steps = torch.zeros(b, dtype=torch.int64, device=erased.device)
     for col in range(min(int(nreal[work].max()), emax) if bool(work.any()) else 0):
         live = alive & (col < nreal)
+        steps += live
         colv = ((a[:, :, col >> 5] >> (col & 31)) & 1).bool() & ~used & live[:, None]
         has = colv.any(dim=1)
         alive &= has | ~live
@@ -1631,14 +1639,19 @@ def rank_bound(arrays, erased: torch.Tensor, emax: int) -> dict:
         elim = colv & ~is_piv & has[:, None]
         total += ((nw - (col >> 5)) * elim.sum(dim=1)).sum()
         a ^= torch.where(elim[:, :, None], a[frames, piv][:, None, :], 0)
-    return bound(nbytes, int(total))
+    return {**bound(nbytes, int(total)), "steps_max": int(steps.max()) if b else 0,
+            "width_max": int(nreal[work].max()) if bool(work.any()) else 0}
 
 
 def rank_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict) -> None:
     """Phase 10, rank kernel: 9b's bucket (the first 512 residual frames of
     a 4096-frame batch at PER .1875, peeled to convergence) at emax 256 and
-    512, both matrix modes, and a (4000,2000) emax-1024 batch whose matrix
-    lives in device memory; bit-exact against the plain versions."""
+    512 by every route, each timed (the wrapper takes "registers"; "smem"
+    and "device" keep the column step of the kernel before its redesign);
+    (4000,2000) i.i.d. masks at emax 128 and 256, the shapes the register
+    route cannot take ("smem" and "device", timed); and a (4000,2000)
+    emax-1024 batch whose matrix lives in device memory; bit-exact against
+    the plain versions."""
     code = get_code("n2040_k1530")
     arrays = code_arrays(code, device)
     gen = torch.Generator(device=device)
@@ -1650,11 +1663,15 @@ def rank_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: 
         want = rank.f2_rank_check_reference(arrays, bucket, emax=emax)
         loop = ge_rank_check_reference(arrays, bucket, emax=emax)
         require(torch.equal(want, loop), f"emax {emax}: the two plain rank checks differ")
-        for in_smem in (True, False):
-            got = rank.launch_kernel(arrays, bucket, emax, in_smem)
+        route_ms = {}
+        for route in rank.ROUTES:
+            got = rank.launch_kernel(arrays, bucket, emax, route)
             e_err = max_abs_err(got, want)
             errs["ge_rank"] = max(errs["ge_rank"], e_err)
-            require(e_err == 0, f"emax {emax} in_smem={in_smem}: rank kernel != plain")
+            require(e_err == 0, f"emax {emax} route {route}: rank kernel != plain")
+            route_ms[route] = cuda_ms(lambda: rank.launch_kernel(arrays, bucket, emax, route), 10)
+        require(rank.kernel_route(arrays.n, arrays.m, emax) == "registers",
+                f"emax {emax}: the wrapper should take the register route")
         ms = cuda_ms(lambda: f2_rank_check(arrays, bucket, emax=emax), 10)
         _, plain_ms = host_ms(lambda: rank.f2_rank_check_reference(arrays, bucket, emax=emax))
         _, loop_ms = host_ms(lambda: ge_rank_check_reference(arrays, bucket, emax=emax))
@@ -1662,19 +1679,54 @@ def rank_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: 
         nreal = bucket.sum(dim=1)
         log(f"phase 10: rank kernel on 9b's bucket ({bucket.shape[0]} frames, max residual "
             f"{int(nreal.max())}), emax {emax}: {int(want.sum())} failed "
-            f"({int((nreal > emax).sum())} overflowed); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, ge_rank_check's pivot loop {loop_ms:.1f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: {bnd['bytes']:.4g} bytes, "
-            f"{bnd['ops']:.4g} ops), both matrix modes bit-exact, on {card}")
+            f"({int((nreal > emax).sum())} overflowed); widest eliminated frame "
+            f"{bnd['width_max']} columns, longest chain {bnd['steps_max']} column steps; kernel "
+            f"{ms:.3f} ms, {1e3 * ms / max(bnd['steps_max'], 1):.3f} us per column step; by "
+            f"route " + ", ".join(f"{r} {t:.3f} ms" for r, t in route_ms.items())
+            + f" (smem and device: the column step before the redesign); plain {plain_ms:.1f} "
+            f"ms, ge_rank_check's pivot loop {loop_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}: {bnd['bytes']:.4g} bytes, {bnd['ops']:.4g} ops), every route "
+            f"bit-exact, on {card}")
         if emax == 256:
             times["ge_rank"], plain["ge_rank"], bounds["ge_rank"] = ms, plain_ms, bnd
     big = get_code("n4000_k2000")
     big_arrays = code_arrays(big, device)
+    raw_gen = torch.Generator(device=device)
+    raw_gen.manual_seed(92)
+    for emax, per in ((128, 0.03), (256, 0.06)):
+        raw = iid_erasures((512, big.n), per, generator=raw_gen, device=device)
+        require(rank.kernel_route(big.n, big.m, emax) == "smem",
+                f"(4000,2000) emax {emax}: the wrapper should take the shared-memory route")
+        want = rank.f2_rank_check_reference(big_arrays, raw, emax=emax)
+        require(torch.equal(want, ge_rank_check_reference(big_arrays, raw, emax=emax)),
+                f"(4000,2000) emax {emax}: the two plain rank checks differ")
+        route_ms = {}
+        for route in rank.ROUTES:
+            if not rank.route_fits(route, big.n, big.m, emax):
+                continue
+            got = rank.launch_kernel(big_arrays, raw, emax, route)
+            e_err = max_abs_err(got, want)
+            errs["ge_rank"] = max(errs["ge_rank"], e_err)
+            require(e_err == 0, f"(4000,2000) emax {emax} route {route}: rank kernel != plain")
+            route_ms[route] = cuda_ms(
+                lambda: rank.launch_kernel(big_arrays, raw, emax, route), 10)
+        require(set(route_ms) == {"smem", "device"},
+                f"(4000,2000) emax {emax}: routes {sorted(route_ms)}, expected smem and device")
+        bnd = rank_bound(big_arrays, raw, emax)
+        nreal = raw.sum(dim=1)
+        log(f"phase 10: rank kernel on (4000,2000) i.i.d. masks B=512 PER {per}, emax {emax} "
+            f"(the ML decoder's check; the register route takes m <= 1024): "
+            f"{int(want.sum())} failed ({int((nreal > emax).sum())} overflowed); widest "
+            f"eliminated frame {bnd['width_max']} columns; by route "
+            + ", ".join(f"{r} {t:.3f} ms" for r, t in route_ms.items())
+            + f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); bit-exact, on {card}")
     mask = iid_erasures((8, big.n), 0.44, generator=gen, device=device)
     e = peel_decode_mask(big_arrays, mask, max_iters=200)[0]
-    require(not rank.fits_shared_memory(big.n, big.m, 1024),
-            "a (4000,2000) emax-1024 matrix should not fit in shared memory")
+    require(rank.kernel_route(big.n, big.m, 1024) == "device",
+            "a (4000,2000) emax-1024 matrix should take only the device-memory route")
     want = rank.f2_rank_check_reference(big_arrays, e, emax=1024)
+    require(torch.equal(want, ge_rank_check_reference(big_arrays, e, emax=1024)),
+            "(4000,2000) emax 1024: the two plain rank checks differ")
     got = f2_rank_check(big_arrays, e, emax=1024)
     e_err = max_abs_err(got, want)
     errs["ge_rank"] = max(errs["ge_rank"], e_err)

@@ -1,16 +1,17 @@
 // Peeling decode of LDPC erasure codes on packed 32-bit words, with the
 // channel masking fused into the copy-in: a per-frame schedule kernel, then
 // a value kernel that decodes each (frame, chunk of Wc words) out of a
-// shared-memory slab. The schedule kernel sweeps in one of three visit
-// orders; the value kernel is the same for all three.
+// shared-memory slab. The schedule kernel sweeps in one of four visit
+// orders; the value kernel is the same for all four.
 //
 // Replaces the TPU kernels of ldpc_erasure_codes_tpu/ops/pallas_peel.py::
 // peel_decode_vmem: the constant-topology program _make_unrolled_kernel
 // (with fence_gate), the runtime-topology _make_kernel "seq" body, and the
-// research schedules _make_grouped_kernel (:1101) and _make_jacobi_kernel
-// (:377), in both of their gf_order modes. seq, unrolled and grouped
-// compute one function, the MATLAB sweep (utils/oracle.py::peel_decode):
-// every sweep visits the checks in ROM order; a check whose neighbours hold
+// research schedules _make_grouped_kernel (:1101), _make_counted_kernel
+// (:586) and _make_jacobi_kernel (:377), in both of their gf_order modes.
+// seq, unrolled, grouped and counted compute one function, the MATLAB
+// sweep (utils/oracle.py::peel_decode): every sweep visits the checks in
+// ROM order; a check whose neighbours hold
 // exactly one erasure sets that symbol to the sum of its neighbours (erased
 // slots hold zero) and clears its flag at once, so later checks of the same
 // sweep see it. jacobi computes the Jacobi sweep of the XLA decoders
@@ -58,8 +59,14 @@
 //     member's count or neighbours, so the members are tested together on
 //     the group-start counts (one ballot per group), G / 4 lanes per member
 //     find its slot and level, and the members record in member order: the
-//     list is seq's, bit for bit; kJacobi, every check tested on the
-//     sweep-start counts G at a time, the degree-1 checks' symbols claimed
+//     list is seq's, bit for bit; kCounted, the live counts read G checks
+//     at a time (a window), a ballot giving the first count-1 check at or
+//     past the window's cursor, which resolves as in kSeq, then the window
+//     read again past it: counts only fall, so the checks the ballot
+//     passes over are those the sequential sweep skips, and the list is
+//     seq's, bit for bit, for m / G window reads per sweep plus one per
+//     resolution where kSeq makes m ballots; kJacobi, every check tested on
+//     the sweep-start counts G at a time, the degree-1 checks' symbols claimed
 //     by the highest-numbered check, the owners recorded in check order,
 //     and only then the counts updated (shared-memory atomics). A Jacobi
 //     resolution's level is its sweep (the check had two erased neighbours
@@ -87,11 +94,11 @@
 // coefficients do not diverge.
 //
 // Measured by chip_smoke.py on NVIDIA H100 80GB HBM3, 700 W, at B = 2048,
-// W = 256, PER .1406 against the 2.557 ms byte bound: seq 4.907 ms (its
-// schedule kernel 0.505), grouped 4.735 (0.426), jacobi 4.416 (0.316); the
-// per-warp kernels these two replaced took 7.987 and 7.170. GF(256) seq at
-// B = 512, 1 KB symbols 2.502 ms against 0.639 (PERF.md section 6, rows
-// 1-5).
+// W = 256, PER .1406 against the 2.557 ms byte bound: seq 4.849 ms (its
+// schedule kernel 0.517), grouped 4.739 (0.431), counted 4.676 (0.347),
+// jacobi 4.376 (0.302); the per-warp kernels the last three replaced took
+// 7.987, 6.038 and 7.170. GF(256) seq at B = 512, 1 KB symbols 2.498 ms
+// against 0.639 (PERF.md section 6, rows 1-5).
 
 #include <cstdint>
 
@@ -112,7 +119,7 @@ constexpr uint16_t kClaimed = 0xFFFE;
 constexpr uint16_t kDegreeOne = 0x8000;
 
 // The visit order of the schedule kernel's sweep.
-enum Order { kSeq = 0, kGrouped = 1, kJacobi = 2 };
+enum Order { kSeq = 0, kGrouped = 1, kJacobi = 2, kCounted = 3 };
 
 // The Vlist staged in shared memory as uint16: m * dmax indices, m degrees.
 __host__ __device__ inline int vlist_bytes(int m, int dmax) {
@@ -186,8 +193,8 @@ __device__ __forceinline__ void count_down(uint16_t* cnt_of, int c) {
 // A group of G lanes per frame, 32 / G frames per warp. Every loop that
 // holds a warp-wide exchange runs to the same count in all lanes; a frame
 // whose sweep has ended (or past B) takes part without effect. kOrder is
-// the visit order of a sweep (kSeq, kGrouped, kJacobi); the staging, the
-// counts, the stop rule and the sort are the same for all three.
+// the visit order of a sweep (kSeq, kGrouped, kJacobi, kCounted); the
+// staging, the counts, the stop rule and the sort are the same for all four.
 template <int kOrder>
 __global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
                                      const int32_t* __restrict__ vlist_idx,
@@ -248,6 +255,45 @@ __global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
     int nres = 0, iters = max_iters;
     unsigned maxlev = 0;  // this lane's; a group maximum after the sweeps
     bool done = !live;
+    // The seq and counted orders' resolution, by every lane of the warp: a
+    // group whose `solve` is set resolves check c of its frame (its one
+    // erased neighbour, at slot es, one lane of G per neighbour; the level
+    // is 1 + the largest level among the known ones), records c << 8 | es
+    // and lowers the counts of the solved symbol's checks (the Clist row:
+    // distinct checks, so no two lanes meet). The groups may solve
+    // different checks; every lane runs the warp's longest scan.
+    const auto resolve = [&](bool solve, int c, int& solved_k) {
+        const uint16_t* nb = vl + c * dmax;
+        const int d = solve ? vlen[c] : 0;
+        const int dw = (int)__reduce_max_sync(full, (unsigned)d);
+        int es = 0;
+        bool found = false;
+        unsigned mx = 0;  // this lane's largest known-neighbour level
+        for (int j0 = 0; j0 < dw; j0 += G) {
+            const int j = j0 + gl;
+            bool er = false;
+            if (j < d) {
+                const unsigned l = lev[nb[j]];
+                er = l == kErased;
+                if (!er) mx = max(mx, l);
+            }
+            const unsigned bal = __ballot_sync(full, er) & gmask;
+            if (bal != 0 && !found) es = j0 + __ffs(bal) - 1 - g * G, found = true;
+        }
+        const unsigned lv = group_max(mx, G) + 1;
+        if (solve) {
+            const int e = nb[es];
+            if (gl == 0) {
+                lev[e] = (uint16_t)lv;
+                seq[nres] = c << 8 | es;
+                solved_k += e < k_stop;
+            }
+            for (int q = gl; q < clen[e]; q += G) --cnt_of[cl[e * cmax + q]];
+            ++nres;
+            maxlev = max(maxlev, lv);
+        }
+        __syncwarp();
+    };
     for (int it = 0; it < max_iters; ++it) {
         const int nres0 = nres;
         int solved_k = 0;  // this lane's resolutions among the first k_stop
@@ -257,35 +303,7 @@ __global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
             for (int c = 0; c < m; ++c) {
                 const bool solve = !done && cnt_of[c] == 1;  // the same in the group's lanes
                 if (__ballot_sync(full, solve) == 0) continue;
-                const uint16_t* nb = vl + c * dmax;
-                const int d = vlen[c];
-                int es = 0;
-                bool found = false;
-                unsigned mx = 0;  // this lane's largest known-neighbour level
-                for (int j0 = 0; j0 < d; j0 += G) {
-                    const int j = j0 + gl;
-                    bool er = false;
-                    if (j < d && solve) {
-                        const unsigned l = lev[nb[j]];
-                        er = l == kErased;
-                        if (!er) mx = max(mx, l);
-                    }
-                    const unsigned bal = __ballot_sync(full, er) & gmask;
-                    if (bal != 0 && !found) es = j0 + __ffs(bal) - 1 - g * G, found = true;
-                }
-                const unsigned lv = group_max(mx, G) + 1;
-                if (solve) {
-                    const int e = nb[es];
-                    if (gl == 0) {
-                        lev[e] = (uint16_t)lv;
-                        seq[nres] = c << 8 | es;
-                        solved_k += e < k_stop;
-                    }
-                    for (int q = gl; q < clen[e]; q += G) --cnt_of[cl[e * cmax + q]];
-                    ++nres;
-                    maxlev = max(maxlev, lv);
-                }
-                __syncwarp();
+                resolve(solve, c, solved_k);
             }
         } else if constexpr (kOrder == kGrouped) {
             // Group by group (check_groups: consecutive checks, pairwise
@@ -338,6 +356,32 @@ __global__ void peel_schedule_kernel(const uint8_t* __restrict__ erased,
                 }
                 nres += __popc(fire);
                 __syncwarp();
+            }
+        } else if constexpr (kOrder == kCounted) {
+            // Windows of G consecutive checks: the frame's G lanes read the
+            // live counts of the window's checks in one step, and a ballot
+            // gives the first check at or past the frame's cursor whose
+            // count is 1. It resolves as in the seq order, and the window is
+            // read again past it: the resolution may have lowered a later
+            // check of the window to 1. Counts only fall, so a check the
+            // ballot passes over is one the sequential sweep skips too, and
+            // the list is seq's, bit for bit. The warp's frames share the
+            // window loop; a frame without a hit takes part without effect
+            // (its counts cannot change, so it has none until the next
+            // window).
+            for (int c0 = 0; c0 < m; c0 += G) {
+                int next = c0;  // this frame's cursor in the window
+                while (true) {
+                    const int cc = c0 + gl;
+                    const bool hit = !done && cc >= next && cc < m && cnt_of[cc] == 1;
+                    const unsigned hits = __ballot_sync(full, hit);
+                    if (hits == 0) break;
+                    const unsigned mine = hits & gmask;
+                    const bool solve = mine != 0;
+                    const int c = solve ? c0 + __ffs(mine) - 1 - g * G : 0;
+                    resolve(solve, c, solved_k);
+                    if (solve) next = c + 1;
+                }
             }
         } else {
             // Jacobi: every check tests its count at the start of the sweep
@@ -637,7 +681,7 @@ cudaError_t launch_schedule(const uint8_t* erased, const int32_t* vlist_idx,
 
 // The schedule of B frames in visit order `order` (0 sequential, 1 the
 // check groups (ngroups, 4), pad = m, a 16-byte aligned table read by that
-// order only, 2 Jacobi): res (B, n), lvl_off (B, n + 1), nlev (B,),
+// order only, 2 Jacobi, 3 counted): res (B, n), lvl_off (B, n + 1), nlev (B,),
 // erased_out (B, n), iters (B,); seq (B, n) is scratch. The Clist has nc
 // rows. dmax <= 256, n < 65534, m < 65535, and the Vlist and Clist (as
 // uint16) with one warp's frames must fit in a block's shared memory.
@@ -661,6 +705,7 @@ extern "C" int ldpc_peel_schedule_launch(int order, const uint8_t* erased,
         case kSeq: PEEL_SCHEDULE(kSeq);
         case kGrouped: PEEL_SCHEDULE(kGrouped);
         case kJacobi: PEEL_SCHEDULE(kJacobi);
+        case kCounted: PEEL_SCHEDULE(kCounted);
     }
 #undef PEEL_SCHEDULE
     return (int)cudaErrorInvalidValue;

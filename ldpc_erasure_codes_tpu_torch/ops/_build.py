@@ -64,10 +64,6 @@ LAUNCHERS = {
     # check_groups, ngroups, seq, res, lvl_off, nlev, erased_out, iters_out,
     # B, n, m, dmax, nc, cmax, k_stop, max_iters, stream
     "ldpc_peel_schedule_launch": [_I, *[_P] * 6, _I, *[_P] * 6, *[_I] * 8, _P],
-    # values, erased, vlist_idx, vlist_len, vlist_val, vlist_inv_val,
-    # clist_idx, clist_len, values_out, erased_out, iters_out, B, n, m, dmax,
-    # cmax, W, k_stop, max_iters, nb, stream
-    "ldpc_peel_counted_launch": [*[_P] * 11, *[_I] * 9, _P],
     # in, out, nreal, ncols, pivrow, failed, B, m, C, emax, a_words,
     # in_smem, stream
     "ldpc_elim_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -87,10 +83,10 @@ LAUNCHERS = {
     # rhs, mats, out, B, m, E, W, stream
     "ldpc_gf_matmul_launch": [*[_P] * 3, *[_I] * 4, _P],
     # erased, clist_idx, clist_len, scratch, failed, B, n, m, cmax, emax,
-    # in_smem, stream
+    # route, stream
     "ldpc_rank_launch": [*[_P] * 5, *[_I] * 6, _P],
-    # n, m, emax
-    "ldpc_rank_fits_smem": [_I, _I, _I],
+    # route, n, m, emax
+    "ldpc_rank_fits": [_I, _I, _I, _I],
     # m, emax
     "ldpc_rank_scratch_words": [_I, _I],
     # values, out, mask, B, n, W, seed, num, stream

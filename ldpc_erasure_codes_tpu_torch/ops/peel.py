@@ -4,22 +4,19 @@ Counterpart of the TPU kernel ``ldpc_erasure_codes_tpu/ops/pallas_peel.py::
 peel_decode_vmem`` (:1281-1786) and its ``schedule`` argument
 (:1456-1464). The TPU's tile-major layout exists only for its VMEM; the
 port keeps the plain (B, n, W) layout end to end. For CUDA tensors
-:func:`peel_decode` launches, per schedule:
-
-* "seq", "unrolled" (+ fence gate; the production schedules, one function),
-  "grouped" and "jacobi": ``csrc/peel.cu``, two kernels: a per-frame
-  schedule of the sweep's resolutions, sorted into independent levels, then
-  the values of each (frame, chunk of Wc words) out of a shared-memory slab
-  (:func:`launch_kernel`). The schedule kernel visits the checks in one of
-  three orders: check by check (seq, unrolled; plain version
-  :func:`peel_schedule_reference`), by the disjoint check groups of
-  ``CodeArrays.check_groups`` (grouped, the same list bit for bit;
-  :func:`grouped_schedule_reference`), or with sweep-start detection
-  (jacobi, the XLA decoders' schedule, :mod:`.peel_jacobi`;
-  :func:`jacobi_schedule_reference`). The value kernel's plain version is
-  :func:`apply_schedule_reference`;
-* "counted": ``csrc/peel_sched.cu``, the sequential function with live
-  per-check counts, a warp per (frame, 128-word chunk).
+:func:`peel_decode` launches ``csrc/peel.cu`` for every schedule, two
+kernels: a per-frame schedule of the sweep's resolutions, sorted into
+independent levels, then the values of each (frame, chunk of Wc words) out
+of a shared-memory slab (:func:`launch_kernel`). The schedule kernel visits
+the checks in one of four orders: check by check ("seq", "unrolled" +
+fence gate, the production schedules; plain version
+:func:`peel_schedule_reference`), by the disjoint check groups of
+``CodeArrays.check_groups`` ("grouped", the same list bit for bit;
+:func:`grouped_schedule_reference`), by windows of live per-check counts
+("counted", the same list bit for bit; :func:`counted_schedule_reference`),
+or with sweep-start detection ("jacobi", the XLA decoders' schedule,
+:mod:`.peel_jacobi`; :func:`jacobi_schedule_reference`). The value kernel's
+plain version is :func:`apply_schedule_reference`.
 
 For CPU tensors it runs the plain versions: :func:`peel_decode_reference`
 for the four sequential schedules, which compute one function bit for bit,
@@ -53,7 +50,7 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi_refe
 
 SCHEDULES = ("seq", "unrolled", "counted", "grouped", "jacobi")
 # The schedule kernel's visit order (csrc/peel.cu) per schedule.
-_ORDER = {"seq": 0, "unrolled": 0, "grouped": 1, "jacobi": 2}
+_ORDER = {"seq": 0, "unrolled": 0, "grouped": 1, "jacobi": 2, "counted": 3}
 
 
 def _words(values: torch.Tensor, gf_order: int) -> torch.Tensor:
@@ -261,6 +258,77 @@ def grouped_schedule_reference(
     return _visit_schedule(arrays, erased, visits, max_iters, early_stop_k)
 
 
+def counted_schedule_reference(
+    arrays: CodeArrays,
+    erased: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the schedule kernel in its counted order: each
+    check's erased neighbours are counted once from the Vlist and lowered
+    through the Clist as symbols resolve; a sweep reads the counts in
+    windows of 32 checks, and within a window resolves the first count-1
+    check at or past the window's cursor, then moves the cursor past it and
+    reads the window again. Counts only fall, so the checks passed over are
+    those the sequential sweep skips: this equals
+    :func:`peel_schedule_reference` on every output; same format."""
+    k_stop = _check_erased(erased, early_stop_k)
+    b, n = erased.shape
+    m, dev = arrays.m, erased.device
+    nc, cmax = arrays.clist_idx.shape
+    # Neighbour lists padded to symbol n (a known slot of level 0) and check
+    # lists padded to check m (a count nobody reads); symbols past the
+    # code's columns have no checks.
+    vidx = torch.where(torch.arange(arrays.dmax, device=dev) < arrays.vlist_len[:, None],
+                       arrays.vlist_idx, n).long()
+    cidx = torch.where(torch.arange(cmax, device=dev) < arrays.clist_len[:, None],
+                       arrays.clist_idx, m).long()
+    cidx = torch.cat([cidx, cidx.new_full((n + 1 - nc, cmax), m)])
+    lev = torch.cat([torch.where(erased, -1, 0), erased.new_zeros((b, 1), dtype=torch.int64)],
+                    dim=1).to(torch.int32)  # -1: erased
+    cnt = torch.cat([(lev[:, vidx] < 0).sum(dim=2), lev.new_zeros((b, 1), dtype=torch.int64)],
+                    dim=1)
+    seq = torch.full((b, n), -1, dtype=torch.int32, device=dev)
+    seq_lev = torch.full((b, n), n + 1, dtype=torch.int32, device=dev)  # pad sorts last
+    nres = torch.zeros(b, dtype=torch.long, device=dev)
+    iters = torch.full((b,), max_iters, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    for it in range(max_iters):
+        changed = torch.zeros(b, dtype=torch.bool, device=dev)
+        for c0 in range(0, m, 32):
+            window = torch.arange(c0, min(c0 + 32, m), device=dev)
+            cursor = torch.full((b,), c0, dtype=torch.long, device=dev)
+            while True:
+                hit = ((cnt[:, window] == 1) & (window[None, :] >= cursor[:, None])
+                       & active[:, None])
+                f = hit.any(dim=1).nonzero().squeeze(1)
+                if f.numel() == 0:
+                    break
+                c = window[hit[f].to(torch.int8).argmax(dim=1)]  # the first hit
+                nb = vidx[c]  # (F, dmax)
+                l_nb = lev[f[:, None], nb]
+                pos = (l_nb < 0).to(torch.int8).argmax(dim=1)
+                level = l_nb.max(dim=1).values.clamp(min=0) + 1
+                e = nb[torch.arange(f.numel(), device=dev), pos]
+                lev[f, e] = level
+                seq[f, nres[f]] = ((c << 8) | pos).to(torch.int32)
+                seq_lev[f, nres[f]] = level
+                nres[f] += 1
+                changed[f] = True
+                ch = cidx[e]  # (F, cmax): distinct checks, then the pad
+                cnt.index_put_((f[:, None].expand_as(ch), ch),
+                               torch.full(ch.shape, -1, dtype=cnt.dtype, device=dev),
+                               accumulate=True)
+                cursor[f] = c + 1
+        fin = active & ((lev[:, :k_stop] < 0).sum(dim=1) == 0)
+        iters[fin] = it + 1
+        active = active & ~fin & changed
+        if not bool(active.any()):
+            break
+    return _sorted_schedule(seq, seq_lev, lev[:, :n] < 0, iters)
+
+
 def jacobi_schedule_reference(
     arrays: CodeArrays,
     erased: torch.Tensor,
@@ -410,9 +478,9 @@ def _counter(schedule: str, gf_order: int) -> str:
 def launch_schedule(arrays: CodeArrays, erased: torch.Tensor, k_stop: int, max_iters: int,
                     schedule: str = "seq"):
     """The schedule kernel of ``csrc/peel.cu`` on CUDA tensors, in the
-    visit order of ``schedule`` ("seq"/"unrolled", "grouped" or "jacobi"):
-    (res (B, n), lvl_off (B, n + 1), nlev (B,), erased (B, n) bool, iters
-    (B,)), in the format of :func:`peel_schedule_reference`."""
+    visit order of ``schedule`` ("seq"/"unrolled", "grouped", "counted" or
+    "jacobi"): (res (B, n), lvl_off (B, n + 1), nlev (B,), erased (B, n)
+    bool, iters (B,)), in the format of :func:`peel_schedule_reference`."""
     b, n = erased.shape
     if arrays.dmax > 256 or schedule_smem(arrays, n) > SMEM_LIMIT:
         raise ValueError(f"the schedule kernel takes dmax <= 256 and the Vlist and Clist in "
@@ -439,8 +507,8 @@ def launch_kernel(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor,
                   max_iters: int, gf_order: int, wc: int | None = None, schedule: str = "seq"):
     """The peel of ``csrc/peel.cu`` on CUDA tensors (``words`` int32): the
     schedule kernel in the visit order of ``schedule`` ("seq"/"unrolled",
-    "grouped" or "jacobi"), then the value kernel with ``wc`` words per
-    block (:func:`slab_words` by default). Counts one launch of
+    "grouped", "counted" or "jacobi"), then the value kernel with ``wc``
+    words per block (:func:`slab_words` by default). Counts one launch of
     ``peel_decode`` under the schedule's counter (``launches`` for
     seq/unrolled, ``launches_<schedule>`` otherwise; ``_gf256`` for
     GF(256)). Returns int32 words."""
@@ -468,30 +536,6 @@ def launch_kernel(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor,
     )
     _build.check(rc, "ldpc_peel_launch")
     counter = _counter(schedule, gf_order)
-    setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
-    return out, er_out, iters
-
-
-def launch_counted(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, k_stop: int,
-                   max_iters: int, gf_order: int):
-    """The "counted" kernel of ``csrc/peel_sched.cu`` on CUDA tensors
-    (``words`` int32); counts ``launches_counted`` (``_gf256``)."""
-    if arrays.dmax > 255:
-        raise ValueError(f"schedule 'counted' keeps byte counts: dmax={arrays.dmax} > 255")
-    b, n, w = words.shape
-    out = torch.empty_like(words)
-    er_out = torch.empty((b, n), dtype=torch.bool, device=words.device)
-    iters = torch.empty((b,), dtype=torch.int32, device=words.device)
-    rc = _build.library().ldpc_peel_counted_launch(
-        words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
-        arrays.vlist_len.data_ptr(), arrays.vlist_val.data_ptr(),
-        arrays.vlist_inv_val.data_ptr(), arrays.clist_idx.data_ptr(),
-        arrays.clist_len.data_ptr(), out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
-        b, n, arrays.m, arrays.dmax, arrays.clist_idx.shape[1], w, k_stop, max_iters,
-        int(gf_order == 256), torch.cuda.current_stream(words.device).cuda_stream,
-    )
-    _build.check(rc, "ldpc_peel_counted_launch")
-    counter = _counter("counted", gf_order)
     setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
     return out, er_out, iters
 
@@ -530,11 +574,8 @@ def peel_decode(
         return peel_decode_reference(arrays, values, erased, **kw)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    if schedule == "counted":
-        out, er_out, iters = launch_counted(arrays, words, erased, k_stop, max_iters, gf_order)
-    else:
-        out, er_out, iters = launch_kernel(arrays, words, erased, k_stop, max_iters, gf_order,
-                                           schedule=schedule)
+    out, er_out, iters = launch_kernel(arrays, words, erased, k_stop, max_iters, gf_order,
+                                       schedule=schedule)
     return (out.view(torch.uint8) if gf_order == 256 else out), er_out, iters
 
 

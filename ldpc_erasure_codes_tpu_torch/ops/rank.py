@@ -10,10 +10,15 @@ rows only pivot pad columns, so a real column fails to find a pivot exactly
 when it lies in the span of the real columns before it.
 
 :func:`f2_rank_check` launches ``csrc/rank.cu`` for CUDA tensors (one block
-per frame; the erased columns built bit-packed from the Clist, in shared
-memory or, where they do not fit, in device memory) and runs
-:func:`f2_rank_check_reference` for CPU tensors. ``ops/ge.py::
-ge_rank_check`` sends binary CUDA tensors here.
+per frame, the erased columns built bit-packed from the Clist) by the first
+of :data:`ROUTES` that fits: "registers" (a thread per row, m <= 1024 and
+emax <= 512, the row's words in registers, one barrier per column step),
+"smem" (256 threads, a row scan and two barriers per column step, the
+matrix in shared memory) or "device" (the same column step on a matrix in
+device memory). All pick the first candidate row as the pivot, the order
+of :func:`f2_rank_check_reference`.
+CPU tensors take the reference.
+``ops/ge.py::ge_rank_check`` sends binary CUDA tensors here.
 """
 
 from __future__ import annotations
@@ -82,24 +87,46 @@ def f2_rank_check_reference(
     return failed
 
 
-def fits_shared_memory(n: int, m: int, emax: int) -> bool:
-    """Whether a frame's (m, emax)-bit matrix fits in one block's shared
-    memory on the current CUDA device (the kernel's fast mode)."""
-    return bool(_build.library().ldpc_rank_fits_smem(n, m, emax))
+ROUTES = ("registers", "smem", "device")
 
 
-def launch_kernel(arrays: CodeArrays, erased: torch.Tensor, emax: int, in_smem: bool):
-    """Launch the kernel with the matrix in shared memory (``in_smem``) or
-    in device memory; :func:`f2_rank_check` picks the mode by size, the card
-    tests force each."""
+def route_fits(route: str, n: int, m: int, emax: int) -> bool:
+    """Whether the kernel's ``route`` takes a frame of n symbols, m rows
+    and ``emax`` columns on the current CUDA device: "registers" needs m <=
+    1024 and emax <= 512; "smem" needs the m x ceil(emax/32)-word matrix
+    within the shared memory a block may opt in to; "device" needs only the
+    frame's bitmasks (n + 2m bits) within 48 KB of shared memory."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    return bool(_build.library().ldpc_rank_fits(ROUTES.index(route), n, m, emax))
+
+
+def kernel_route(n: int, m: int, emax: int) -> str:
+    """The first of :data:`ROUTES` that fits (the fastest); raises where
+    none does."""
+    for route in ROUTES:
+        if route_fits(route, n, m, emax):
+            return route
+    raise ValueError(f"no route of the rank kernel takes n={n}, m={m}, emax={emax}")
+
+
+def launch_kernel(arrays: CodeArrays, erased: torch.Tensor, emax: int, route: str):
+    """Launch the kernel by ``route``; :func:`f2_rank_check` picks the
+    route by size, the card tests force each. Raises where the route does
+    not fit the shapes."""
     b, n = erased.shape
+    if not route_fits(route, n, arrays.m, emax):
+        raise ValueError(f"the rank kernel's {route!r} route does not take n={n}, "
+                         f"m={arrays.m}, emax={emax} on this device")
     failed = torch.empty((b,), dtype=torch.bool, device=erased.device)
-    words = 0 if in_smem else b * _build.library().ldpc_rank_scratch_words(arrays.m, emax)
+    words = 0
+    if route == "device":
+        words = b * _build.library().ldpc_rank_scratch_words(arrays.m, emax)
     scratch = torch.empty((max(words, 1),), dtype=torch.int32, device=erased.device)
     rc = _build.library().ldpc_rank_launch(
         erased.data_ptr(), arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(),
         scratch.data_ptr(), failed.data_ptr(), b, n, arrays.m, arrays.clist_idx.shape[1], emax,
-        int(in_smem), torch.cuda.current_stream(erased.device).cuda_stream,
+        ROUTES.index(route), torch.cuda.current_stream(erased.device).cuda_stream,
     )
     _build.check(rc, "ldpc_rank_launch")
     f2_rank_check.launches += 1
@@ -117,9 +144,8 @@ def f2_rank_check(arrays: CodeArrays, erased: torch.Tensor, *, emax: int) -> tor
 
     Returns failed (B,) bool, equal to ``ge_rank_check(gf_order=2)``'s.
     CPU tensors take :func:`f2_rank_check_reference`; CUDA tensors launch
-    the kernel (or raise), with the matrix in shared memory when it fits
-    there and in device memory otherwise. ``f2_rank_check.launches`` counts
-    kernel launches.
+    the kernel (or raise) by the first of :data:`ROUTES` that fits.
+    ``f2_rank_check.launches`` counts kernel launches.
     """
     _check(arrays, erased, emax)
     if erased.device.type == "cpu":
@@ -129,8 +155,7 @@ def f2_rank_check(arrays: CodeArrays, erased: torch.Tensor, *, emax: int) -> tor
     emax = min(emax, arrays.n)
     erased = erased.contiguous()
     with torch.cuda.device(erased.device):
-        in_smem = fits_shared_memory(arrays.n, arrays.m, emax)
-        return launch_kernel(arrays, erased, emax, in_smem)
+        return launch_kernel(arrays, erased, emax, kernel_route(arrays.n, arrays.m, emax))
 
 
 f2_rank_check.launches = 0

@@ -27,7 +27,12 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_mask,
 )
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
-from torch_port_cases import cuda_device, random_words, to_torch  # noqa: F401 (fixture)
+from torch_port_cases import (  # noqa: F401 (fixture)
+    cuda_device,
+    random_words,
+    rank_edge_masks,
+    to_torch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -194,19 +199,21 @@ def test_peel_schedule_kernel_matches_plain(cuda_device, name, per, max_iters, e
 
 
 _ORDER_PLAIN = {"grouped": peel.grouped_schedule_reference,
-                "jacobi": peel.jacobi_schedule_reference}
+                "jacobi": peel.jacobi_schedule_reference,
+                "counted": peel.counted_schedule_reference}
 
 
-@pytest.mark.parametrize("schedule", ["grouped", "jacobi"])
+@pytest.mark.parametrize("schedule", ["grouped", "jacobi", "counted"])
 @pytest.mark.parametrize("name,per,max_iters", [
     ("n2040_k1530", 0.1406, 50), ("n2040_k1530", 0.3, 10), ("n4080_k3060", 0.2, 50),
     ("n4000_k2000", 0.3, 50)])
 @pytest.mark.parametrize("early_stop", [False, True])
 def test_schedule_kernel_orders_match_plain(cuda_device, schedule, name, per, max_iters,
                                             early_stop):
-    """The schedule kernel alone in its grouped and Jacobi visit orders,
-    against their plain versions on every output; the grouped order's
-    outputs equal the check-by-check order's (the seq schedule kernel)."""
+    """The schedule kernel alone in its grouped, Jacobi and counted visit
+    orders, against their plain versions on every output; the grouped and
+    counted orders' outputs equal the check-by-check order's (the seq
+    schedule kernel)."""
     code = get_code(name)
     arrays = code_arrays(code, cuda_device)
     mask = torch.from_numpy(np.random.default_rng(5).random((16, code.n)) < per)
@@ -217,7 +224,7 @@ def test_schedule_kernel_orders_match_plain(cuda_device, schedule, name, per, ma
     got = peel.launch_schedule(arrays, mask, k_stop, max_iters, schedule)
     torch.cuda.synchronize()
     _equal(got, _ORDER_PLAIN[schedule](arrays, mask, max_iters=max_iters, early_stop_k=esk))
-    if schedule == "grouped":
+    if schedule != "jacobi":
         _equal(got, peel.launch_schedule(arrays, mask, k_stop, max_iters, "seq"))
 
 
@@ -809,12 +816,12 @@ def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
     _equal([x.cpu() for x in got[1:4]], want[1:4])
 
 
-# The research schedules. "counted" (csrc/peel_sched.cu) and "grouped" (a
-# visit order of csrc/peel.cu's schedule kernel) are the sequential function
-# (peel_decode_reference's); "jacobi" (another visit order of csrc/peel.cu)
-# is peel_decode_jacobi_reference's. W=200 is ragged (not a multiple of the
+# The research schedules, visit orders of csrc/peel.cu's schedule kernel
+# before its slab value kernel. "counted" and "grouped" are the sequential
+# function (peel_decode_reference's); "jacobi" is
+# peel_decode_jacobi_reference's. W=200 is ragged (not a multiple of the
 # slab width), W=5 takes the one-word path; n4000_k2000 sizes the shared
-# memory of both csrc/peel.cu kernels and of counted's n + m bytes per warp.
+# memory of both csrc/peel.cu kernels.
 def _sched_plain(schedule):
     return peel_decode_jacobi_reference if schedule == "jacobi" else peel_decode_reference
 
@@ -875,25 +882,49 @@ def _peeled_residuals(arrays, b, per, seed, dev):
     return peel_decode_mask(arrays, mask, max_iters=200)[0]
 
 
-@pytest.mark.parametrize("name,b,per,emax,in_smem", [
-    ("n2040_k1530", 64, 0.1875, 256, True),
-    ("n2040_k1530", 64, 0.2031, 512, True),
-    ("n2040_k1530", 64, 0.2031, 512, False),
-    ("n4000_k2000", 8, 0.44, 1024, False),
-    ("n2000_k1000", 16, 0.42, 512, True),
+# The rank kernel's routes, by shape: "registers" where m <= 1024 and emax
+# <= 512, "smem" where the matrix fits in shared memory, "device" always;
+# the wrapper takes the first that fits. (4000,2000) takes "smem" at emax
+# 128 and 256 (2000 rows) and only "device" at emax 1024; (2000,1000) takes
+# "smem" at emax 1024 (33 words a row).
+RANK_FITS = {
+    ("n2040_k1530", 256): ("registers", "smem", "device"),
+    ("n2040_k1530", 512): ("registers", "smem", "device"),
+    ("n2000_k1000", 512): ("registers", "smem", "device"),
+    ("n2000_k1000", 1024): ("smem", "device"),
+    ("n4000_k2000", 128): ("smem", "device"),
+    ("n4000_k2000", 256): ("smem", "device"),
+    ("n4000_k2000", 1024): ("device",),
+}
+
+
+@pytest.mark.parametrize("route", rank.ROUTES)
+@pytest.mark.parametrize("name,b,per,emax", [
+    ("n2040_k1530", 64, 0.1875, 256),
+    ("n2040_k1530", 64, 0.2031, 512),
+    ("n4000_k2000", 8, 0.44, 1024),
+    ("n2000_k1000", 16, 0.42, 512),
+    ("n2000_k1000", 16, 0.44, 1024),
 ])
-def test_rank_kernel_matches_plain(cuda_device, name, b, per, emax, in_smem):
-    """Both matrix modes; the (4000,2000) emax-1024 matrix does not fit in
-    shared memory, so the wrapper takes device memory there."""
+def test_rank_kernel_matches_plain(cuda_device, name, b, per, emax, route):
+    """Each route on peeled residuals, where it fits; where it does not
+    (``RANK_FITS``) the wrapper raises. ``f2_rank_check`` and
+    ``ge_rank_check`` take the first route that fits."""
     arrays = code_arrays(get_code(name), cuda_device)
     e = _peeled_residuals(arrays, b, per, 5, cuda_device)
     assert e.any()
+    fits = route in RANK_FITS[name, emax]
+    assert rank.route_fits(route, arrays.n, arrays.m, emax) == fits
+    assert rank.kernel_route(arrays.n, arrays.m, emax) == RANK_FITS[name, emax][0]
+    if not fits:
+        with pytest.raises(ValueError):
+            rank.launch_kernel(arrays, e, emax, route)
+        return
     want = rank.f2_rank_check_reference(arrays, e, emax=emax)
     torch.testing.assert_close(want, ge_rank_check_reference(arrays, e, emax=emax), rtol=0,
                                atol=0)
-    assert rank.fits_shared_memory(arrays.n, arrays.m, emax) == (name != "n4000_k2000")
     before = rank.f2_rank_check.launches
-    got = rank.launch_kernel(arrays, e, emax, in_smem)
+    got = rank.launch_kernel(arrays, e, emax, route)
     via_ge = ge_rank_check(arrays, e, emax=emax)
     torch.cuda.synchronize()
     assert rank.f2_rank_check.launches == before + 2
@@ -901,10 +932,37 @@ def test_rank_kernel_matches_plain(cuda_device, name, b, per, emax, in_smem):
     torch.testing.assert_close(via_ge, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("in_smem", [True, False])
-def test_rank_kernel_on_dependent_columns(cuda_device, in_smem):
+@pytest.mark.parametrize("route", rank.ROUTES)
+@pytest.mark.parametrize("emax,per", [(128, 0.03), (256, 0.06)])
+def test_rank_kernel_on_unpeeled_masks(cuda_device, emax, per, route):
+    """(4000,2000) at emax 128 (the CLI's default) and 256, on i.i.d. masks
+    as the ML decoder checks them: about 120 and 240 erasures a frame, some
+    past emax. Peeled residuals of this code are empty or far past emax, so
+    they would leave the elimination idle."""
+    arrays = code_arrays(get_code("n4000_k2000"), cuda_device)
+    rng = np.random.default_rng(emax)
+    e = torch.from_numpy(rng.random((64, arrays.n)) < per).to(cuda_device)
+    nreal = e.sum(dim=1)
+    assert bool((nreal <= emax).any()) and bool((nreal > emax).any())
+    fits = route in RANK_FITS["n4000_k2000", emax]
+    assert rank.route_fits(route, arrays.n, arrays.m, emax) == fits
+    if not fits:
+        with pytest.raises(ValueError):
+            rank.launch_kernel(arrays, e, emax, route)
+        return
+    want = rank.f2_rank_check_reference(arrays, e, emax=emax)
+    torch.testing.assert_close(want, ge_rank_check_reference(arrays, e, emax=emax), rtol=0,
+                               atol=0)
+    got = rank.launch_kernel(arrays, e, emax, route)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", rank.ROUTES)
+def test_rank_kernel_on_dependent_columns(cuda_device, route):
     """Supports of single-source-bit codewords (their columns sum to zero:
-    rank deficient) and the same with one symbol kept (independent)."""
+    rank deficient) and the same with one symbol kept (independent), by
+    each route."""
     code = get_code("n2040_k1530")
     cpu = code_arrays(code, "cpu")
     cw = encode(cpu, torch.eye(code.k, dtype=torch.uint8)[:64]).bool()
@@ -913,10 +971,35 @@ def test_rank_kernel_on_dependent_columns(cuda_device, in_smem):
     e = torch.cat([cw, kept]).to(cuda_device)
     arrays = code_arrays(code, cuda_device)
     want = rank.f2_rank_check_reference(arrays, e, emax=256)
-    got = rank.launch_kernel(arrays, e, 256, in_smem)
+    got = rank.launch_kernel(arrays, e, 256, route)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert want[:64].all() and not want[64:].all()
+
+
+@pytest.mark.parametrize("name,emax,route", [
+    *[(name, emax, route) for (name, emax), routes in RANK_FITS.items() if name != "n2000_k1000"
+      for route in routes],
+    ("n2000_k1000", 512, "registers"), ("n2000_k1000", 1024, "smem"),
+])
+def test_rank_kernel_edge_cases(cuda_device, name, emax, route):
+    """``rank_edge_masks``: no erasure, 31/32/33 erasures, emax and emax +
+    1, and codeword supports whose last column (65, 96 or emax columns in:
+    a word's first column, a word's last, the last panel's last) is the
+    dependent one, with and without it; each route against both plain
+    versions."""
+    code = get_code(name)
+    cpu = code_arrays(code, "cpu")
+    mask, dependent = rank_edge_masks(cpu, code.k, emax, 13)
+    arrays = code_arrays(code, cuda_device)
+    e = mask.to(cuda_device)
+    want = rank.f2_rank_check_reference(arrays, e, emax=emax)
+    torch.testing.assert_close(want, ge_rank_check_reference(arrays, e, emax=emax), rtol=0,
+                               atol=0)
+    got = rank.launch_kernel(arrays, e, emax, route)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not want[0] and want[5] and want[dependent.to(cuda_device)].all()
 
 
 @pytest.mark.parametrize("dtype,w,aligned", [

@@ -32,6 +32,7 @@ from ldpc_erasure_codes_tpu_torch.ops.rank import (
     f2_rank_check,
     f2_rank_check_reference,
 )
+from torch_port_cases import rank_edge_masks
 
 
 def _residuals(arrays, n, pers, frames_per, seed):
@@ -95,6 +96,30 @@ def test_rank_flags_match_jax(name, emax):
     assert deficient.any(), "no rank-deficient frame"
     assert (~want & (nreal > 0)).any(), "no solvable residual frame"
     assert (nreal == 0).any() or name != "small", "no frame without a residual"
+
+
+@pytest.mark.parametrize("name,emax", [("small", 40), ("n2040_k1530", 128),
+                                       ("n2040_k1530", 256), ("n2040_k1530", 512)])
+def test_rank_edge_cases_match_jax(name, emax):
+    """The card tests' edge cases (``rank_edge_masks``): no erasure, 31, 32
+    and 33 erasures, emax and emax + 1, and codeword supports whose last
+    column (65, 96 or emax columns in: a word's first column, a word's last,
+    the last word's last) is dependent, with and without that column. Every
+    route of the kernel picks the first candidate row as the pivot, the
+    order of ``f2_rank_check_reference``; the flags do not depend on the
+    order, and equal JAX ``ge_rank_check``'s and ``ge_rank_pallas``'s."""
+    jcode, arrays, _ = CASES[name]
+    e, dependent = rank_edge_masks(arrays, jcode.k, emax, 13)
+    jarrays = device_arrays(jcode)
+    je = jnp.asarray(e.numpy())
+    want = np.asarray(jax_ge.ge_rank_check(jarrays, je, emax=emax))
+    pallas = np.asarray(ge_rank_pallas(jarrays, je, emax=min(emax, jcode.n), interpret=True))
+    np.testing.assert_array_equal(pallas, want)
+    np.testing.assert_array_equal(f2_rank_check_reference(arrays, e, emax=emax).numpy(), want)
+    np.testing.assert_array_equal(f2_rank_check(arrays, e, emax=emax).numpy(), want)
+    np.testing.assert_array_equal(ge_rank_check_reference(arrays, e, emax=emax).numpy(), want)
+    assert not want[0] and want[5] and want[dependent.numpy()].all()
+    assert dependent.numel() == (1 if name == "small" else 3)
 
 
 def test_small_code_outcomes_are_the_ones_built():

@@ -1,13 +1,15 @@
-"""The grouped and Jacobi visit orders of the port's peel schedule kernel
-(``csrc/peel.cu``), in their plain versions, against the sequential
-schedule, the Jacobi decoder and the JAX package's Pallas peel.
+"""The grouped, counted and Jacobi visit orders of the port's peel
+schedule kernel (``csrc/peel.cu``), in their plain versions, against the
+sequential schedule, the Jacobi decoder and the JAX package's Pallas peel.
 
-On the card, ``peel_decode(schedule="grouped"/"jacobi")`` runs the schedule
-kernel in that order, then the slab value kernel. Here their plain halves
-are held to what they must compute: ``grouped_schedule_reference`` (the
-check groups visited together) equals ``peel_schedule_reference`` on every
-output, which checks in plain code that disjoint checks commute under the
-sequential sweep; ``jacobi_schedule_reference`` has one resolution per
+On the card, ``peel_decode(schedule="grouped"/"counted"/"jacobi")`` runs
+the schedule kernel in that order, then the slab value kernel. Here their
+plain halves are held to what they must compute:
+``grouped_schedule_reference`` (the check groups visited together) and
+``counted_schedule_reference`` (live counts read in windows of 32 checks)
+equal ``peel_schedule_reference`` on every output, which checks in plain
+code that disjoint checks commute under the sequential sweep and that a
+window's ballot order is the sweep's; ``jacobi_schedule_reference`` has one resolution per
 symbol per level, at level = its sweep, and composed with
 ``apply_schedule_reference`` equals ``peel_decode_jacobi_reference`` on
 random words (no codeword: where checks solve one symbol in one sweep,
@@ -32,6 +34,7 @@ from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.peel import (
     apply_schedule_reference,
+    counted_schedule_reference,
     grouped_schedule_reference,
     jacobi_schedule_reference,
     peel_decode_reference,
@@ -45,6 +48,7 @@ from torch_port_cases import (
     to_port_code,
     to_torch,
     to_words,
+    window_cascade,
 )
 
 B = 8
@@ -69,28 +73,53 @@ def _equal(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("max_iters", [50, 10])
-@pytest.mark.parametrize("early_stop", [False, True])
-@pytest.mark.parametrize("per", [0.1406, 0.3])
-def test_grouped_schedule_equals_sequential(per, early_stop, max_iters):
-    """(2040,1530): the grouped visit gives the check-by-check schedule on
-    every output (res, lvl_off, nlev, erased, iters), with the all-erased and
-    none-erased frames."""
+@pytest.mark.parametrize("order,per,early_stop,max_iters", [
+    pytest.param(order, per, early_stop, max_iters,
+                 id=f"{prefix}{per}-{early_stop}-{max_iters}")
+    for order, prefix in ((grouped_schedule_reference, ""), (counted_schedule_reference,
+                                                              "counted-"))
+    for per in (0.1406, 0.3) for early_stop in (False, True) for max_iters in (50, 10)])
+def test_grouped_schedule_equals_sequential(order, per, early_stop, max_iters):
+    """(2040,1530): the grouped and the counted visits give the
+    check-by-check schedule on every output (res, lvl_off, nlev, erased,
+    iters), with the all-erased and none-erased frames."""
     arrays = _arrays("n2040_k1530")
     mask = _mask(arrays.n, per, int(per * 1e4))
     kw = dict(max_iters=max_iters, early_stop_k=arrays.n - arrays.m if early_stop else None)
-    got = grouped_schedule_reference(arrays, mask, **kw)
+    got = order(arrays, mask, **kw)
     _equal(got, peel_schedule_reference(arrays, mask, **kw))
     assert int(got[1][0, -1]) > 0 and int(got[1][1, -1]) == 0 and int(got[1][2, -1]) == 0
 
 
-@pytest.mark.parametrize("order", [grouped_schedule_reference, jacobi_schedule_reference])
+@pytest.mark.parametrize("order", [grouped_schedule_reference, jacobi_schedule_reference,
+                                   counted_schedule_reference])
 def test_schedule_orders_run_no_sweep_at_zero_iters(order):
     arrays = _arrays("n2040_k1530")
     mask = _mask(arrays.n, 0.1406, 3)
     res, lvl_off, nlev, er, it = order(arrays, mask, max_iters=0)
     assert not lvl_off.any() and (res == -1).all() and not it.any() and not nlev.any()
     assert torch.equal(er, mask)
+
+
+def test_counted_window_fires_a_check_lowered_in_the_same_sweep():
+    """A resolution lowers a later check of the same window from count 2 to
+    1: the counted order reads the window again past the check that fired
+    and resolves the later one in the same sweep, as the sequential sweep
+    does (one sweep, two resolutions, the second one level up)."""
+    arrays = _arrays("n2040_k1530")
+    e, f, c1, c2 = window_cascade(arrays)
+    mask = _mask(arrays.n, 0.1406, 41)
+    mask[0] = False
+    mask[0, [e, f]] = True
+    nbs = arrays.vlist_idx
+    assert int((mask[0, nbs[c2, : int(arrays.vlist_len[c2])]]).sum()) == 2
+    got = counted_schedule_reference(arrays, mask, max_iters=1)
+    _equal(got, peel_schedule_reference(arrays, mask, max_iters=1))
+    res, lvl_off, nlev, er, it = got
+    slot = [int((nbs[c] == s).nonzero()) for c, s in ((c1, e), (c2, f))]
+    assert res[0, :2].tolist() == [c1 << 8 | slot[0], c2 << 8 | slot[1]]
+    assert lvl_off[0, :3].tolist() == [0, 1, 2] and int(nlev[0]) == 2
+    assert not er[0].any() and int(it[0]) == 1
 
 
 def _cleared_at(arrays, mask, words, max_iters, early_stop_k):
@@ -194,19 +223,23 @@ def _small_case(per: float):
     return jcode, arrays, cw, rng.random((B, jcode.n)) < per
 
 
+_ORDERS = {"grouped": grouped_schedule_reference, "jacobi": jacobi_schedule_reference,
+           "counted": counted_schedule_reference}
+
+
 @pytest.mark.parametrize("early", [False, True])
-@pytest.mark.parametrize("schedule", ["grouped", "jacobi"])
+@pytest.mark.parametrize("schedule", ["grouped", "jacobi", "counted"])
 def test_composed_routes_match_pallas_kernel(schedule, early):
     """Schedule then value pass against ``peel_decode_vmem`` in interpret
     mode on the small code. One-frame tiles stop per frame, as the port
-    does, so "jacobi" (b_tile=1) is compared whole; "grouped" (4-frame
-    tiles) whole without early stop, and with it on the counts, the first-k
-    mask and the resolved values."""
+    does, so "jacobi" (b_tile=1) is compared whole; "grouped" and "counted"
+    (4-frame tiles) whole without early stop, and with it on the counts,
+    the first-k mask and the resolved values."""
     jcode, arrays, cw, mask = _small_case(0.3)
     k = jcode.k
     esk = k if early else None
     bt = 1 if schedule == "jacobi" else 4
-    order = jacobi_schedule_reference if schedule == "jacobi" else grouped_schedule_reference
+    order = _ORDERS[schedule]
     res, lvl_off, nlev, er, it = order(arrays, torch.from_numpy(mask), early_stop_k=esk)
     check_levels(arrays, mask, res.numpy(), lvl_off.numpy(), nlev.numpy())
     v = to_words(apply_schedule_reference(arrays, to_torch(cw), torch.from_numpy(mask), res,

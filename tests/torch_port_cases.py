@@ -78,3 +78,62 @@ def check_levels(arrays, erased, res, lvl_off, nlev) -> None:
         for lv, c, es, e in entries:
             others = [vidx[c, j] for j in range(vlen[c]) if j != es]
             assert all(level[s] < lv for s in others), (f, c, lv)
+
+
+def rank_edge_masks(arrays, k: int, emax: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Erasure masks at the rank check's edges, on the CPU: (B, n) bool and
+    the frames whose last erased column is dependent by construction.
+
+    Frames: no erasure; 31, 32 and 33 erasures (a word of columns, one
+    short, one over) and emax and emax + 1 (the bucket full, one over) on
+    random symbols; then, for T = 65, 96 and emax columns (the first column
+    of a word, the last of one, the last the bucket holds), the support of
+    a codeword with one source bit set (its columns sum to zero) filled up
+    to T symbols with random ones below its last symbol, so that the last
+    column, T - 1, is dependent; and the same set without that symbol.
+    ``k`` is the code's dimension; ``arrays`` its CPU tables."""
+    from ldpc_erasure_codes_tpu_torch.ops.encode import encode
+
+    n = arrays.n
+    rng = np.random.default_rng(seed)
+    rows, dependent = [np.zeros(n, dtype=bool)], []
+    for count in (31, 32, 33, emax, emax + 1):
+        row = np.zeros(n, dtype=bool)
+        row[rng.choice(n, min(count, n), replace=False)] = True
+        rows.append(row)
+    cw = encode(arrays, torch.eye(k, dtype=torch.uint8)).bool().numpy()
+    weight, last = cw.sum(axis=1), n - 1 - cw[:, ::-1].argmax(axis=1)
+    for t in sorted({65, 96, emax}):
+        fits = np.nonzero((weight <= t) & (last >= t - 1))[0]
+        if t > min(emax, n) or fits.size == 0:
+            continue
+        pick = fits[np.argmin(weight[fits])]
+        support = cw[pick].copy()
+        below = np.nonzero(~support[: last[pick]])[0]
+        support[rng.choice(below, t - int(support.sum()), replace=False)] = True
+        dependent.append(len(rows))
+        rows.append(support)
+        kept = support.copy()
+        kept[last[pick]] = False
+        rows.append(kept)
+    mask = torch.from_numpy(np.stack(rows))
+    return mask, torch.tensor(dependent, dtype=torch.long)
+
+
+def window_cascade(arrays, width: int = 16) -> tuple[int, int, int, int]:
+    """(e, f, c1, c2): checks c1 < c2 within one window of ``width``
+    consecutive checks (width 16 is the counted schedule kernel's at dmax
+    <= 16, and lies within the plain version's 32) that share symbol e, c1
+    being e's first check, and f a neighbour of c2, not of c1, whose first
+    check is c2. With e and f erased alone, c1 solves e and lowers c2's
+    count from 2 to 1, so c2 solves f later in the same sweep."""
+    nbs = [row[:d] for row, d in zip(arrays.vlist_idx.tolist(), arrays.vlist_len.tolist())]
+    checks = [row[:d] for row, d in zip(arrays.clist_idx.tolist(), arrays.clist_len.tolist())]
+    for e, ce in enumerate(checks):
+        c1 = min(ce)
+        for c2 in ce:
+            if c2 > c1 and c2 // width == c1 // width:
+                for f in nbs[c2]:
+                    if f != e and f not in nbs[c1] and min(checks[f]) == c2:
+                        return e, f, c1, c2
+    raise ValueError("no two checks of one window cascade")
