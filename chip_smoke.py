@@ -47,7 +47,10 @@ Phases, each fatal on failure:
    order's steps, both memory modes and both cut settings held to the plain
    versions, the device-memory mode timed; ``f2_apply_scatter`` at each
    slab width Wc, its placed rows, the fused copy alone (no row placed)
-   beside a ``clone`` of the values;
+   beside a ``clone`` of the values; ``f2_matmul_batched`` by route (the
+   list route asserted at the bucket) and at each slab width Wc on the rows
+   ``ge_solve_packed`` multiplies (those of slots it writes; the others cut
+   to zero), beside the bit-scan route and the wrapper on every row uncut;
 6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
    (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
    their plain versions at small shapes, bit-exact;
@@ -59,7 +62,9 @@ Phases, each fatal on failure:
    (``check_hybrid``), 3 reps timed;
 6c. NB escalation: B=64, PER .2031, emax 128, bucket 16, so the production
    branch overflows and ``ge_solve_wide_nb`` solves the rest with the cube
-   in device memory; verified, with ``ge_solve``'s stage time;
+   in device memory; verified, the escalation call timed, with
+   ``gf_apply_scatter`` on its GE operands (as in phase 6d's split) beside
+   a stand-in for the kernel it replaced, and ``ge_solve``'s stage time;
 6d. RS(255,192) wide decode (``bench.RSPath``), B=1024, 1024-byte
    payloads: verified on ``verify_rs``'s pattern (e = 1..63, one frame at
    64 that must fail, ``check_rs``), then the i.i.d. PER .15 and the e=63
@@ -69,7 +74,8 @@ Phases, each fatal on failure:
    (with the schedule kernel, the Wc widths and the splits, as in phase 5)
    at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch (``gf_matvec_wide``
    on its dense route: the RS H's tiles; 6c's LDPC Vlist takes the list
-   route);
+   route; ``gf_apply_scatter`` at each tile size R, its placed rows per
+   frame, its fused copy alone beside a ``clone`` and its rows alone);
 8. the ``throughput`` command by peel schedule (``bench.ThroughputPath``,
    ``bench.make_throughput_step``): (2040,1530), B=2048, W=256, PER
    .1406, first-k early stop, for each of "seq", "unrolled", "counted",
@@ -547,6 +553,9 @@ class GEInputs:
         self.elim_out = f2_eliminate(self.cube, self.nreal, emax=self.emax, a_words=self.wa)
         self.t_rows = pivot_transforms(self.elim_out[0], self.elim_out[1], self.wa)
         self.idx = torch.where(self.real, self.er_idx, n).to(torch.int32)
+        # The rows ge_solve_packed(return_rows=True) multiplies: those of
+        # slots it writes, the others cut to zero.
+        self.t_cut = torch.where((self.idx < n)[:, :, None], self.t_rows, 0)
         self.rhs = syndrome_from_topo(arrays, values)
 
     def bounds(self) -> dict:
@@ -556,6 +565,7 @@ class GEInputs:
         kw, e = self.t_rows.shape[2], self.emax
         edges = int(a.vlist_len.sum())
         terms = (word_popcount(self.t_rows) - 1).clamp(min=0)  # (B, E) XORs per word
+        cut = (word_popcount(self.t_cut) - 1).clamp(min=0)
         placed = self.idx < n
         # The apply needs the rhs of frames with a placed row and the T rows
         # of placed rows only (the least work; the kernel reads no more).
@@ -568,7 +578,7 @@ class GEInputs:
             "f2_matvec_wide": bound(4 * b * w * (n + m) + a.h_words.numel() * 4,
                                     b * w * (edges - m)),
             "f2_matmul_batched": bound(4 * (b * m * w + b * e * kw + b * e * w),
-                                       w * int(terms.sum())),
+                                       w * int(cut.sum())),
             "f2_apply_scatter": bound(
                 4 * (2 * b * n * w + live * m * w + int(placed.sum()) * kw + b * e),
                 w * int(terms[placed].sum())),
@@ -585,8 +595,8 @@ class GEInputs:
                                    lambda: syndrome_from_topo_reference(a, v)),
             "f2_matvec_wide": (lambda: f2_matvec_wide(v, a.h_words, rows=a.h_rows),
                                lambda: f2_matvec_wide_reference(v, a.h_words)),
-            "f2_matmul_batched": (lambda: f2_matmul_batched(rhs, t),
-                                  lambda: f2_matmul_batched_reference(rhs, t)),
+            "f2_matmul_batched": (lambda: f2_matmul_batched(rhs, self.t_cut),
+                                  lambda: f2_matmul_batched_reference(rhs, self.t_cut)),
             "f2_apply_scatter": (lambda: f2_apply_scatter(v, rhs, t, self.idx),
                                  lambda: f2_apply_scatter_reference(v, rhs, t, self.idx)),
         }
@@ -765,6 +775,10 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     split = apply_split(vs, ge.rhs, ge.t_rows, ge.idx, errs)
     log(f"phase 5: f2_apply_scatter on the GE bucket: {times['f2_apply_scatter']:.3f} ms; by Wc: "
         f"{apply_line(split)}")
+    split = matmul_split(ge.rhs, ge.t_cut, ge.t_rows, errs)
+    require(split["route"] == "list", f"the GE bucket's rows took the {split['route']} route")
+    log(f"phase 5: f2_matmul_batched on the GE bucket: {times['f2_matmul_batched']:.3f} ms on the "
+        f"{split['route']} route; by Wc: {matmul_line(split)}")
     stages["transform gather"] = cuda_ms(
         lambda: pivot_transforms(ge.elim_out[0], ge.elim_out[1], ge.wa), 5)
     stages["syndrome"] = times["syndrome_from_topo"]
@@ -772,7 +786,7 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     log(f"phase 5: f2_matvec_wide (H, list route) on the GE bucket ({vs.shape[0]} frames, "
         f"W={h['w']}): {times['f2_matvec_wide']:.3f} ms; by Wc: {split_line(split)}")
     stages["apply (rows)"] = times["f2_matmul_batched"]
-    x = f2_matmul_batched(ge.rhs, ge.t_rows)
+    x = f2_matmul_batched(ge.rhs, ge.t_cut)
     keep = ge.idx < code.n
     frames = sel[:, None].expand_as(ge.idx)[keep]
     target = ge.idx[keep].long()
@@ -963,6 +977,93 @@ def apply_line(split: dict) -> str:
             + f" (default Wc {split['wc_default']}); placed rows {split['placed']} of "
             f"{split['rows']}; the fused copy alone (no row placed) {split['copy_ms']:.3f} ms, "
             f"a clone of the values {split['clone_ms']:.3f} ms")
+
+
+def matmul_split(rhs, t_rows, t_all, errs: dict) -> dict:
+    """``f2_matmul_batched`` at one shape: its route (``nbmm.f2_matmul_route``,
+    from the shapes), the list route at every slab width Wc that fits (the
+    wrapper's choice is ``nbmm.f2_matmul_slab_words``), each held to both
+    plain versions; the rows with a set bit below K; the bit-scan route,
+    the kernel the list route replaced, on the same inputs; and the
+    wrapper on ``t_all``, the transform rows before ``ge_solve_packed``
+    cuts those of slots it does not write."""
+    k, w = rhs.shape[1], rhs.shape[2]
+    want = f2_matmul_batched_reference(rhs, t_rows)
+    e_rows = max_abs_err(nbmm.f2_matmul_rows_reference(rhs, t_rows), want)
+    require(e_rows == 0, f"f2_matmul_rows_reference != f2_matmul_batched_reference ({e_rows})")
+    out = {"route": nbmm.f2_matmul_route(k, w), "wc_default": nbmm.f2_matmul_slab_words(k, w),
+           "wc": [wc for wc in nbmm.F2_MATMUL_WORDS
+                  if nbmm.f2_matmul_smem(k, wc) <= nbmm.SMEM_LIMIT],
+           "real": int((word_popcount(t_rows) > 0).sum()), "rows": t_rows.shape[:2].numel()}
+    for wc in out["wc"]:
+        err = max_abs_err(nbmm.launch_matmul_rows(rhs, t_rows, wc), want)
+        errs["f2_matmul_batched"] = max(errs["f2_matmul_batched"], err)
+        require(err == 0, f"f2_matmul_batched at Wc {wc} != plain ({err})")
+        out[f"wc{wc}_ms"] = cuda_ms(lambda: nbmm.launch_matmul_rows(rhs, t_rows, wc), 5)
+    err = max_abs_err(nbmm.launch_matmul_scan(rhs, t_rows), want)
+    errs["f2_matmul_batched"] = max(errs["f2_matmul_batched"], err)
+    require(err == 0, f"f2_matmul_batched bit-scan route != plain ({err})")
+    out["scan_ms"] = cuda_ms(lambda: nbmm.launch_matmul_scan(rhs, t_rows), 3)
+    err = max_abs_err(f2_matmul_batched(rhs, t_all), f2_matmul_batched_reference(rhs, t_all))
+    errs["f2_matmul_batched"] = max(errs["f2_matmul_batched"], err)
+    require(err == 0, f"f2_matmul_batched on every row != plain ({err})")
+    out["all_real"] = int((word_popcount(t_all) > 0).sum())
+    out["all_ms"] = cuda_ms(lambda: f2_matmul_batched(rhs, t_all), 5)
+    return out
+
+
+def matmul_line(split: dict) -> str:
+    """:func:`matmul_split`'s times and counts, for a log line."""
+    return (", ".join(f"{wc} words {split[f'wc{wc}_ms']:.3f} ms" for wc in split["wc"])
+            + f" (default Wc {split['wc_default']}); rows with a set bit {split['real']} of "
+            f"{split['rows']}; the bit-scan route {split['scan_ms']:.3f} ms; every transform "
+            f"row, uncut ({split['all_real']} with a set bit), {split['all_ms']:.3f} ms")
+
+
+def gf_apply_split(values, rhs, mats, idx, errs: dict) -> dict:
+    """``gf_apply_scatter`` at one shape: R (``nbmm.gf_apply_rows``, from E)
+    and the kernel at every R, each held to both plain versions; the placed
+    rows per frame; the copy alone (every target out of range, so no row
+    is placed: the output must equal the values) beside a ``clone`` of the
+    values; the rows alone (the kernel with its copy cut; the placed rows
+    held to the plain version's)."""
+    n, e = values.shape[1], mats.shape[1]
+    want = gf_apply_scatter_reference(values, rhs, mats, idx)
+    e_tiles = max_abs_err(nbmm.gf_apply_tiles_reference(values, rhs, mats, idx), want)
+    require(e_tiles == 0, f"gf_apply_tiles_reference != gf_apply_scatter_reference ({e_tiles})")
+    keep = (idx >= 0) & (idx < n)
+    placed = keep.sum(dim=1)
+    r = nbmm.gf_apply_rows(e)
+    out = {"r": r, "tiles": -(-e // r), "placed_mean": float(placed.float().mean()),
+           "placed_max": int(placed.max()), "frames_none": int((placed == 0).sum())}
+    for rr in nbmm.GF_APPLY_ROWS:
+        err = max_abs_err(nbmm.launch_gf_apply(values, rhs, mats, idx, rr), want)
+        errs["gf_apply_scatter"] = max(errs["gf_apply_scatter"], err)
+        require(err == 0, f"gf_apply_scatter at R {rr} != plain ({err})")
+        out[f"r{rr}_ms"] = cuda_ms(lambda: nbmm.launch_gf_apply(values, rhs, mats, idx, rr), 5)
+    none = torch.full_like(idx, n)
+    require(torch.equal(nbmm.launch_gf_apply(values, rhs, mats, none, r), values),
+            "gf_apply_scatter with no row placed != the values")
+    out["copy_ms"] = cuda_ms(lambda: nbmm.launch_gf_apply(values, rhs, mats, none, r), 5)
+    out["clone_ms"] = cuda_ms(lambda: values.clone(), 5)
+    rows = nbmm.launch_gf_apply(values, rhs, mats, idx, r, copy=False)
+    frames = torch.arange(values.shape[0], device=idx.device)[:, None].expand_as(idx)[keep]
+    target = idx[keep].long()
+    require(torch.equal(rows[frames, target], want[frames, target]),
+            "gf_apply_scatter's rows alone != the plain version's placed rows")
+    out["rows_ms"] = cuda_ms(
+        lambda: nbmm.launch_gf_apply(values, rhs, mats, idx, r, copy=False), 5)
+    return out
+
+
+def gf_apply_line(split: dict) -> str:
+    """:func:`gf_apply_split`'s times and counts, for a log line."""
+    return (", ".join(f"R {rr} {split[f'r{rr}_ms']:.3f} ms" for rr in nbmm.GF_APPLY_ROWS)
+            + f" (default R {split['r']}, {split['tiles']} tiles); placed rows per frame "
+            f"{split['placed_mean']:.2f} mean, {split['placed_max']} max, "
+            f"{split['frames_none']} frames none; the fused copy alone (no row placed) "
+            f"{split['copy_ms']:.3f} ms, a clone of the values {split['clone_ms']:.3f} ms; the "
+            f"rows alone (no copy) {split['rows_ms']:.3f} ms")
 
 
 def encode_split(arrays, src, gf_order: int, errs: dict, name: str) -> dict:
@@ -1262,6 +1363,21 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     for name in ("peel_decode_gf256", "gf256_eliminate", "gf_matvec_wide", "gf_apply_scatter"):
         require(counts[name] > 0, f"the NB escalation never launched the {name} kernel")
     add_counts(launches, counts)
+    esc_ms = cuda_ms(lambda: hybrid_decode_escalated(esc.arrays, esc.codewords, mask, **kw), 3)
+    ge = GEInputsNB(esc.arrays, pv[cand], resid[cand], emax2)
+    split = gf_apply_split(ge.values, ge.rhs, ge.t_top, ge.idx, errs)
+    # The replaced kernel was a clone of the values, then gf_matmul_batched's
+    # body over the placed rows (dropped rows skipped): the same body on
+    # the rows with the dropped ones zeroed, after a clone, stands in for it.
+    cut = torch.where((ge.idx < code.n)[:, :, None], ge.t_top, 0)
+    old_ms = cuda_ms(lambda: (ge.values.clone(), gf_matmul_batched(ge.rhs, cut)), 5)
+    r_ms = split[f"r{split['r']}_ms"]
+    log(f"phase 6c: the escalation call {esc_ms:.3f} ms (CUDA events, 3 reps); gf_apply_scatter "
+        f"on its GE operands ({ge.values.shape[0]} frames, E={ge.t_top.shape[1]}, "
+        f"m={code.m}): {r_ms:.3f} ms; by R: {gf_apply_line(split)}; "
+        f"the replaced body's stand-in (a clone, then gf_matmul_batched on the placed rows) "
+        f"{old_ms:.3f} ms; on {card}")
+    del ge, cut
     sel = residual_order(resid, kw["ge_subbatch"])[0]
     vs, es = pv[sel], resid[sel]
     ge_ms = cuda_ms(lambda: ge_solve(esc.arrays, vs, es, emax=kw["emax"], gf_order=256), 2)
@@ -1318,6 +1434,9 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
         require(e == 0, f"RS shape: {name} kernel != plain ({e})")
         del want
     bounds.update(ge.bounds())
+    split = gf_apply_split(recv, ge.rhs, ge.t_top, ge.idx, errs)
+    log(f"phase 6d: gf_apply_scatter at RS({r['n']},{r['k']}) B={r['b']} {r['wb']} bytes, PER "
+        f"{r['per']}: {times['gf_apply_scatter']:.3f} ms; by R: {gf_apply_line(split)}; on {card}")
     for name in ("encode_packed_gf256", "peel_decode_gf256", "gf256_eliminate",
                  "gf_matvec_wide", "gf_apply_scatter"):
         at = (f"B={nb['b']} {nb['wb']}-byte symbols" if "gf256" in name and "elim" not in name

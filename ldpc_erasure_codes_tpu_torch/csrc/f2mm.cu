@@ -5,8 +5,10 @@
 //   - ldpc_f2_matvec_launch: one M for every frame (a dense H), bit scan;
 //   - ldpc_f2_matvec_rows_launch: one M given as its rows' column lists (an
 //     LDPC H), the list route;
-//   - ldpc_f2_matmul_launch: a matrix per frame, x written as (B, E, W), bit
-//     scan;
+//   - ldpc_f2_matmul_rows_launch / ldpc_f2_matmul_launch: a matrix per
+//     frame, x written as (B, E, W): every row listed and summed out of a
+//     slab (f2_matmul_rows_kernel, below), or the bit scan where no slab
+//     fits;
 //   - ldpc_f2_apply_rows_launch: a matrix per frame, out = values with row e
 //     XORed into out[b, idx[b, e], :]; rows whose target is outside [0, n)
 //     are dropped.
@@ -65,6 +67,32 @@
 //      rows each, eight reads in flight, XOR-reduce the shares (shfl) and
 //      write values[idx] ^ sum to the chunk's words of out[idx]; no other
 //      write touches them.
+//
+// The transform rows (f2_matmul_batched: the hybrid's solved rows, which
+// its tiled writeback places itself). At the GE bucket E = 512 rows are
+// written; every transform row has set bits, but only the ~37% whose slot
+// is written matter, and ge_solve_packed zeroes the others before the
+// product (85587 of 229376 rows keep a set bit, ~96 each). What bounds it
+// then: device memory, 0.23 GB of rhs read and 0.23 GB of rows written
+// (PERF.md's bound, 0.144 ms); the listed rows' XORs are ~2.4e9 word
+// operations. The bit scan it replaced there (f2mm_kernel: a thread per
+// output word walking all KW matrix words of its row with a divergent
+// __ffs loop, the rhs rows staged with no load in flight) took 2.303 ms on
+// every row, uncut, on NVIDIA H100 80GB HBM3, 700.00 W. Design
+// (f2_matmul_rows_kernel): the apply without steps 1 and 3: the slab of
+// the K rhs rows filled by cp.async, then step 4 over every row in order,
+// each written once to out[b, e]; a row with an empty list skips the sum
+// and writes zeros, and each warp's next matrix row is loaded while it
+// sums the current one. The list and the sum are the apply's device
+// functions (list_row, sum_list); the two kernels stay apart so that each
+// gets its own register allocation (one template with a mode flag slowed
+// both). Wc = 32 (two blocks an SM) halves the lists made per row against
+// the apply's 16. The bit scan stays the route for K whose slab and lists
+// do not fit (chosen on the host, ops/nbmm.py::f2_matmul_route).
+//
+// Measured by chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W at the GE
+// bucket: the list route 0.751 ms on the rows ge_solve_packed passes (the
+// bit scan 1.757 ms on the same rows) and 1.108 ms on every row, uncut.
 
 #include <cstdint>
 
@@ -218,12 +246,65 @@ cudaError_t launch_rows(const int32_t* values, const int32_t* idx, const int32_t
 constexpr int kApplyThreads = 512;
 constexpr int kApplyWarps = kApplyThreads / 32;
 
-// The apply's shared memory: the slab of K rows of Wc words, a list of up
-// to K uint16 columns per warp, the placed rows, a bit per symbol (set
-// where a row is placed), and the count.
+// The shared memory of f2_matmul_rows_kernel: the slab of K rows of Wc
+// words and a list of up to K uint16 columns per warp; the apply's adds the
+// placed rows, a bit per symbol (set where a row is placed) and the count.
+__host__ __device__ inline int rows_mode_bytes(int K, int wc) {
+    return 4 * K * wc + round16(2 * kApplyWarps * K);
+}
 __host__ __device__ inline int apply_bytes(int K, int E, int n, int wc) {
-    return 4 * K * wc + round16(2 * kApplyWarps * K) + round16(4 * E) +
-           round16(4 * ((n + 31) / 32)) + 16;
+    return rows_mode_bytes(K, wc) + round16(4 * E) + round16(4 * ((n + 31) / 32)) + 16;
+}
+
+// Lists the set columns below K of one packed matrix row into `list`, in
+// ascending order (popc and a warp prefix count per 32 words); returns
+// their number, the same in every lane. `first` is the lane's word of the
+// first 32 (0 past KW); the others are read from `row`.
+__device__ __forceinline__ int list_row(const uint32_t* row, uint32_t first, int KW, int K,
+                                        uint16_t* list, int lane) {
+    const uint32_t last = (K & 31) ? (1u << (K & 31)) - 1u : 0xffffffffu;
+    int len = 0;
+    for (int kw0 = 0; kw0 < KW; kw0 += 32) {
+        const int kw = kw0 + lane;
+        uint32_t bits = kw0 == 0 ? first : kw < KW ? __ldg(row + kw) : 0u;
+        if (kw == KW - 1) bits &= last;
+        const int c = __popc(bits);
+        int incl = c;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += v;
+        }
+        for (int pos = len + incl - c; bits; bits &= bits - 1)
+            list[pos++] = (uint16_t)(32 * kw + __ffs(bits) - 1);
+        len += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    __syncwarp();
+    return len;
+}
+
+// The XOR of the listed slab rows at part p of the chunk: the lanes with
+// this p (share = 0 .. 32 / P - 1) sum a share of the list each, eight
+// reads in flight, then XOR-reduce the shares (shfl); every lane takes part.
+template <int VEC, int P>
+__device__ __forceinline__ Words<VEC> sum_list(const Words<VEC>* slab, const uint16_t* list,
+                                               int len, int p, int share) {
+    using V = Words<VEC>;
+    constexpr int kShares = 32 / P;  // lanes on each part of the chunk
+    V acc = V::zero();
+    for (int j0 = share; j0 < len; j0 += 8 * kShares) {
+        V v[8];  // eight predicated reads in flight, none past the list
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int j = j0 + u * kShares;
+            v[u] = j < len ? slab[list[j] * P + p] : V::zero();
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc ^= v[u];
+    }
+#pragma unroll
+    for (int o = P; o < 32; o <<= 1) acc ^= acc.shfl_xor(o);
+    return acc;
 }
 
 template <int VEC, int P>
@@ -233,7 +314,6 @@ f2_apply_rows_kernel(const int32_t* __restrict__ values, const int32_t* __restri
                      int32_t* __restrict__ out, int K, int KW, int E, int W, int n,
                      int n_chunks) {
     using V = Words<VEC>;
-    constexpr int kShares = 32 / P;  // lanes on each part of the chunk
     extern __shared__ __align__(16) uint8_t smem_raw[];
     V* slab = reinterpret_cast<V*>(smem_raw);
     uint16_t* lists = reinterpret_cast<uint16_t*>(smem_raw + (size_t)4 * K * VEC * P);
@@ -297,46 +377,55 @@ f2_apply_rows_kernel(const int32_t* __restrict__ values, const int32_t* __restri
     // 4. A warp per placed row: its list of set columns, then its sum.
     uint16_t* list = lists + warp * K;
     const int p = lane % P, share = lane / P;
-    const uint32_t last = (K & 31) ? (1u << (K & 31)) - 1u : 0xffffffffu;
     for (int q = warp; q < np; q += kApplyWarps) {
         const int e = placed[q];
         const uint32_t* row = t + ((size_t)b * E + e) * KW;
-        int len = 0;
-        for (int kw0 = 0; kw0 < KW; kw0 += 32) {
-            const int kw = kw0 + lane;
-            uint32_t bits = kw < KW ? __ldg(row + kw) : 0u;
-            if (kw == KW - 1) bits &= last;
-            const int c = __popc(bits);
-            int incl = c;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const int v = __shfl_up_sync(0xffffffffu, incl, o);
-                if (lane >= o) incl += v;
-            }
-            for (int pos = len + incl - c; bits; bits &= bits - 1)
-                list[pos++] = (uint16_t)(32 * kw + __ffs(bits) - 1);
-            len += __shfl_sync(0xffffffffu, incl, 31);
-        }
-        __syncwarp();
-        V acc = V::zero();
-        for (int j0 = share; j0 < len; j0 += 8 * kShares) {
-            V v[8];  // eight predicated reads in flight, none past the list
-#pragma unroll
-            for (int u = 0; u < 8; ++u) {
-                const int j = j0 + u * kShares;
-                v[u] = j < len ? slab[list[j] * P + p] : V::zero();
-            }
-#pragma unroll
-            for (int u = 0; u < 8; ++u) acc ^= v[u];
-        }
-#pragma unroll
-        for (int o = P; o < 32; o <<= 1) acc ^= acc.shfl_xor(o);
+        const int len = list_row(row, lane < KW ? __ldg(row + lane) : 0u, KW, K, list, lane);
+        const V acc = sum_list<VEC, P>(slab, list, len, p, share);
         if (share == 0 && w0 + p * VEC < W) {
             const size_t off = (size_t)__ldg(tg + e) * W + w0 + p * VEC;
             V v = V::load_ro(vf + off);
             v ^= acc;
             v.store(of + off);
         }
+        __syncwarp();  // the list is rewritten for the next row
+    }
+}
+
+// The transform rows (f2_matmul_batched): a block per (frame, chunk of VEC
+// * P words), the slab of the K rhs rows, then a warp per row of T_b in
+// order, its list and sum as the apply's step 4, written to out[b, e]; each
+// lane's first matrix word of the warp's next row is loaded one row ahead.
+template <int VEC, int P>
+__global__ void __launch_bounds__(kApplyThreads)
+f2_matmul_rows_kernel(const int32_t* __restrict__ rhs, const uint32_t* __restrict__ t,
+                      int32_t* __restrict__ out, int K, int KW, int E, int W, int n_chunks) {
+    using V = Words<VEC>;
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    V* slab = reinterpret_cast<V*>(smem_raw);
+    uint16_t* list = reinterpret_cast<uint16_t*>(smem_raw + (size_t)4 * K * VEC * P) +
+                     (threadIdx.x / 32) * K;
+    const int b = blockIdx.x / n_chunks;
+    const int w0 = (blockIdx.x % n_chunks) * VEC * P;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    slab_load<VEC, P>(slab, rhs + (size_t)b * K * W + w0, K, W, w0, threadIdx.x,
+                      kApplyThreads);
+    const uint32_t* tf = t + (size_t)b * E * KW;
+    uint32_t ahead = warp < E && lane < KW ? __ldg(tf + (size_t)warp * KW + lane) : 0u;
+    copy_async_wait();
+    __syncthreads();
+
+    const int p = lane % P, share = lane / P;
+    int32_t* of = out + (size_t)b * E * W + w0 + p * VEC;
+    for (int e = warp; e < E; e += kApplyWarps) {
+        const uint32_t* row = tf + (size_t)e * KW;
+        const uint32_t first = ahead;
+        ahead = e + kApplyWarps < E && lane < KW ? __ldg(row + kApplyWarps * KW + lane) : 0u;
+        const int len = list_row(row, first, KW, K, list, lane);
+        // len is the same in every lane: an empty list writes zeros.
+        const V acc = len > 0 ? sum_list<VEC, P>(slab, list, len, p, share) : V::zero();
+        if (share == 0 && w0 + p * VEC < W) acc.store(of + (size_t)e * W);
         __syncwarp();  // the list is rewritten for the next row
     }
 }
@@ -355,6 +444,22 @@ cudaError_t launch_apply(const int32_t* values, const int32_t* rhs, const uint32
     const int n_chunks = (W + VEC * P - 1) / (VEC * P);
     kernel<<<(unsigned)((long long)B * n_chunks), kApplyThreads, smem, stream>>>(
         values, rhs, t, idx, out, K, KW, E, W, n, n_chunks);
+    return cudaGetLastError();
+}
+
+template <int VEC, int P>
+cudaError_t launch_matmul_rows(const int32_t* rhs, const uint32_t* t, int32_t* out, int B,
+                               int K, int KW, int E, int W, cudaStream_t stream) {
+    const size_t smem = rows_mode_bytes(K, VEC * P);
+    const auto kernel = f2_matmul_rows_kernel<VEC, P>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    const int n_chunks = (W + VEC * P - 1) / (VEC * P);
+    kernel<<<(unsigned)((long long)B * n_chunks), kApplyThreads, smem, stream>>>(
+        rhs, t, out, K, KW, E, W, n_chunks);
     return cudaGetLastError();
 }
 
@@ -396,11 +501,42 @@ extern "C" int ldpc_f2_matvec_launch(const int32_t* values, const uint32_t* h, i
     return launch<true>(values, h, out, B, n, KW, m, W, stream);
 }
 
-// out (B, E, W) = T_b (E rows of KW words over K columns) . rhs_b (K, W).
+// out (B, E, W) = T_b (E rows of KW words over K columns) . rhs_b (K, W),
+// the bit scan (f2_matmul_batched's route where no slab fits).
 extern "C" int ldpc_f2_matmul_launch(const int32_t* rhs, const uint32_t* t, int32_t* out,
                                      int B, int K, int KW, int E, int W,
                                      cudaStream_t stream) {
     return launch<false>(rhs, t, out, B, K, KW, E, W, stream);
+}
+
+// The same product by f2_matmul_rows_kernel: every row of T_b listed and
+// summed out of a slab of Wc = wc words (4, 8, 16 or 32) and written in
+// order. K < 65535, and the slab with the lists must fit a
+// block's shared memory.
+extern "C" int ldpc_f2_matmul_rows_launch(const int32_t* rhs, const uint32_t* t, int32_t* out,
+                                          int B, int K, int KW, int E, int W, int wc,
+                                          cudaStream_t stream) {
+    if (B == 0 || E == 0) return (int)cudaSuccess;
+    if (K >= 65535 || rows_mode_bytes(K, wc) > kMaxSmem) return (int)cudaErrorInvalidValue;
+#define F2_MATMUL(VEC, P) \
+    return (int)launch_matmul_rows<VEC, P>(rhs, t, out, B, K, KW, E, W, stream)
+    if (vec4_ok(W, {rhs, out})) {
+        switch (wc) {
+            case 4: F2_MATMUL(4, 1);
+            case 8: F2_MATMUL(4, 2);
+            case 16: F2_MATMUL(4, 4);
+            case 32: F2_MATMUL(4, 8);
+        }
+    } else {
+        switch (wc) {
+            case 4: F2_MATMUL(1, 4);
+            case 8: F2_MATMUL(1, 8);
+            case 16: F2_MATMUL(1, 16);
+            case 32: F2_MATMUL(1, 32);
+        }
+    }
+#undef F2_MATMUL
+    return (int)cudaErrorInvalidValue;
 }
 
 // out (B, n, W) = values with row e of T_b . rhs_b (T_b: E rows of KW words

@@ -6,10 +6,10 @@
 //     With the Vlist it is the syndrome H . y of the GE solver. The tiled
 //     entry takes the dense RS H (ops/nbmm.py::matrix_tiles), the list
 //     entry a sparse LDPC Vlist (the wrapper chooses by the lists' fill).
-//   - ldpc_gf_apply_launch: out[b, idx[b, e], :] ^= sum_i T[b, e, i] *
-//     rhs[b, i, :], a per-frame (E, m) byte matrix applied and its rows
-//     placed in the erased slots (which hold zero); rows whose target is
-//     outside [0, n) are dropped.
+//   - ldpc_gf_apply_launch: out = values with row e of T_b . rhs_b XORed
+//     into symbol idx[b, e], a per-frame (E, m) byte matrix applied and its
+//     rows placed in the erased slots (which hold zero); rows whose target
+//     is outside [0, n) are dropped.
 //   - ldpc_gf_matmul_launch: out[b, e, :] = sum_i M[b, e, i] * rhs[b, i, :],
 //     the same product with its rows written in order (no placement).
 //
@@ -34,13 +34,13 @@
 // tile it reads y_s once, coalesced, forms its 8 multiples y * x^t (7
 // doublings), and writes the 30 nonzero XOR combinations of the low four
 // and of the high four into its own column of a shared-memory table (the
-// "nibble products"; rows 0 and 16 hold zero). Then each row i adds
-// c_is * y_s = lo[c & 15] ^ hi[c >> 4]: two table reads and one XOR, with
-// the table offsets of c_is precomputed on the host and read as
-// warp-uniform words. Per (row, column) that is ~4 instructions where a
+// "nibble products", nibble_products below; rows 0 and 16 hold zero). Then
+// each row i adds c_is * y_s = lo[c & 15] ^ hi[c >> 4]: two table reads and
+// one XOR, with the table offsets of c_is precomputed on the host and read
+// as warp-uniform words. Per (row, column) that is ~4 instructions where a
 // masked-XOR form (one AND-XOR per coefficient bit, y * x^t & mask(c, t))
 // needs 8 plus the masks' making, and no ballot, shuffle or __ffs remains.
-// Table rows are TILE_THREADS words apart, so a warp's reads of one row hit
+// Table rows are kTileThreads words apart, so a warp's reads of one row hit
 // 32 banks.
 //
 // Why not tensor cores: the int8 bit-image product (the TPU's MXU form,
@@ -54,18 +54,51 @@
 // shares few columns) keeps the earlier kernel: a block per (frame, chunk
 // of 32 words), a warp per output row whose coefficients are uniform over
 // the warp, Horner over the coefficient bits per 32 terms, the rows staged
-// in shared memory where they fit. The apply's kernel (also serving
-// gf_matmul_batched) has the same shape over the per-frame matrix.
+// in shared memory where they fit. gf_matmul_kernel (gf_matmul_batched) has
+// the same shape over the per-frame matrix.
+//
+// The transform apply (gf_apply_tiled_kernel). At RS(255,192), B = 1024,
+// 1 KB payloads (m = E = 63), i.i.d. PER .15 places ~38 of a frame's 63
+// rows. What bounds it on an H100: device memory, the frame's values
+// copied to the output and the rhs read once (0.61 GB, PERF.md's bound
+// 0.181 ms); the placed rows' Horner work is ~0.1 ms at the INT32 rate.
+// The kernel it replaced (the gf_matmul_kernel body with placement: a warp
+// per row, Horner with a ballot, __ffs and shuffle per set coefficient bit,
+// after a separate clone of the values) took 1.242 ms on NVIDIA H100 80GB
+// HBM3, 700 W. Design, a block per (frame, chunk of kTileThreads words,
+// tile of R placed rows; R = 16 up to E = 16, else 32, chosen on the host):
+//   1. the frame's placed rows (target in [0, n)) are listed first, in row
+//      order, by one warp's ballots over the targets staged in shared
+//      memory, with the targets as a bit per symbol; the tile takes places
+//      t * R .. of that list, so dropped rows are never computed;
+//   2. every block copies 1 / (chunks x tiles) of the frame's symbols that
+//      are not targets to the output, whole rows, 16 bytes a lane where
+//      aligned; a block whose tile holds no placed row does only this;
+//   3. the dense route's product over the tile's rows: per column i the
+//      thread reads rhs[b, i, w] (the next row prefetched), writes its
+//      nibble products, and each placed row adds two table reads. The
+//      coefficients are per frame, so the block stages the table offsets
+//      of its rows for a panel of kPanel columns in shared memory (read as
+//      warp-uniform 16-byte words), and rows past the tile's count are
+//      skipped four at a time. Tiles of 64 rows (the dense route's) ran
+//      slower than two of 32 at every shape tried, RS's and the NB
+//      escalation's: the 96 registers a thread needs for 64 sums leave too
+//      few warps an SM to cover the table reads;
+//   4. each placed row is written once, values[idx] ^ sum; no other write
+//      touches it.
 //
 // Measured by chip_smoke.py on NVIDIA H100 80GB HBM3, 700 W: the dense
 // route 2.193 ms at RS(255,192), B = 1024, 1 KB payloads, against the
-// 0.805 ms operations bound (PERF.md section 6, row 13).
+// 0.805 ms operations bound (PERF.md section 6, row 13); the apply 0.479 ms
+// there (700.00 W), against its 0.181 ms byte bound: its copy alone 0.199
+// ms beside a clone's 0.180, its rows alone 0.382 ms.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "gf256.cuh"
+#include "slab.cuh"
 
 namespace {
 
@@ -133,13 +166,12 @@ gf_matvec_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__
     }
 }
 
-// kPlace: out (B, n, W) ^= row e at idx[b, e] (the apply); else out
-// (B, E, W) = the rows (gf_matmul_batched).
-template <bool kPlace>
+// out (B, E, W) = the rows of M_b . rhs_b in order (gf_matmul_batched): a
+// block per (frame, chunk of kChunk words), the chunk of the m rhs rows
+// staged, a warp per row.
 __global__ void __launch_bounds__(kThreads)
-gf_apply_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mats,
-                const int32_t* __restrict__ idx, int32_t* __restrict__ out, int m, int E,
-                int W, int n) {
+gf_matmul_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mats,
+                 int32_t* __restrict__ out, int m, int E, int W) {
     extern __shared__ uint32_t stage[];
     const int n_chunks = (W + kChunk - 1) / kChunk;
     const int b = blockIdx.x / n_chunks;
@@ -154,12 +186,6 @@ gf_apply_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mat
     }
     __syncthreads();
     for (int e = warp; e < E; e += kThreads / 32) {
-        size_t dst = ((size_t)b * E + e) * W;
-        if (kPlace) {
-            const int t = __ldg(idx + (size_t)b * E + e);
-            if (t < 0 || t >= n) continue;  // a dump row: dropped
-            dst = ((size_t)b * n + t) * W;
-        }
         const uint8_t* row = mats + ((size_t)b * E + e) * m;
         uint32_t acc = 0;
         for (int j0 = 0; j0 < m; j0 += 32) {
@@ -167,18 +193,50 @@ gf_apply_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mat
             const uint32_t c = j < m ? __ldg(row + j) : 0u;
             acc ^= horner32(c, j, stage, nullptr, 0, lane, own);
         }
-        if (!own) continue;
-        if (kPlace)
-            out[dst + w0 + lane] ^= (int32_t)acc;
-        else
-            out[dst + w0 + lane] = (int32_t)acc;
+        if (own) out[((size_t)b * E + e) * W + w0 + lane] = (int32_t)acc;
     }
 }
 
 constexpr int kTileThreads = 64;  // ops/nbmm.py::TILE_THREADS
+constexpr int kTabBytes = 4 * 32 * kTileThreads;
+constexpr int kPanel = 32;        // ops/nbmm.py::GF_APPLY_PANEL
 
 __device__ __forceinline__ uint32_t lookup(const uint8_t* tab, uint32_t off) {
     return *reinterpret_cast<const uint32_t*>(tab + off);
+}
+
+// The nibble products of x0, this thread's payload word, into its own
+// column tb of the table (rows kTileThreads words apart): row j (1..15) the
+// XOR of x0 * x^t over the set bits t of j, row 16 + j the same with
+// x0 * x^(4 + t). The caller zeroes rows 0 and 16 once.
+__device__ __forceinline__ void nibble_products(uint32_t* tb, uint32_t x0) {
+    const uint32_t x1 = gf_xtime4(x0), x2 = gf_xtime4(x1), x3 = gf_xtime4(x2);
+    const uint32_t x4 = gf_xtime4(x3), x5 = gf_xtime4(x4), x6 = gf_xtime4(x5);
+    const uint32_t x7 = gf_xtime4(x6);
+    uint32_t* lo = tb;
+    uint32_t* hi = tb + 16 * kTileThreads;
+    const uint32_t a3 = x0 ^ x1, b3 = x4 ^ x5;
+    const uint32_t a[15] = {x0, x1, a3, x2, x2 ^ x0, x2 ^ x1, x2 ^ a3, x3, x3 ^ x0, x3 ^ x1,
+                            x3 ^ a3, x3 ^ x2, x3 ^ x2 ^ x0, x3 ^ x2 ^ x1, x3 ^ x2 ^ a3};
+    const uint32_t h[15] = {x4, x5, b3, x6, x6 ^ x4, x6 ^ x5, x6 ^ b3, x7, x7 ^ x4, x7 ^ x5,
+                            x7 ^ b3, x7 ^ x6, x7 ^ x6 ^ x4, x7 ^ x6 ^ x5, x7 ^ x6 ^ b3};
+#pragma unroll
+    for (int k = 0; k < 15; ++k) {
+        lo[(k + 1) * kTileThreads] = a[k];
+        hi[(k + 1) * kTileThreads] = h[k];
+    }
+}
+
+// c * x0 for the coefficient c given as the byte offsets u of its two
+// nibble products in the table (low half: bits 0..15, high half: 16..31).
+__device__ __forceinline__ uint32_t nibble_product(const uint8_t* tbytes, uint32_t u) {
+    return lookup(tbytes, u & 0xFFFFu) ^ lookup(tbytes, u >> 16);
+}
+
+// The table offsets of coefficient c (ops/nbmm.py::matrix_tiles's offs).
+__device__ __forceinline__ uint32_t nibble_offsets(uint32_t c) {
+    constexpr uint32_t kRow = 4 * kTileThreads;
+    return (c & 15u) * kRow | ((16u + (c >> 4)) * kRow) << 16;
 }
 
 // A block per (frame, chunk of kTileThreads words) and tile: rhs rows
@@ -209,29 +267,15 @@ gf_matvec_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __rest
     for (int sp = 0; sp < nc; ++sp) {
         const uint32_t x0 = next;
         if (sp + 1 < nc) next = own ? (uint32_t)__ldg(y + (size_t)__ldg(cl + sp + 1) * W) : 0u;
-        const uint32_t x1 = gf_xtime4(x0), x2 = gf_xtime4(x1), x3 = gf_xtime4(x2);
-        const uint32_t x4 = gf_xtime4(x3), x5 = gf_xtime4(x4), x6 = gf_xtime4(x5);
-        const uint32_t x7 = gf_xtime4(x6);
-        uint32_t* lo = tb;
-        uint32_t* hi = tb + 16 * kTileThreads;
-        const uint32_t a3 = x0 ^ x1, b3 = x4 ^ x5;
-        const uint32_t a[15] = {x0, x1, a3, x2, x2 ^ x0, x2 ^ x1, x2 ^ a3, x3, x3 ^ x0, x3 ^ x1,
-                                x3 ^ a3, x3 ^ x2, x3 ^ x2 ^ x0, x3 ^ x2 ^ x1, x3 ^ x2 ^ a3};
-        const uint32_t h[15] = {x4, x5, b3, x6, x6 ^ x4, x6 ^ x5, x6 ^ b3, x7, x7 ^ x4, x7 ^ x5,
-                                x7 ^ b3, x7 ^ x6, x7 ^ x6 ^ x4, x7 ^ x6 ^ x5, x7 ^ x6 ^ b3};
-#pragma unroll
-        for (int k = 0; k < 15; ++k) {
-            lo[(k + 1) * kTileThreads] = a[k];
-            hi[(k + 1) * kTileThreads] = h[k];
-        }
+        nibble_products(tb, x0);
         const int4* o = of + (size_t)sp * (R / 4);
 #pragma unroll
         for (int q = 0; q < R / 4; ++q) {
             const int4 v = __ldg(o + q);
-            const uint32_t u[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w};
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-                acc[4 * q + r] ^= lookup(tbytes, u[r] & 0xFFFFu) ^ lookup(tbytes, u[r] >> 16);
+            acc[4 * q] ^= nibble_product(tbytes, (uint32_t)v.x);
+            acc[4 * q + 1] ^= nibble_product(tbytes, (uint32_t)v.y);
+            acc[4 * q + 2] ^= nibble_product(tbytes, (uint32_t)v.z);
+            acc[4 * q + 3] ^= nibble_product(tbytes, (uint32_t)v.w);
         }
     }
     if (!own) return;
@@ -242,9 +286,152 @@ gf_matvec_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __rest
     }
 }
 
+// The apply's shared memory: the nibble-product table, the offsets of a
+// panel of kPanel columns for R rows, the tile's placed rows, their count,
+// every row's target, and a bit per symbol (set where a row is placed).
+__host__ __device__ inline int apply_bytes(int E, int n, int R) {
+    return kTabBytes + 4 * kPanel * R + round16(4 * R) + 16 + round16(4 * E) +
+           round16(4 * ((n + 31) / 32));
+}
+
+// A block per (frame, chunk of kTileThreads words) and tile t of R placed
+// rows (csrc header, the transform apply). VEC: the copy's words per lane.
+template <int R, int VEC>
+__global__ void __launch_bounds__(kTileThreads)
+gf_apply_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__ rhs,
+                      const uint8_t* __restrict__ mats, const int32_t* __restrict__ idx,
+                      int32_t* __restrict__ out, int m, int E, int W, int n, int n_chunks,
+                      int copy) {
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    uint32_t* tab = reinterpret_cast<uint32_t*>(smem_raw);
+    uint32_t* offs = reinterpret_cast<uint32_t*>(smem_raw + kTabBytes);
+    int* rows_e = reinterpret_cast<int*>(smem_raw + kTabBytes + 4 * kPanel * R);
+    int* count = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(rows_e) + round16(4 * R));
+    int* to = count + 4;
+    const int nw = (n + 31) / 32;
+    uint32_t* targets = reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(to) +
+                                                    round16(4 * E));
+    const int chunk = blockIdx.x % n_chunks;
+    const int b = blockIdx.x / n_chunks;
+    const int t = blockIdx.y;
+
+    // 1. The placed rows in row order (every block of the frame lists the
+    //    same), this tile's share of them, and the targets as bits.
+    for (int i = threadIdx.x; i < E; i += kTileThreads) to[i] = __ldg(idx + (size_t)b * E + i);
+    for (int i = threadIdx.x; i < nw; i += kTileThreads) targets[i] = 0;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        int base = 0;
+        for (int e0 = 0; e0 < E; e0 += 32) {
+            const int e = e0 + lane;
+            const int s = e < E ? to[e] : -1;
+            const bool keep = s >= 0 && s < n;
+            const uint32_t bal = __ballot_sync(0xffffffffu, keep);
+            if (keep) {
+                atomicOr(targets + (s >> 5), 1u << (s & 31));
+                const int q = base + __popc(bal & ((1u << lane) - 1u)) - t * R;
+                if (q >= 0 && q < R) rows_e[q] = e;
+            }
+            base += __popc(bal);
+        }
+        if (lane == 0) *count = base;
+    }
+    __syncthreads();
+    const int rows = min(R, *count - t * R);
+
+    // 2. This block's share of the frame's symbols, all but the targets:
+    //    step 4 writes those, so no barrier orders the two.
+    if (copy) {
+        const int part = t * n_chunks + chunk, parts = gridDim.y * n_chunks;
+        const int s0 = (int)((long long)part * n / parts);
+        const int s1 = (int)((long long)(part + 1) * n / parts);
+        const int wv = W / VEC;
+        const int32_t* vf = values + (size_t)b * n * W;
+        int32_t* of = out + (size_t)b * n * W;
+#pragma unroll 4
+        for (int i = threadIdx.x; i < (s1 - s0) * wv; i += kTileThreads) {
+            const int s = s0 + i / wv;
+            const size_t off = (size_t)s * W + (i % wv) * VEC;
+            if (!((targets[s >> 5] >> (s & 31)) & 1u))
+                Words<VEC>::load_ro(vf + off).store(of + off);
+        }
+    }
+    if (rows <= 0) return;
+
+    // 3. The tile's rows: per column the nibble products of this thread's
+    //    rhs word, two table reads per placed row, four rows at a time.
+    const int w = chunk * kTileThreads + threadIdx.x;
+    const bool own = w < W;
+    uint32_t* tb = tab + threadIdx.x;
+    const uint8_t* tbytes = reinterpret_cast<const uint8_t*>(tb);
+    tb[0] = 0;
+    tb[16 * kTileThreads] = 0;
+    const int32_t* y = rhs + (size_t)b * m * W + w;
+    const uint8_t* mf = mats + (size_t)b * E * m;
+    uint32_t acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0;
+    uint32_t next = (own && m > 0) ? (uint32_t)__ldg(y) : 0u;
+    for (int p0 = 0; p0 < m; p0 += kPanel) {
+        const int pc = min(kPanel, m - p0);
+        __syncthreads();  // the previous panel's offsets are read
+        for (int i = threadIdx.x; i < pc * R; i += kTileThreads) {
+            const int col = i / R, r = i % R;
+            const uint32_t c = r < rows ? __ldg(mf + (size_t)rows_e[r] * m + p0 + col) : 0u;
+            offs[i] = nibble_offsets(c);
+        }
+        __syncthreads();
+        for (int sp = 0; sp < pc; ++sp) {
+            const uint32_t x0 = next;
+            if (p0 + sp + 1 < m) next = own ? (uint32_t)__ldg(y + (size_t)(p0 + sp + 1) * W) : 0u;
+            nibble_products(tb, x0);
+            const uint4* o = reinterpret_cast<const uint4*>(offs + sp * R);
+#pragma unroll
+            for (int q = 0; q < R / 4; ++q) {
+                if (4 * q < rows) {
+                    const uint4 u = o[q];
+                    acc[4 * q] ^= nibble_product(tbytes, u.x);
+                    acc[4 * q + 1] ^= nibble_product(tbytes, u.y);
+                    acc[4 * q + 2] ^= nibble_product(tbytes, u.z);
+                    acc[4 * q + 3] ^= nibble_product(tbytes, u.w);
+                }
+            }
+        }
+    }
+
+    // 4. Each placed row, once: values[idx] ^ its sum.
+    if (!own) return;
+    const int32_t* vf = values + (size_t)b * n * W + w;
+    int32_t* of = out + (size_t)b * n * W + w;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (r < rows) {
+            const size_t off = (size_t)to[rows_e[r]] * W;
+            of[off] = __ldg(vf + off) ^ (int32_t)acc[r];
+        }
+    }
+}
+
 cudaError_t opt_in(const void* kernel, size_t smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int R, int VEC>
+cudaError_t launch_apply(const int32_t* values, const int32_t* rhs, const uint8_t* mats,
+                         const int32_t* idx, int32_t* out, int B, int m, int E, int W, int n,
+                         int copy, cudaStream_t stream) {
+    const size_t smem = apply_bytes(E, n, R);
+    const auto kernel = gf_apply_tiled_kernel<R, VEC>;
+    const cudaError_t err = opt_in((const void*)kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int n_chunks = (W + kTileThreads - 1) / kTileThreads;
+    const int tiles = E > 0 ? (E + R - 1) / R : 1;
+    const dim3 grid((unsigned)((long long)B * n_chunks), (unsigned)tiles);
+    kernel<<<grid, kTileThreads, smem, stream>>>(values, rhs, mats, idx, out, m, E, W, n,
+                                                 n_chunks, copy);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -296,18 +483,31 @@ extern "C" int ldpc_gf_matvec_launch(const int32_t* values, const int32_t* idx,
     return (int)cudaGetLastError();
 }
 
-// out (B, n, W), holding the values, ^= rows of T_b (E, m) . rhs_b placed at idx (B, E).
-extern "C" int ldpc_gf_apply_launch(const int32_t* rhs, const uint8_t* mats, const int32_t* idx,
-                                    int32_t* out, int B, int m, int E, int W, int n,
+// out (B, n, W) = values (B, n, W) with row e of T_b (E, m) . rhs_b (m, W)
+// XORed into symbol idx[b, e] where that lies in [0, n); tiles of R (16
+// or 32) placed rows. copy = 0 leaves the symbols that are not targets
+// unwritten (the rows alone, for timing). The block must fit shared memory.
+extern "C" int ldpc_gf_apply_launch(const int32_t* values, const int32_t* rhs,
+                                    const uint8_t* mats, const int32_t* idx, int32_t* out, int B,
+                                    int m, int E, int W, int n, int R, int copy,
                                     cudaStream_t stream) {
-    if (B == 0 || E == 0) return (int)cudaSuccess;
-    const size_t smem = (size_t)m * kChunk * sizeof(uint32_t);
-    const cudaError_t err = opt_in((const void*)gf_apply_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long blocks = (long long)B * ((W + kChunk - 1) / kChunk);
-    gf_apply_kernel<true><<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mats, idx, out, m,
-                                                                       E, W, n);
-    return (int)cudaGetLastError();
+    if (B == 0) return (int)cudaSuccess;
+    if (apply_bytes(E, n, R) > kMaxSmem) return (int)cudaErrorInvalidValue;
+#define GF_APPLY(R_, VEC) \
+    return (int)launch_apply<R_, VEC>(values, rhs, mats, idx, out, B, m, E, W, n, copy, stream)
+    if (vec4_ok(W, {values, out})) {
+        switch (R) {
+            case 16: GF_APPLY(16, 4);
+            case 32: GF_APPLY(32, 4);
+        }
+    } else {
+        switch (R) {
+            case 16: GF_APPLY(16, 1);
+            case 32: GF_APPLY(32, 1);
+        }
+    }
+#undef GF_APPLY
+    return (int)cudaErrorInvalidValue;
 }
 
 // out (B, E, W) = M_b (E, m) . rhs_b (m, W) per frame, over GF(256).
@@ -315,10 +515,9 @@ extern "C" int ldpc_gf_matmul_launch(const int32_t* rhs, const uint8_t* mats, in
                                      int B, int m, int E, int W, cudaStream_t stream) {
     if (B == 0 || E == 0) return (int)cudaSuccess;
     const size_t smem = (size_t)m * kChunk * sizeof(uint32_t);
-    const cudaError_t err = opt_in((const void*)gf_apply_kernel<false>, smem);
+    const cudaError_t err = opt_in((const void*)gf_matmul_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)B * ((W + kChunk - 1) / kChunk);
-    gf_apply_kernel<false><<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mats, nullptr, out,
-                                                                        m, E, W, 0);
+    gf_matmul_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mats, out, m, E, W);
     return (int)cudaGetLastError();
 }

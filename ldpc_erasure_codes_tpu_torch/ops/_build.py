@@ -78,8 +78,8 @@ LAUNCHERS = {
     "ldpc_gf_matvec_launch": [*[_P] * 4, *[_I] * 5, _P],
     # values, cols, ncols, offs, out, B, n, m, W, T, C, rows, stream
     "ldpc_gf_matvec_tiled_launch": [*[_P] * 5, *[_I] * 7, _P],
-    # rhs, mats, idx, out, B, m, E, W, n, stream
-    "ldpc_gf_apply_launch": [*[_P] * 4, *[_I] * 5, _P],
+    # values, rhs, mats, idx, out, B, m, E, W, n, R, copy, stream
+    "ldpc_gf_apply_launch": [*[_P] * 5, *[_I] * 7, _P],
     # rhs, mats, out, B, m, E, W, stream
     "ldpc_gf_matmul_launch": [*[_P] * 3, *[_I] * 4, _P],
     # erased, clist_idx, clist_len, scratch, failed, B, n, m, cmax, emax,
@@ -99,6 +99,8 @@ LAUNCHERS = {
     "ldpc_f2_matvec_rows_launch": [*[_P] * 4, *[_I] * 6, _P],
     # rhs, t_words, out, B, K, KW, E, W, stream
     "ldpc_f2_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # rhs, t_words, out, B, K, KW, E, W, wc, stream
+    "ldpc_f2_matmul_rows_launch": [*[_P] * 3, *[_I] * 6, _P],
     # values, rhs, t_words, idx, out, B, K, KW, E, W, n, wc, stream
     "ldpc_f2_apply_rows_launch": [*[_P] * 5, *[_I] * 7, _P],
 }

@@ -158,8 +158,9 @@ def ge_solve_packed(
     safe_idx = torch.where(writable, er_idx, n).to(torch.int32)
     erased = erased & failed[:, None]
     if return_rows:
-        x = f2_matmul_batched(rhs, t_rows)
-        x = torch.where(writable[:, :, None], x, 0)
+        # Rows that are not written come back zero: their transform rows are
+        # cut before the product, so the kernel lists nothing for them.
+        x = f2_matmul_batched(rhs, torch.where(writable[:, :, None], t_rows, 0))
         return x, safe_idx, erased, failed
     values = f2_apply_scatter(values, rhs, t_rows, safe_idx)
     return values, erased, failed

@@ -9,28 +9,38 @@ packed, (E, ceil(K/32)) int32 words with bit ``j`` of a row in bit
 ``j & 31`` of word ``j >> 5`` (H as ``CodeArrays.h_words``, the transforms
 straight from the eliminated cube), and the values as (B, K, W) int32 words.
 A GF(2) product acts on each bit position alone, so the bits equal the
-byte-plane MXU form's. All three launch ``csrc/f2mm.cu`` for CUDA
-tensors and run the plain versions for CPU tensors. Bits of a matrix row at
-or past K are ignored. ``f2_matvec_wide`` takes one of two routes, chosen
-from the shapes and the row lists before launch: a sparse H (an LDPC
-code's) the list route, which sums each row's listed symbols out of a
-shared-memory slab (:func:`f2_matrix_rows`, cached as ``CodeArrays.
-h_rows``); a dense matrix the bit-scan body that ``f2_matmul_batched``
-shares. ``f2_apply_scatter`` computes only the rows that it places, each
-over the list of its transform row's set columns, made in the kernel, and
-copies the values in the same kernel.
+byte-plane MXU form's. All three launch ``csrc/f2mm.cu`` for CUDA tensors
+and run the plain versions for CPU tensors. Bits of a matrix row at or past
+K are ignored. Their routes, chosen from the shapes before launch:
 
-The GF(256) counterparts of the TPU kernels ``gf_matvec_wide`` (:132-213)
-and ``gf_apply_scatter`` (:556-651) contract an int8 bit image of a byte
-matrix on the MXU. Here the matrix stays bytes and the payloads are uint8
-(B, K, W) bytes (W % 4 == 0), multiplied four bytes to an int32 word:
-``gf_matvec_wide`` walks each output row's list of nonzero (row, coefficient)
-pairs (:func:`matrix_rows`; the Vlist is that list for H), which serves the
-sparse LDPC H and the dense RS H alike, and ``gf_apply_scatter`` applies a
-per-frame byte matrix and places its rows. ``gf_matmul_batched`` (the TPU
-kernel :241-311) is that apply without the placement. All three launch
-``csrc/gfmm.cu`` for CUDA tensors and run the plain versions for CPU
-tensors.
+* ``f2_matvec_wide``: a sparse H (an LDPC code's) the list route, which
+  sums each row's listed symbols out of a shared-memory slab
+  (:func:`f2_matrix_rows`, cached as ``CodeArrays.h_rows``); a dense
+  matrix the bit scan;
+* ``f2_apply_scatter``: only the rows that it places, each over the list of
+  its transform row's set columns, made in the kernel, summed out of a
+  slab; the copy of the values in the same kernel;
+* ``f2_matmul_batched``: the apply's list and sum over every row, written
+  in order (its own kernel) where its slab fits
+  (:func:`f2_matmul_route`), else the bit scan.
+
+The GF(256) counterparts of the TPU kernels ``gf_matvec_wide`` (:132-213),
+``gf_matmul_batched`` (:241-311) and ``gf_apply_scatter`` (:556-651)
+contract an int8 bit image of a byte matrix on the MXU. Here the matrix
+stays bytes and the payloads are uint8 (B, K, W) bytes (W % 4 == 0),
+multiplied four bytes to an int32 word. All three launch ``csrc/gfmm.cu``
+for CUDA tensors and run the plain versions for CPU tensors:
+
+* ``gf_matvec_wide``: the dense route (the RS H, tiled by
+  :func:`matrix_tiles`): a thread per payload word tables its word's
+  nibble products and keeps a tile's output rows in registers; the list
+  route (a sparse LDPC Vlist, :func:`matrix_rows`): a warp per output row,
+  Horner over the coefficient bits;
+* ``gf_apply_scatter``: the dense route's nibble products over each
+  frame's placed rows, in tiles of :func:`gf_apply_rows` rows, with the
+  copy of the values in the same kernel;
+* ``gf_matmul_batched`` (the apply without the placement): a warp per
+  row, Horner over the coefficient bits.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
+from ldpc_erasure_codes_tpu_torch.gf.ops import _xtime_packed, as_words, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops._build import SMEM_LIMIT, round16 as _r16
 from ldpc_erasure_codes_tpu_torch.ops.arrays import pack_bits, unpack_bits
@@ -106,6 +116,39 @@ def f2_apply_scatter_reference(
     return out
 
 
+def _listed_sums(rhs: torch.Tensor, t_words: torch.Tensor, frames: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """Row ``rows[p]`` of T_``frames[p]`` times rhs, (P, W): the row's set
+    columns below K listed (padded with K, which reads a zero row), then a
+    loop over the list slots, each a gather of one rhs row per listed row
+    (the kernels' step 4, ``csrc/f2mm.cu``)."""
+    b, k, w = rhs.shape
+    if not len(frames):
+        return rhs.new_zeros(0, w)
+    bits = unpack_bits(t_words[frames, rows])[:, :k] != 0  # (P, K)
+    length = bits.sum(dim=1)
+    d = max(1, int(length.max()))
+    order = torch.argsort((~bits).to(torch.uint8), dim=1, stable=True)[:, :d]  # set bits first
+    cols = torch.where(torch.arange(d, device=rhs.device)[None, :] < length[:, None], order, k)
+    padded = torch.cat([rhs, rhs.new_zeros(b, 1, w)], dim=1)  # column K reads zero
+    acc = rhs.new_zeros(len(frames), w)
+    for s in range(d):
+        acc ^= padded[frames, cols[:, s]]
+    return acc
+
+
+def f2_matmul_rows_reference(rhs: torch.Tensor, t_words: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch product in the order of ``f2_matmul_batched``'s list
+    route (``csrc/f2mm.cu``, ``f2_matmul_rows_kernel``): every row of T_b, in
+    order, as the sum of the rhs rows its set columns list (a loop over
+    the list slots, as :func:`f2_apply_rows_reference`); a row with no set
+    column gives zeros. Equal to :func:`f2_matmul_batched_reference`."""
+    _check(rhs, t_words, per_frame=True)
+    b, e = t_words.shape[:2]
+    frames, rows = torch.ones((b, e), dtype=torch.bool, device=rhs.device).nonzero(as_tuple=True)
+    return _listed_sums(rhs, t_words, frames, rows).view(b, e, rhs.shape[2])
+
+
 def f2_apply_rows_reference(
     values: torch.Tensor, rhs: torch.Tensor, t_words: torch.Tensor, idx: torch.Tensor
 ) -> torch.Tensor:
@@ -115,21 +158,9 @@ def f2_apply_rows_reference(
     over the list slots, as :func:`f2_matvec_rows_reference`) XORed into
     its target. Equal to :func:`f2_apply_scatter_reference`."""
     _check_apply(values, rhs, t_words, idx)
-    b, k, w = rhs.shape
     out = values.clone()
     frames, rows = ((idx >= 0) & (idx < values.shape[1])).nonzero(as_tuple=True)
-    if not len(frames):
-        return out
-    bits = unpack_bits(t_words[frames, rows])[:, :k] != 0  # (P, K)
-    length = bits.sum(dim=1)
-    d = max(1, int(length.max()))
-    order = torch.argsort((~bits).to(torch.uint8), dim=1, stable=True)[:, :d]  # set bits first
-    cols = torch.where(torch.arange(d, device=idx.device)[None, :] < length[:, None], order, k)
-    padded = torch.cat([rhs, rhs.new_zeros(b, 1, w)], dim=1)  # column K reads zero
-    acc = rhs.new_zeros(len(frames), w)
-    for s in range(d):
-        acc ^= padded[frames, cols[:, s]]
-    out[frames, idx[frames, rows].long()] ^= acc
+    out[frames, idx[frames, rows].long()] ^= _listed_sums(rhs, t_words, frames, rows)
     return out
 
 
@@ -315,18 +346,79 @@ def launch_scan(values: torch.Tensor, h_words: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def f2_matmul_batched(rhs: torch.Tensor, t_words: torch.Tensor) -> torch.Tensor:
-    """x[b] = T_b . rhs[b] over GF(2): rhs (B, K, W), T (B, E, ceil(K/32))
-    -> (B, E, W) int32, the solved rows without placement.
+# The apply's slab widths Wc, in order of preference (the fastest first, by
+# chip_smoke.py's sweep; PERF.md): the first whose block fits.
+F2_APPLY_WORDS = (16, 8, 4)
+# Warps of a block of the apply or of f2_matmul_batched's list route, each
+# with its own list of up to K columns.
+F2_APPLY_WARPS = 16
+# The slab widths Wc of f2_matmul_batched's list route, in order of
+# preference (the fastest first, by chip_smoke.py's sweep; PERF.md): the
+# first whose block fits.
+F2_MATMUL_WORDS = (32, 16, 8, 4)
+# The bit scan's staging budget (csrc/f2mm.cu kSmemBudget): K rows of at
+# least one word each must fit it.
+F2_SCAN_SMEM = 128 * 1024
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise). ``f2_matmul_batched.launches`` counts kernel launches.
-    """
+
+def f2_matmul_smem(k: int, wc: int) -> int:
+    """Shared memory of a block of ``f2_matmul_batched``'s list route
+    (``f2_matmul_rows_kernel``, csrc/f2mm.cu): the slab of K rows of Wc
+    words and a uint16 list of K columns per warp."""
+    return 4 * k * wc + _r16(2 * F2_APPLY_WARPS * k)
+
+
+def f2_matmul_slab_words(k: int, w: int) -> int | None:
+    """Wc of ``f2_matmul_batched``'s list route for K = ``k`` rhs rows of W
+    = ``w`` words: the first of :data:`F2_MATMUL_WORDS` no wider than W
+    rounded up to 4 whose block fits; None where none fits (K >= 65535, or
+    a slab too large even at 4 words)."""
+    if k >= 65535:
+        return None
+    fits = [wc for wc in F2_MATMUL_WORDS if wc <= max(4, -(-w // 4) * 4)
+            and f2_matmul_smem(k, wc) <= SMEM_LIMIT]
+    return fits[0] if fits else None
+
+
+def f2_matmul_route(k: int, w: int) -> str | None:
+    """The route ``f2_matmul_batched`` takes for K = ``k`` rhs rows of W =
+    ``w`` words: "list" (every row listed and summed out of a slab, at
+    :func:`f2_matmul_slab_words`) where its block fits, else "scan" (the
+    bit scan) where K rows of one word fit :data:`F2_SCAN_SMEM`; None where
+    neither fits."""
+    if f2_matmul_slab_words(k, w) is not None:
+        return "list"
+    return "scan" if 4 * k <= F2_SCAN_SMEM else None
+
+
+def launch_matmul_rows(rhs: torch.Tensor, t_words: torch.Tensor, wc: int) -> torch.Tensor:
+    """The list route's kernel on CUDA tensors with Wc = ``wc`` words per
+    block (one of :data:`F2_MATMUL_WORDS`, the block within shared memory).
+    Counts one launch of ``f2_matmul_batched``."""
     _check(rhs, t_words, per_frame=True)
-    if rhs.device.type == "cpu":
-        return f2_matmul_batched_reference(rhs, t_words)
     b, k, w = rhs.shape
     _, e, kw = t_words.shape
+    if wc not in F2_MATMUL_WORDS or f2_matmul_smem(k, wc) > SMEM_LIMIT or k >= 65535:
+        raise ValueError(f"rows slab of {wc} words: Wc must be one of {F2_MATMUL_WORDS} with "
+                         f"the block's shared memory within {SMEM_LIMIT} bytes (K={k})")
+    out = torch.empty((b, e, w), dtype=torch.int32, device=rhs.device)
+    rc = _build.library().ldpc_f2_matmul_rows_launch(
+        rhs.data_ptr(), t_words.data_ptr(), out.data_ptr(), b, k, kw, e, w, wc, _stream(rhs)
+    )
+    _build.check(rc, "ldpc_f2_matmul_rows_launch")
+    f2_matmul_batched.launches += 1
+    return out
+
+
+def launch_matmul_scan(rhs: torch.Tensor, t_words: torch.Tensor) -> torch.Tensor:
+    """The bit-scan route's kernel on CUDA tensors (K rows of one word
+    within :data:`F2_SCAN_SMEM`). Counts one launch of
+    ``f2_matmul_batched``."""
+    _check(rhs, t_words, per_frame=True)
+    b, k, w = rhs.shape
+    _, e, kw = t_words.shape
+    if 4 * k > F2_SCAN_SMEM:
+        raise ValueError(f"bit scan: K={k} rows of one word exceed {F2_SCAN_SMEM} bytes")
     out = torch.empty((b, e, w), dtype=torch.int32, device=rhs.device)
     rc = _build.library().ldpc_f2_matmul_launch(
         rhs.data_ptr(), t_words.data_ptr(), out.data_ptr(), b, k, kw, e, w, _stream(rhs)
@@ -336,19 +428,39 @@ def f2_matmul_batched(rhs: torch.Tensor, t_words: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# The apply's slab widths Wc, in order of preference (the fastest first, by
-# chip_smoke.py's sweep; PERF.md): the first whose block fits.
-F2_APPLY_WORDS = (16, 8, 4)
-# Warps of an apply block, each with its own list of up to K columns.
-F2_APPLY_WARPS = 16
+def f2_matmul_batched(rhs: torch.Tensor, t_words: torch.Tensor) -> torch.Tensor:
+    """x[b] = T_b . rhs[b] over GF(2): rhs (B, K, W), T (B, E, ceil(K/32))
+    -> (B, E, W) int32, the solved rows without placement.
+
+    CPU tensors take the plain version; CUDA tensors launch a kernel (or
+    raise), by :func:`f2_matmul_route`:
+
+    * the list route where its block fits (K < 65535 and the slab of
+      :func:`f2_matmul_slab_words`): every row's set columns listed and
+      its rhs rows summed out of a shared-memory slab, the rows written in
+      order;
+    * the bit scan otherwise, while K rows of one word fit its staging.
+
+    ``f2_matmul_batched.launches`` counts launches of either.
+    """
+    _check(rhs, t_words, per_frame=True)
+    if rhs.device.type == "cpu":
+        return f2_matmul_batched_reference(rhs, t_words)
+    k, w = rhs.shape[1], rhs.shape[2]
+    route = f2_matmul_route(k, w)
+    if route == "list":
+        return launch_matmul_rows(rhs, t_words, f2_matmul_slab_words(k, w))
+    if route == "scan":
+        return launch_matmul_scan(rhs, t_words)
+    raise ValueError(f"f2_matmul_batched: no route fits K={k} (list route: K < 65535 and a "
+                     f"slab within {SMEM_LIMIT} bytes; bit scan: 4 K <= {F2_SCAN_SMEM})")
 
 
 def f2_apply_smem(k: int, e: int, n: int, wc: int) -> int:
     """Shared memory of an apply block (csrc/f2mm.cu): the slab of K rows
     of Wc words, a uint16 list of K columns per warp, the placed rows, a
     bit per symbol of the n, and the count."""
-    return (4 * k * wc + _r16(2 * F2_APPLY_WARPS * k) + _r16(4 * e)
-            + _r16(4 * -(-n // 32)) + 16)
+    return f2_matmul_smem(k, wc) + _r16(4 * e) + _r16(4 * -(-n // 32)) + 16
 
 
 def f2_apply_slab_words(k: int, e: int, n: int, w: int) -> int | None:
@@ -645,6 +757,95 @@ def gf_apply_scatter_reference(
     return out.view(torch.uint8)
 
 
+# The apply's tiles (csrc/gfmm.cu): R placed rows a block, R the first of
+# GF_APPLY_ROWS that holds E rows (more tiles past 32); the block stages
+# its rows' table offsets for GF_APPLY_PANEL columns at a time.
+GF_APPLY_ROWS = (16, 32)
+GF_APPLY_PANEL = 32
+
+
+def gf_apply_rows(e: int) -> int:
+    """R, the placed rows per tile of the apply for E = ``e`` transform rows."""
+    return next((r for r in GF_APPLY_ROWS if e <= r), GF_APPLY_ROWS[-1])
+
+
+def gf_apply_smem(e: int, n: int, r: int) -> int:
+    """Shared memory of an apply block (csrc/gfmm.cu): the nibble-product
+    table (32 rows of TILE_THREADS words), the offsets of GF_APPLY_PANEL
+    columns for R rows, the tile's rows and their count, E targets and a
+    bit per symbol of the n."""
+    return (4 * 32 * TILE_THREADS + 4 * GF_APPLY_PANEL * r + _r16(4 * r) + 16 + _r16(4 * e)
+            + _r16(4 * -(-n // 32)))
+
+
+def _nibble_products(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nibble products of words x (B, W): (lo, hi) (B, 16, W), lo[c] =
+    c * x for c < 16 and hi[c] = (c << 4) * x, from the 8 multiples x * x^t
+    (7 doublings), as each thread of ``csrc/gfmm.cu`` tables them."""
+    mult = [x]
+    for _ in range(7):
+        mult.append(_xtime_packed(mult[-1]))
+    lo = x.new_zeros(x.shape[0], 16, x.shape[1])
+    hi = torch.zeros_like(lo)
+    for c in range(1, 16):
+        t = (c & -c).bit_length() - 1  # the lowest set bit
+        lo[:, c] = lo[:, c & (c - 1)] ^ mult[t]
+        hi[:, c] = hi[:, c & (c - 1)] ^ mult[4 + t]
+    return lo, hi
+
+
+def gf_apply_tiles_reference(
+    values: torch.Tensor, rhs: torch.Tensor, mats: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch apply in the kernel's order (``csrc/gfmm.cu``): each
+    frame's placed rows (target in [0, n)) listed first, in row order, and
+    cut into tiles of R = :func:`gf_apply_rows` (E) of them; the values
+    copied; per tile and column i the nibble products of rhs row i, and
+    each of the tile's rows adds lo[c & 15] ^ hi[c >> 4] for its
+    coefficient c; each placed row's sum XORed into its target. Equal to
+    :func:`gf_apply_scatter_reference`."""
+    words, rw = _check_gf_apply(values, rhs, mats, idx)
+    n = words.shape[1]
+    e, m = mats.shape[1:]
+    out = words.clone()
+    keep = (idx >= 0) & (idx < n)
+    r = gf_apply_rows(e)
+    tile = (keep.cumsum(dim=1) - 1) // r  # the tile of each placed row
+    for t in range(-(-e // r)):
+        frames, rows = (keep & (tile == t)).nonzero(as_tuple=True)
+        if not len(frames):
+            continue
+        acc = rw.new_zeros(len(frames), rw.shape[2])
+        for i in range(m):
+            lo, hi = _nibble_products(rw[:, i])
+            c = mats[frames, rows, i].long()
+            acc ^= lo[frames, c & 15] ^ hi[frames, c >> 4]
+        out[frames, idx[frames, rows].long()] ^= acc
+    return out.view(torch.uint8)
+
+
+def launch_gf_apply(values: torch.Tensor, rhs: torch.Tensor, mats: torch.Tensor,
+                    idx: torch.Tensor, r: int, *, copy: bool = True) -> torch.Tensor:
+    """The apply's kernel on CUDA tensors with tiles of R = ``r`` placed rows
+    (one of :data:`GF_APPLY_ROWS`, the block within shared memory). With
+    ``copy=False`` the symbols that are not targets are left unwritten (the
+    rows alone, for timing). Counts one launch of ``gf_apply_scatter``."""
+    words, rw = _check_gf_apply(values, rhs, mats, idx)
+    b, n, w = words.shape
+    _, e, m = mats.shape
+    if r not in GF_APPLY_ROWS or gf_apply_smem(e, n, r) > SMEM_LIMIT:
+        raise ValueError(f"apply tiles of {r} rows: R must be one of {GF_APPLY_ROWS} with the "
+                         f"block's shared memory within {SMEM_LIMIT} bytes (E={e}, n={n})")
+    out = torch.empty_like(words)
+    rc = _build.library().ldpc_gf_apply_launch(
+        words.data_ptr(), rw.data_ptr(), mats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, m,
+        e, w, n, r, int(copy), _stream(words),
+    )
+    _build.check(rc, "ldpc_gf_apply_launch")
+    gf_apply_scatter.launches += 1
+    return out.view(torch.uint8)
+
+
 def gf_apply_scatter(
     values: torch.Tensor, rhs: torch.Tensor, mats: torch.Tensor, idx: torch.Tensor
 ) -> torch.Tensor:
@@ -655,22 +856,16 @@ def gf_apply_scatter(
     idx (B, E) int32; W % 4 == 0. Targets outside [0, n) are dropped (the
     TPU kernel's dump rows); targets in range must be distinct within a
     frame. Returns a new (B, n, W) uint8 tensor. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise).
-    ``gf_apply_scatter.launches`` counts kernel launches.
+    version; CUDA tensors launch the kernel (or raise) with tiles of
+    :func:`gf_apply_rows` (E) placed rows: only the placed rows are
+    computed, by the dense route's nibble products, and the copy of the
+    values is the kernel's own. ``gf_apply_scatter.launches`` counts kernel
+    launches.
     """
-    words, rw = _check_gf_apply(values, rhs, mats, idx)
-    if words.device.type == "cpu":
+    _check_gf_apply(values, rhs, mats, idx)
+    if values.device.type == "cpu":
         return gf_apply_scatter_reference(values, rhs, mats, idx)
-    b, n, w = words.shape
-    _, e, m = mats.shape
-    out = words.clone()
-    rc = _build.library().ldpc_gf_apply_launch(
-        rw.data_ptr(), mats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, m, e, w, n,
-        _stream(words),
-    )
-    _build.check(rc, "ldpc_gf_apply_launch")
-    gf_apply_scatter.launches += 1
-    return out.view(torch.uint8)
+    return launch_gf_apply(values, rhs, mats, idx, gf_apply_rows(mats.shape[1]))
 
 
 def _check_gf_matmul(rhs, mats) -> torch.Tensor:

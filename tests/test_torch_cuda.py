@@ -464,6 +464,72 @@ def test_f2_apply_kernel_matches_plain(cuda_device, k, e, w, aligned, share, wc)
                                rtol=0, atol=0)
 
 
+def _matmul_cases():
+    """(k, e, w, aligned, real share, Wc (None: the wrapper's route; 0: the
+    bit scan)): the GE bucket's shape with 37% and 1% of its rows real; W
+    = 250 (not a multiple of the chunk), 5 and 3, misaligned; every Wc of
+    the list route and the bit scan at the bucket; K = 6000, whose slab
+    does not fit, on the wrapper's route (the bit scan)."""
+    cases = [(510, 512, 256, True, 0.37, None), (510, 512, 256, True, 0.01, None),
+             (510, 512, 250, True, 0.37, None), (510, 512, 256, False, 0.37, None),
+             (510, 512, 5, True, 0.37, None), (510, 512, 3, False, 0.37, None),
+             (40, 9, 5, True, 0.5, None), (6000, 40, 8, True, 0.5, None)]
+    cases += [(510, 512, w, aligned, 0.37, wc) for wc in (*nbmm.F2_MATMUL_WORDS, 0)
+              for w, aligned in ((250, True), (256, False))]
+    return cases
+
+
+@pytest.mark.parametrize("k,e,w,aligned,real,wc", _matmul_cases())
+def test_f2_matmul_kernel_matches_plain(cuda_device, k, e, w, aligned, real, wc):
+    """The transform rows with a share of its rows real (~96 set bits of
+    K), the rest zero (an empty list), bits past K set: every route and Wc
+    against both plain versions, one launch counted each."""
+    rng = np.random.default_rng(k + w)
+    b = 4
+    kw = -(-k // 32)
+    dev = cuda_device
+    rhs = to_torch(random_words(rng, (b, k, w))).to(dev)
+    bits = rng.random((b, e, 32 * kw)) < min(0.5, 96 / k)
+    bits[rng.random((b, e)) >= real] = False
+    bits[:, :, k:] = rng.random((b, e, 32 * kw - k)) < 0.5  # past K: ignored
+    t = pack_bits(torch.from_numpy(bits)).to(dev)
+    if not aligned:
+        rhs = _misaligned(rhs)
+    before = nbmm.f2_matmul_batched.launches
+    if wc is None:
+        route = nbmm.f2_matmul_route(k, w)
+        assert route == ("scan" if k > 4000 else "list")
+        got = nbmm.f2_matmul_batched(rhs, t)
+    elif wc == 0:
+        got = nbmm.launch_matmul_scan(rhs, t)
+    else:
+        got = nbmm.launch_matmul_rows(rhs, t, wc)
+    torch.cuda.synchronize()
+    assert nbmm.f2_matmul_batched.launches == before + 1
+    want = nbmm.f2_matmul_batched_reference(rhs, t)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, nbmm.f2_matmul_rows_reference(rhs, t), rtol=0, atol=0)
+
+
+def test_f2_matmul_refuses_shapes_no_route_takes(cuda_device):
+    """K past the bit scan's staging (and the list route's slab): the
+    wrapper raises and launches nothing; a Wc outside the list route's
+    widths raises too."""
+    rhs = torch.zeros((1, 40000, 1), dtype=torch.int32, device=cuda_device)
+    t = torch.zeros((1, 2, 1250), dtype=torch.int32, device=cuda_device)
+    assert nbmm.f2_matmul_route(40000, 1) is None
+    before = nbmm.f2_matmul_batched.launches
+    with pytest.raises(ValueError, match="no route"):
+        nbmm.f2_matmul_batched(rhs, t)
+    with pytest.raises(ValueError, match="bit scan"):
+        nbmm.launch_matmul_scan(rhs, t)
+    small = torch.zeros((1, 64, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="Wc must be one of"):
+        nbmm.launch_matmul_rows(small, torch.zeros((1, 2, 2), dtype=torch.int32,
+                                                   device=cuda_device), 64)
+    assert nbmm.f2_matmul_batched.launches == before
+
+
 def _f2_rows_cases():
     """(name, w, aligned, Wc (None: the wrapper's choice)): each shipped H
     at the wrapper's Wc (W = 256, misaligned, 5, 3), then at each Wc that
@@ -756,6 +822,72 @@ def test_gf_apply_kernel_matches_plain(cuda_device, wb, aligned, m, e, n):
     assert nbmm.gf_apply_scatter.launches == before + 1
     torch.testing.assert_close(got, nbmm.gf_apply_scatter_reference(values, rhs, mats, idx),
                                rtol=0, atol=0)
+
+
+def _gf_apply_cases():
+    """(m, e, n, wb, aligned, R (None: the wrapper's)): R = 16 (E = 10) and
+    32 (E = 63: two tiles; 384: twelve), W = 250 words (not a multiple of
+    the 64-word chunk), 3 words, misaligned; each R at the RS shape."""
+    cases = [(9, 10, 40, 1024, True, None), (63, 63, 255, 1024, True, None),
+             (63, 63, 255, 1000, True, None), (63, 63, 255, 1024, False, None),
+             (63, 63, 255, 12, True, None), (510, 384, 2040, 256, True, None),
+             (510, 384, 2040, 12, False, None)]
+    cases += [(63, 63, 255, wb, aligned, r) for r in nbmm.GF_APPLY_ROWS
+              for wb, aligned in ((1000, True), (1024, False))]
+    return cases
+
+
+@pytest.mark.parametrize("m,e,n,wb,aligned,r", _gf_apply_cases())
+def test_gf_apply_tiled_kernel_matches_plain(cuda_device, m, e, n, wb, aligned, r):
+    """The apply's tiles with ~60% of the rows placed (the rest dropped at
+    -1, n and beyond), one frame placing none, and values in every slot
+    (the slots that are not targets hold nonzero bytes, which the fused
+    copy must carry over unchanged): against both plain versions, one
+    launch counted; the copy cut leaves the placed rows as they were."""
+    rng = np.random.default_rng(m + e + wb)
+    b = 5
+    dev = cuda_device
+    rhs = _random_bytes(rng, (b, m, wb), dev)
+    mats = _random_bytes(rng, (b, e, m), dev)
+    values = _random_bytes(rng, (b, n, wb), dev)
+    if not aligned:
+        rhs, values = _misaligned_bytes(rhs), _misaligned_bytes(values)
+    idx = np.stack([rng.permutation(n)[:e] for _ in range(b)]).astype(np.int32)
+    drop = rng.random((b, e)) >= 0.6
+    idx[drop] = rng.choice([-1, n, n + 100], int(drop.sum()))
+    idx[-1] = n  # a frame that places no row
+    idx = torch.from_numpy(idx).to(dev)
+    before = nbmm.gf_apply_scatter.launches
+    rr = nbmm.gf_apply_rows(e) if r is None else r
+    got = (nbmm.gf_apply_scatter(values, rhs, mats, idx) if r is None
+           else nbmm.launch_gf_apply(values, rhs, mats, idx, r))
+    torch.cuda.synchronize()
+    assert nbmm.gf_apply_scatter.launches == before + 1
+    want = nbmm.gf_apply_scatter_reference(values, rhs, mats, idx)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, nbmm.gf_apply_tiles_reference(values, rhs, mats, idx),
+                               rtol=0, atol=0)
+    assert torch.equal(got[-1], values[-1])
+    rows = nbmm.launch_gf_apply(values, rhs, mats, idx, rr, copy=False)
+    keep = (idx >= 0) & (idx < n)
+    frames = torch.arange(b, device=dev)[:, None].expand_as(idx)[keep]
+    assert torch.equal(rows[frames, idx[keep].long()], want[frames, idx[keep].long()])
+
+
+def test_gf_apply_refuses_blocks_over_shared_memory(cuda_device):
+    """E whose targets do not fit a block's shared memory, or an R outside
+    the tile sizes: the wrapper raises and launches nothing."""
+    b, m, e, n = 1, 2, 60000, 255
+    values = torch.zeros((b, n, 4), dtype=torch.uint8, device=cuda_device)
+    rhs = torch.zeros((b, m, 4), dtype=torch.uint8, device=cuda_device)
+    mats = torch.zeros((b, e, m), dtype=torch.uint8, device=cuda_device)
+    idx = torch.full((b, e), n, dtype=torch.int32, device=cuda_device)
+    before = nbmm.gf_apply_scatter.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        nbmm.gf_apply_scatter(values, rhs, mats, idx)
+    with pytest.raises(ValueError, match="R must be one of"):
+        nbmm.launch_gf_apply(values, rhs, mats[:, :8].contiguous(), idx[:, :8].contiguous(), 64)
+    assert nbmm.gf_apply_scatter.launches == before
 
 
 def test_rs_decode_wide_cuda_matches_cpu(cuda_device):
