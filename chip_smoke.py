@@ -28,8 +28,10 @@ Phases, each fatal on failure:
 4b. the hybrid path at full width (``bench.HybridPath``, the GE-hot point
    of scripts/bench_hybrid_values.py): (2040,1530), B=1024, W=256, PER
    .2031, 10 peel sweeps, emax 512, a GE bucket of 448 frames, the rows
-   written back with the topology syndrome. Counters zeroed before, read
-   after; the first decode verified (``check_hybrid``), then 5 reps timed;
+   written back with the topology syndrome (on ``f2_matvec_wide``'s list
+   route, counted as ``syndrome_from_topo``: no dense syndrome is counted).
+   Counters zeroed before, read after; the first decode verified
+   (``check_hybrid``), then 5 reps timed;
 4c. ``hybrid_decode_escalated`` through ``compact_ge_solve`` with buckets
    too small for the batch (emax 128, 64 frames), so escalation fires;
    verified, and held against the production branch on the same mask;
@@ -51,6 +53,9 @@ Phases, each fatal on failure:
    list route asserted at the bucket) and at each slab width Wc on the rows
    ``ge_solve_packed`` multiplies (those of slots it writes; the others cut
    to zero), beside the bit-scan route and the wrapper on every row uncut;
+   ``syndrome_from_topo`` by route (the list route at each slab width Wc,
+   asserted at the bucket, and the walk of ``csrc/synd.cu``), each held to
+   the plain version, beside ``f2_matvec_wide`` on the same bucket;
 6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
    (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
    their plain versions at small shapes, bit-exact;
@@ -63,13 +68,18 @@ Phases, each fatal on failure:
 6c. NB escalation: B=64, PER .2031, emax 128, bucket 16, so the production
    branch overflows and ``ge_solve_wide_nb`` solves the rest with the cube
    in device memory; verified, the escalation call timed, with
-   ``gf_apply_scatter`` on its GE operands (as in phase 6d's split) beside
-   a stand-in for the kernel it replaced, and ``ge_solve``'s stage time;
+   ``gf256_eliminate`` on its GE operands (held to the plain version, and
+   its column steps alone, as in phase 6d) and ``gf_apply_scatter`` (as in
+   phase 6d's split) beside a stand-in for the kernel it replaced, and
+   ``ge_solve``'s stage time;
 6d. RS(255,192) wide decode (``bench.RSPath``), B=1024, 1024-byte
    payloads: verified on ``verify_rs``'s pattern (e = 1..63, one frame at
    64 that must fail, ``check_rs``), then the i.i.d. PER .15 and the e=63
    systematic legs timed; the three GF(256) GE kernels launch on every
-   decode;
+   decode; ``gf256_eliminate`` on the i.i.d. batch's GE operands in both
+   cube modes, and its column steps alone (the cubes' A block replaced by
+   the identity: each column's pivot search, table build and pivot row,
+   no other row updated);
 7. each GF(256) kernel's time against its plain version's: encode and peel
    (with the schedule kernel, the Wc widths and the splits, as in phase 5)
    at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch (``gf_matvec_wide``
@@ -127,6 +137,11 @@ Phases, each fatal on failure:
    9a's counts, one ``cli scaling --devices 1`` subprocess,
    ``dryrun_multichip(1)``; the process group is destroyed before the end.
 
+``python3 chip_smoke.py --ge-kernels`` builds the kernels and only times
+the topology syndrome and ``gf256_eliminate`` on the operands of phases 5,
+6c and 6d through the public wrappers; copied to the root of an earlier
+checkout of the port, it times that checkout's kernels on the same operands.
+
 Every kernel's entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and the
 integer operations its inputs need over the card's INT32 rate (``bound``).
@@ -160,7 +175,7 @@ from ldpc_erasure_codes_tpu_torch.channel.erasure import (
     iid_erasures_per64,
 )
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import _build, elim, nbmm, peel, rank
+from ldpc_erasure_codes_tpu_torch.ops import _build, elim, nbmm, peel, rank, synd
 from ldpc_erasure_codes_tpu_torch.ops import encode as enc
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.channel import (
@@ -237,7 +252,7 @@ KERNELS = {
         replaces="ldpc_erasure_codes_tpu/ops/pallas_elim.py:252",
     ),
     "syndrome_from_topo": dict(
-        source="ldpc_erasure_codes_tpu_torch/csrc/synd.cu",
+        source="ldpc_erasure_codes_tpu_torch/csrc/f2mm.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_synd.py:43",
     ),
     "f2_matvec_wide": dict(
@@ -694,6 +709,12 @@ def hybrid_phase(device, card: str):
     for name in ("encode_packed", "peel_decode", "f2_eliminate", "syndrome_from_topo",
                  "f2_matmul_batched"):
         require(counts[name] > 0, f"the hybrid path never launched the {name} kernel")
+    # The topology syndrome takes f2_matvec_wide's list route on its own
+    # counter; nothing on this path runs the dense syndrome.
+    require(synd.synd_route(code.n, code.m, path.arrays.dmax, h["w"]) == "list",
+            "the hybrid's topology syndrome should take the list route")
+    require(counts["f2_matvec_wide"] == 0,
+            f"the hybrid path counted {counts['f2_matvec_wide']} dense syndromes")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"phase 4b: hybrid {path.gbps(ms):.2f} Gbps info ({ms:.3f} ms/rep over 5 reps, "
         f"B={h['b']} W={h['w']} PER {h['per']} emax {h['emax']} ge_subbatch "
@@ -738,18 +759,27 @@ def escalation_phase(path, device) -> dict:
     return counts
 
 
-def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
-    """Phase 5 for the GE kernels at phase 4b's shapes (the bucket of the
-    first ge_subbatch residual frames), and the hybrid step's stages."""
+def ge_bucket(path, device):
+    """Phase 4b's GE bucket on a fresh mask (seed 99): (mask, the peeled
+    values and residual erasures, the indices of the first ge_subbatch
+    residual frames)."""
     code, h = path.code, bench.HYBRID
     gen = torch.Generator(device=device)
     gen.manual_seed(99)
     mask = iid_erasures((h["b"], code.n), h["per"], generator=gen, device=device)
+    values, erased, _ = peel_decode(path.arrays, path.codewords, mask, max_iters=h["peel_iters"])
+    sel, _, _ = residual_order(erased, h["ge_subbatch"])
+    return mask, values, erased, sel
+
+
+def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
+    """Phase 5 for the GE kernels at phase 4b's shapes (the bucket of the
+    first ge_subbatch residual frames), and the hybrid step's stages."""
+    code, h = path.code, bench.HYBRID
+    mask, values, erased, sel = ge_bucket(path, device)
     stages = {}
     stages["peel"] = cuda_ms(
         lambda: peel_decode(path.arrays, path.codewords, mask, max_iters=h["peel_iters"]), 3)
-    values, erased, _ = peel_decode(path.arrays, path.codewords, mask, max_iters=h["peel_iters"])
-    sel, _, _ = residual_order(erased, h["ge_subbatch"])
     stages["residual gather"] = cuda_ms(lambda: (values[sel], erased[sel]), 5)
     vs, es = values[sel], erased[sel]
     ge = GEInputs(path.arrays, vs, es, h["emax"])
@@ -785,6 +815,12 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     split = f2_matvec_split(path.arrays, vs, errs)
     log(f"phase 5: f2_matvec_wide (H, list route) on the GE bucket ({vs.shape[0]} frames, "
         f"W={h['w']}): {times['f2_matvec_wide']:.3f} ms; by Wc: {split_line(split)}")
+    split = synd_split(path.arrays, vs, errs)
+    require(split["route"] == "list", f"the GE bucket's syndrome took the {split['route']} route")
+    log(f"phase 5: syndrome_from_topo (the Vlist as row lists) on the GE bucket "
+        f"({vs.shape[0]} frames, W={h['w']}): {times['syndrome_from_topo']:.3f} ms on the "
+        f"{split['route']} route (Wc {split['wc_default']}); by route: {synd_line(split)}; "
+        f"beside f2_matvec_wide's list route on H {times['f2_matvec_wide']:.3f} ms")
     stages["apply (rows)"] = times["f2_matmul_batched"]
     x = f2_matmul_batched(ge.rhs, ge.t_cut)
     keep = ge.idx < code.n
@@ -910,6 +946,83 @@ def f2_matvec_split(arrays, values, errs: dict) -> dict:
     require(e == 0, f"f2_matvec_wide bit-scan route != list route ({e})")
     out["scan_ms"] = cuda_ms(lambda: nbmm.launch_scan(values, arrays.h_words), 3)
     return out
+
+
+def synd_split(arrays, values, errs: dict) -> dict:
+    """``syndrome_from_topo`` at one shape by route: the list route at every
+    slab width Wc whose block fits (the wrapper's choice is
+    ``nbmm.f2_slab_words`` of the Vlist) and the walk (``csrc/synd.cu``),
+    each held to the plain version and timed."""
+    _, n, w = values.shape
+    m, d = arrays.vlist_idx.shape
+    want = syndrome_from_topo_reference(arrays, values)
+    out = {"route": synd.synd_route(n, m, d, w),
+           "wc_default": nbmm.f2_slab_words(arrays.vlist_idx, n, w),
+           "wc": [wc for wc in nbmm.F2_SLAB_WORDS
+                  if nbmm.f2_rows_smem(n, m, d, wc) <= nbmm.SMEM_LIMIT]}
+    calls = {f"list{wc}": (lambda wc=wc: synd.launch_list(arrays, values, wc))
+             for wc in out["wc"]}
+    calls["walk"] = lambda: synd.launch_walk(arrays, values)
+    for name, call in calls.items():
+        e = max_abs_err(call(), want)
+        errs["syndrome_from_topo"] = max(errs["syndrome_from_topo"], e)
+        require(e == 0, f"syndrome_from_topo ({name}) != plain ({e})")
+        out[f"{name}_ms"] = cuda_ms(call, 5)
+    return out
+
+
+def synd_line(split: dict) -> str:
+    """:func:`synd_split`'s times, for a log line."""
+    return ", ".join([f"list Wc {wc} {split[f'list{wc}_ms']:.3f} ms" for wc in split["wc"]]
+                     + [f"walk {split['walk_ms']:.3f} ms"])
+
+
+def gf256_elim_split(ge, errs: dict) -> dict:
+    """``gf256_eliminate`` on one set of GE operands (:class:`GEInputsNB`):
+    the kernel (the wrapper's cube mode, and the device-memory mode where
+    the cube fits shared memory) held to the plain version, which the
+    table order's plain version must equal; and the column steps alone:
+    the same cubes with their A block the identity, so that each column
+    finds its pivot, builds its table and rewrites the pivot row, and no
+    other row takes an update."""
+    kw = dict(emax=ge.emax, a_words=ge.wa)
+    want = gf256_eliminate_reference(ge.cube, ge.nreal, **kw)
+    e = outputs_err(elim.gf256_eliminate_tables_reference(ge.cube, ge.nreal, **kw), want)
+    require(e == 0, f"gf256_eliminate_tables_reference != gf256_eliminate_reference ({e})")
+    b, m, c = ge.cube.shape
+    in_smem = elim.fits_shared_memory_gf256(m, c)
+    calls = {"wrapper": lambda: gf256_eliminate(ge.cube, ge.nreal, **kw)}
+    if in_smem:
+        calls["device"] = lambda: elim.launch_kernel_gf256(ge.cube, ge.nreal, ge.emax, ge.wa,
+                                                           False)
+    out = {"mode": "shared" if in_smem else "device", "frames": b, "m": m, "c": c}
+    for name, call in calls.items():
+        e = outputs_err(call(), want)
+        errs["gf256_eliminate"] = max(errs["gf256_eliminate"], e)
+        require(e == 0, f"gf256_eliminate ({name}) != plain ({e})")
+        out[f"{name}_ms"] = cuda_ms(call, 5)
+    k = min(m, ge.emax)
+    eye = ge.cube.view(torch.uint8).view(b, m, 4 * c).clone()
+    eye[:, :, : 4 * ge.wa] = 0
+    eye[:, :k, :k] = torch.eye(k, dtype=torch.uint8, device=eye.device)
+    eye = eye.view(torch.int32).view(b, m, c)
+    e = outputs_err(gf256_eliminate(eye, ge.nreal, **kw),
+                    gf256_eliminate_reference(eye, ge.nreal, **kw))
+    errs["gf256_eliminate"] = max(errs["gf256_eliminate"], e)
+    require(e == 0, f"gf256_eliminate (identity A) != plain ({e})")
+    out["steps_ms"] = cuda_ms(lambda: gf256_eliminate(eye, ge.nreal, **kw), 5)
+    return out
+
+
+def gf256_elim_line(split: dict) -> str:
+    """:func:`gf256_elim_split`'s times, for a log line."""
+    parts = [f"{split['wrapper_ms']:.3f} ms on {split['frames']} cubes of ({split['m']}, "
+             f"{split['c']}) words in {split['mode']} memory"]
+    if "device_ms" in split:
+        parts.append(f"the device-memory mode {split['device_ms']:.3f} ms")
+    parts.append(f"the column steps alone (identity A: pivot search, table build, the pivot "
+                 f"row) {split['steps_ms']:.3f} ms")
+    return "; ".join(parts)
 
 
 def elim_split(cube, nreal, emax: int, wa: int, errs: dict) -> dict:
@@ -1184,6 +1297,45 @@ def verify_rs_pattern(b: int, n: int, seed: int, device) -> torch.Tensor:
     return torch.from_numpy(mask).to(device)
 
 
+# Phase 6c's NB escalation: B=64 frames at PER .2031 under buckets too small
+# for them (emax 128, 16 frames), so ge_solve_wide_nb solves the rest.
+NB_ESCALATION = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=16, impl="vmem")
+
+
+def nb_escalation(device):
+    """Phase 6c's batch: (the ``NBPath`` of n2040_k1530_gf256 at B=64, the
+    mask, the production branch's ``hybrid_decode(return_overflow=True)``)."""
+    code = get_code("n2040_k1530_gf256")
+    esc = bench.NBPath(code, b=64, wb=bench.NB["wb"], per=0.2031, seed=77, device=device)
+    mask = iid_erasures((64, code.n), 0.2031, generator=esc.generator, device=device)
+    prod = hybrid_decode(esc.arrays, esc.codewords, mask, return_overflow=True,
+                         **NB_ESCALATION)
+    return esc, mask, prod
+
+
+def escalation_ge(esc, mask, prod):
+    """The escalation's GE operands, as ``hybrid_decode_escalated`` makes
+    them: the frames the production branch failed that keep a residual after
+    the peel, at emax rounded up to 128 past the widest residual (the cube
+    in device memory). Returns (peeled values, residual mask, GEInputsNB)."""
+    n = esc.code.n
+    pv, resid, _ = peel_decode(esc.arrays, esc.codewords, mask, max_iters=10, gf_order=256)
+    cand = prod[3] & resid.any(dim=1)
+    emax = min(n, -(-int(resid[cand].sum(dim=1).max()) // 128) * 128)
+    return pv, resid, GEInputsNB(esc.arrays, pv[cand], resid[cand], emax)
+
+
+def rs_ge(path, device):
+    """The GE operands of phase 6d's RS i.i.d. batch (mask seed 17): (the
+    received words, GEInputsNB)."""
+    r = bench.RS
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    mask = iid_erasures((r["b"], r["n"]), r["per"], generator=gen, device=device)
+    recv = path.codewords.masked_fill(mask[:, :, None], 0)
+    return recv, GEInputsNB(path.arrays, recv, mask, r["n"] - r["k"])
+
+
 def compare_gf_small(device, errs: dict) -> None:
     """Phase 6: the GF(256) kernels and modes against their plain versions."""
     code = get_code("n2040_k1530_gf256")
@@ -1337,10 +1489,8 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     del path, cw
 
     # 6c: NB escalation: buckets too small, ge_solve_wide_nb on the rest.
-    esc = bench.NBPath(code, b=64, wb=nb["wb"], per=0.2031, seed=77, device=device)
-    mask = iid_erasures((64, code.n), 0.2031, generator=esc.generator, device=device)
-    kw = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=16, impl="vmem")
-    prod = hybrid_decode(esc.arrays, esc.codewords, mask, return_overflow=True, **kw)
+    esc, mask, prod = nb_escalation(device)
+    kw = NB_ESCALATION
     require(bool(prod[4].any()), "the production branch overflowed no frame")
     zero_counts()
     v, e_out, it, f, n_esc = hybrid_decode_escalated(esc.arrays, esc.codewords, mask, **kw)
@@ -1348,10 +1498,9 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     counts = read_counts()
     report = check_hybrid(esc.arrays, esc.codewords, mask, v, e_out, f, peel_iters=10,
                           gf_order=256)
-    pv, resid, _ = peel_decode(esc.arrays, esc.codewords, mask, max_iters=10, gf_order=256)
-    cand = prod[3] & resid.any(dim=1)
-    emax2 = min(code.n, -(-int(resid[cand].sum(dim=1).max()) // 128) * 128)
-    c2 = -(-emax2 // 4) + -(-code.m // 4)
+    pv, resid, ge = escalation_ge(esc, mask, prod)
+    emax2 = ge.emax
+    c2 = ge.cube.shape[2]
     log(f"phase 6c: production branch failed {int(prod[3].sum())} ({int(prod[4].sum())} by "
         f"overflow); escalated {n_esc}; verify {json.dumps(report)}; escalation cube "
         f"({code.m}, {c2}) words, emax {emax2}; launches {counts}")
@@ -1364,7 +1513,8 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
         require(counts[name] > 0, f"the NB escalation never launched the {name} kernel")
     add_counts(launches, counts)
     esc_ms = cuda_ms(lambda: hybrid_decode_escalated(esc.arrays, esc.codewords, mask, **kw), 3)
-    ge = GEInputsNB(esc.arrays, pv[cand], resid[cand], emax2)
+    log(f"phase 6c: gf256_eliminate on its GE operands: "
+        f"{gf256_elim_line(gf256_elim_split(ge, errs))}; on {card}")
     split = gf_apply_split(ge.values, ge.rhs, ge.t_top, ge.idx, errs)
     # The replaced kernel was a clone of the values, then gf_matmul_batched's
     # body over the placed rows (dropped rows skipped): the same body on
@@ -1421,11 +1571,7 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     add_counts(launches, counts)
 
     # 7b: the GE kernels against their plain versions at the RS i.i.d. batch.
-    gen = torch.Generator(device=device)
-    gen.manual_seed(17)
-    mask = iid_erasures((r["b"], r["n"]), r["per"], generator=gen, device=device)
-    recv = path.codewords.masked_fill(mask[:, :, None], 0)
-    ge = GEInputsNB(path.arrays, recv, mask, r["n"] - r["k"])
+    recv, ge = rs_ge(path, device)
     for name, (kern, ref) in ge.kernels().items():
         times[name] = cuda_ms(kern, 5)
         want, plain[name] = host_ms(ref)
@@ -1434,6 +1580,8 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
         require(e == 0, f"RS shape: {name} kernel != plain ({e})")
         del want
     bounds.update(ge.bounds())
+    log(f"phase 6d: gf256_eliminate at RS({r['n']},{r['k']}) B={r['b']} PER {r['per']}: "
+        f"{gf256_elim_line(gf256_elim_split(ge, errs))}; on {card}")
     split = gf_apply_split(recv, ge.rhs, ge.t_top, ge.idx, errs)
     log(f"phase 6d: gf_apply_scatter at RS({r['n']},{r['k']}) B={r['b']} {r['wb']} bytes, PER "
         f"{r['per']}: {times['gf_apply_scatter']:.3f} ms; by R: {gf_apply_line(split)}; on {card}")
@@ -2016,6 +2164,33 @@ def parallel_phase(device, card: str, sim_9a: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def paired_kernels(device, card: str) -> None:
+    """``python3 chip_smoke.py --ge-kernels``: the topology syndrome at
+    phase 4b's GE bucket and ``gf256_eliminate`` at phase 6d's RS i.i.d.
+    batch and on phase 6c's escalation operands, timed through the public
+    wrappers only (CUDA events, 20 calls after a warm-up), printed as one
+    JSON line. Copied to the root of another checkout of the port (an
+    earlier commit), the script times that checkout's kernels on the same
+    operands, so that two versions can be compared in one call."""
+    h = bench.HYBRID
+    path = bench.HybridPath(get_code("n2040_k1530"), seed=2024, device=device, **h)
+    _, values, _, sel = ge_bucket(path, device)
+    vs = values[sel]
+    del values
+    out = {"syndrome_from_topo 4b bucket": cuda_ms(
+        lambda: syndrome_from_topo(path.arrays, vs), 20)}
+    del path, vs
+    _, ge = rs_ge(bench.RSPath(seed=2024, device=device, **bench.RS), device)
+    kw = dict(emax=ge.emax, a_words=ge.wa)
+    out["gf256_eliminate RS batch"] = cuda_ms(lambda: gf256_eliminate(ge.cube, ge.nreal, **kw), 20)
+    esc, mask, prod = nb_escalation(device)
+    ge = escalation_ge(esc, mask, prod)[2]
+    kw = dict(emax=ge.emax, a_words=ge.wa)
+    out["gf256_eliminate 6c escalation"] = cuda_ms(
+        lambda: gf256_eliminate(ge.cube, ge.nreal, **kw), 20)
+    log(json.dumps({"ge_kernels_ms": out, "root": ROOT, "card": card}))
+
+
 def add_counts(launches: dict, counts: dict) -> None:
     for name, count in counts.items():
         launches[name] = launches.get(name, 0) + count
@@ -2033,6 +2208,9 @@ def main() -> None:
     log(f"phase 2: built {os.path.basename(path)} in {build_s:.1f} s")
     with open(path[: -len(".so")] + ".log") as f:
         print(f.read(), file=sys.stderr, flush=True)
+    if sys.argv[1:] == ["--ge-kernels"]:
+        paired_kernels(device, card)
+        return
 
     errs = {name: 0 for name in KERNELS}
     compare_small(device, errs)

@@ -56,23 +56,38 @@
 // per block of 16 warps (4 for cubes of at most 128 rows), the cube in
 // shared memory (rows padded to an odd stride) or in device memory, chosen
 // by size. Per column:
-//   1. pivot p = the first unused row whose byte col is nonzero (ballot of
-//      byte != 0 per 32 rows, __ffs, atomicMin on a shared slot, double-
-//      buffered; the choice of ge.py:589-594); each
-//      row's byte is kept in shared memory as its elimination factor;
-//   2. the pivot row, multiplied by the inverse of its pivot byte (a
-//      256-entry table in device memory; the TPU computed x^254 for want
-//      of gathers), goes to a shared buffer, all threads on its words;
-//   3. every other row with factor f != 0 takes row ^= f * pivot_row, a
-//      warp per row (f uniform across its lanes), and the pivot row takes
-//      the normalised words.
-// Three block barriers per column: the search, the normalised row, the
-// update. The a_words cuts and the device-scalar loop bound are the binary
-// kernel's. What bounds it: the double-and-add products of step 3, ~8
-// doublings per word of every eliminated row (integer operations on shared
-// memory); at the RS(255,192) point a frame's cube is 63 rows x 32 words
-// (8 KB, shared memory), at the (2040,1530) escalation 510 rows x up to 256
-// words (~520 KB, device memory).
+//   1. pivot p = the first unused row whose byte col is nonzero (the choice
+//      of ge.py:589-594); warp w owns rows w, w + nwarps, ...: it keeps
+//      their bytes in shared memory as the elimination factors, takes the
+//      least candidate among them (__reduce_min_sync) and atomicMin's it
+//      into a pivot slot (three, rotating, so that one barrier serves);
+//   2. the block tables the nibble products of the pivot row as it stands,
+//      words [c0, C) (gf256.cuh: 32 multiples per word, 33 words apart);
+//   3. the normalisation is folded into the factors: with pinv the inverse
+//      of the pivot byte (log and antilog tables in shared memory), the
+//      pivot row becomes its table at pinv and every other row with factor
+//      f != 0 takes row ^= table[f * pinv]: two table reads and an XOR per
+//      word. Each lane folds one of its warp's rows' factors; the rows that
+//      take an update are listed (ballot, popc) and updated four at a time,
+//      lanes on words, their loads issued before their stores;
+//   4. each warp then searches the next column over its own rows.
+// Two block barriers per column: the pivot slot, the table. The a_words
+// cuts and the device-scalar loop bound are the binary kernel's.
+//
+// What bounds it on an H100: not the bytes (the cube in and out once) and
+// not the operations (one XOR per set factor bit: 0.017 ms at the
+// RS(255,192) batch, 1024 cubes of 63 rows x 32 words), but the chain of
+// dependent steps per column. The kernel it replaces multiplied by
+// double-and-add (about 50 dependent instructions a word, after a
+// normalise-then-update pair of barriers): 0.564 ms at the RS batch. The
+// table makes a product two reads; what is left is the column's fixed
+// chain (search, table build, two barriers): 0.089 ms of 0.152 at the RS
+// batch by chip_smoke.py's split (the same cubes with an identity A block),
+// 0.526 of 1.643 ms at the (2040,1530) escalation cube (31 frames of 510
+// rows x 224 words, device memory), on NVIDIA H100 80GB HBM3, 700.00 W. A
+// frame per warp (several per block, __syncwarp only, the pivot by two
+// ballots) ran at 0.496 ms at the RS batch against 0.206 for a block of 4
+// warps in a trial build: ~8 warps an SM cannot hide the chain.
 
 #include <algorithm>
 #include <climits>
@@ -335,23 +350,65 @@ cudaError_t launch(const uint32_t* in, uint32_t* out, const int32_t* nreal,
 #undef ELIM_ROWS
 }
 
-// Shared memory of the GF(256) kernel: used bits, the column's bytes (one
-// per row, as words), two pivot slots, the normalised pivot row, and the
-// cube when it lives there.
+// The GF(256) kernel's nibble table: the 32 nibble products of each word
+// of the pivot row (gf256.cuh), 32 consecutive words per cube word at a
+// stride of 33, so that the lanes of a warp (consecutive words, the same
+// table row) hit 32 banks when they build it and when they read it.
+constexpr int kTabStride = 33;
+
+// The GF(256) kernel's block: 4 warps for cubes of at most 128 rows (the RS
+// point: 63 rows), so that more frames share an SM; 16 for the LDPC cubes.
+int gf256_threads(int m) { return m <= 128 ? 128 : kThreads; }
+
+// Shared memory of the GF(256) kernel, in words: a list of 32 (row,
+// offsets) pairs per warp, the nibble table, the cube when it lives there,
+// used bits, the column's bytes (one per row), three pivot slots (and one
+// word of padding), and the log and doubled antilog tables (256 + 512
+// bytes).
 size_t gf256_smem_bytes(int m, int C, bool in_smem) {
     const size_t chunks = (m + 31) / 32;
-    size_t words = chunks + (m + 3) / 4 + 2 + C;
+    size_t words = chunks + (m + 3) / 4 + 4 + 192 + 64 * (size_t)(gf256_threads(m) / 32) +
+                   (size_t)kTabStride * C;
     if (in_smem) words += (size_t)m * row_stride(C);
     return words * sizeof(uint32_t);
 }
 
+// Rows e[0..N) of the cube after the column, words [c0, C) of each (a lane
+// per word): the pivot row p takes its table at pinv, every other row
+// row ^ (f * pinv) * pivot row; e[i] = (row, its folded table offsets).
+// The N rows' loads are issued before their stores.
+template <int N>
+__device__ __forceinline__ void update_rows(uint32_t* cube, int stride, const int2* e,
+                                            const uint8_t* tab, int p, int c0, int C,
+                                            int lane) {
+    int2 rows[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) rows[i] = e[i];
+    for (int w = c0 + lane; w < C; w += 32) {
+        const uint8_t* tb = tab + 4 * kTabStride * w;
+        uint32_t prod[N], old[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            prod[i] = nibble_product(tb, (uint32_t)rows[i].y);
+            old[i] = cube[(size_t)rows[i].x * stride + w];
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+            cube[(size_t)rows[i].x * stride + w] = rows[i].x == p ? prod[i] : old[i] ^ prod[i];
+    }
+}
+
+// One frame per block. Warp w owns rows w, w + nwarps, ...: it finds the
+// pivot candidates among them and updates them. Per column two block
+// barriers: A (the pivot slot complete) and B (the table built); each warp
+// searches the next column over its own rows right after updating them.
 template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 gf256_elim_kernel(const uint32_t* __restrict__ in, uint32_t* out,
                   const int32_t* __restrict__ nreal, const int32_t* __restrict__ ncols,
                   int32_t* __restrict__ pivrow, int32_t* __restrict__ failed,
-                  const uint8_t* __restrict__ inv_tab, int m, int C, int emax, int a_words,
-                  int stride) {
+                  const int32_t* __restrict__ log_tab, const uint8_t* __restrict__ exp_tab,
+                  int m, int C, int emax, int a_words, int stride) {
     extern __shared__ uint32_t smem[];
     const int b = blockIdx.x;
     const int nthreads = blockDim.x;
@@ -359,15 +416,19 @@ gf256_elim_kernel(const uint32_t* __restrict__ in, uint32_t* out,
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int chunks = (m + 31) / 32;
-    uint32_t* used = smem;
+    int2* wlist = reinterpret_cast<int2*>(smem) + warp * 32;
+    uint32_t* tab = smem + 64 * nwarps;
+    const uint8_t* tbytes = reinterpret_cast<const uint8_t*>(tab);
+    uint32_t* used = tab + kTabStride * C + (kSmem ? m * stride : 0);
     uint8_t* colv = reinterpret_cast<uint8_t*>(used + chunks);
     int* piv_slot = reinterpret_cast<int*>(used + chunks + (m + 3) / 4);
-    uint32_t* nrow = reinterpret_cast<uint32_t*>(piv_slot + 2);
+    uint8_t* s_log = reinterpret_cast<uint8_t*>(piv_slot + 4);
+    uint8_t* s_exp = s_log + 256;
     const uint32_t* src = in + (size_t)b * m * C;
     uint32_t* dst = out + (size_t)b * m * C;
     uint32_t* cube;
     if (kSmem) {
-        cube = nrow + C;
+        cube = tab + kTabStride * C;
         for (int i = threadIdx.x; i < m * C; i += nthreads) {
             const int r = i / C;
             cube[r * stride + (i - r * C)] = src[i];
@@ -376,56 +437,77 @@ gf256_elim_kernel(const uint32_t* __restrict__ in, uint32_t* out,
         cube = dst;
         for (int i = threadIdx.x; i < m * C; i += nthreads) dst[i] = src[i];
     }
+    for (int i = threadIdx.x; i < 256; i += nthreads) s_log[i] = (uint8_t)__ldg(log_tab + i);
+    for (int i = threadIdx.x; i < 512; i += nthreads) s_exp[i] = __ldg(exp_tab + i);
+    for (int w = threadIdx.x; w < C; w += nthreads)
+        tab[kTabStride * w] = tab[kTabStride * w + 16] = 0;
     for (int j = threadIdx.x; j < chunks; j += nthreads) used[j] = 0;
-    if (threadIdx.x < 2) piv_slot[threadIdx.x] = INT_MAX;
+    if (threadIdx.x < 3) piv_slot[threadIdx.x] = INT_MAX;
     __syncthreads();
 
-    const int ub = a_words ? min(max(*ncols, 0), emax) : emax;
-    const int nr = nreal[b];
-    int fail = 0;
-    for (int col = 0; col < ub; ++col) {
-        const int cw = col >> 2;
-        const unsigned sh = 8u * (col & 3);
+    // This warp's rows' bytes of column c into colv, and the first of them
+    // that is nonzero and not yet a pivot into slot c % 3.
+    const auto search = [&](int c) {
+        const int cw = c >> 2;
+        const unsigned sh = 8u * (c & 3);
         int best = INT_MAX;
-        for (int j = warp; j < chunks; j += nwarps) {
-            const int r = j * 32 + lane;
+        for (int base = warp; base < m; base += 32 * nwarps) {
+            const int r = base + lane * nwarps;
             uint32_t byte = 0;
             if (r < m) {
                 byte = (cube[(size_t)r * stride + cw] >> sh) & 0xFFu;
                 colv[r] = (uint8_t)byte;
             }
-            const uint32_t cand = __ballot_sync(0xffffffffu, byte != 0) & ~used[j];
-            if (cand && best == INT_MAX) best = j * 32 + __ffs(cand) - 1;
+            const bool cand = byte != 0 && !((used[r >> 5] >> (r & 31)) & 1u);
+            best = min(best, (int)__reduce_min_sync(kFull, cand ? (unsigned)r : INT_MAX));
         }
-        if (lane == 0 && best != INT_MAX) atomicMin(&piv_slot[col & 1], best);
-        __syncthreads();
-        const int p = piv_slot[col & 1];
+        if (lane == 0 && best != INT_MAX) atomicMin(&piv_slot[c % 3], best);
+    };
+
+    const int ub = a_words ? min(max(*ncols, 0), emax) : emax;
+    const int nr = nreal[b];
+    int fail = 0;
+    if (ub > 0) search(0);
+    for (int col = 0; col < ub; ++col) {
+        __syncthreads();  // A
+        const int p = piv_slot[col % 3];
         const bool has = p != INT_MAX;  // the same in every thread
         if (threadIdx.x == 0) {
-            piv_slot[(col + 1) & 1] = INT_MAX;  // read by nobody until the next column
+            piv_slot[(col + 2) % 3] = INT_MAX;  // next written after the next barrier A
             pivrow[(size_t)b * emax + col] = has ? p : 0;
             if (has) used[p >> 5] |= 1u << (p & 31);
             fail |= (!has && col < nr);
         }
         if (has) {
-            const int c0 = a_words ? min(cw, a_words) : 0;
-            const uint32_t pinv = __ldg(inv_tab + colv[p]);
+            const int c0 = a_words ? min(col >> 2, a_words) : 0;
             const uint32_t* prow = cube + (size_t)p * stride;
-            for (int w = c0 + threadIdx.x; w < C; w += nthreads) nrow[w] = gf_mul4(prow[w], pinv);
-            __syncthreads();
-            for (int r = warp; r < m; r += nwarps) {
-                uint32_t* row = cube + (size_t)r * stride;
-                if (r == p) {
-                    for (int w = c0 + lane; w < C; w += 32) row[w] = nrow[w];
-                    continue;
-                }
-                const uint32_t f = colv[r];
-                if (f == 0) continue;
-                for (int w = c0 + lane; w < C; w += 32) row[w] ^= gf_mul4(nrow[w], f);
+            for (int w = c0 + threadIdx.x; w < C; w += nthreads)
+                nibble_products(tab + kTabStride * w, prow[w], 1);
+            const int lpinv = 255 - s_log[colv[p]];  // log of the pivot byte's inverse
+            __syncthreads();  // B
+            for (int base = warp; base < m; base += 32 * nwarps) {
+                // Each lane folds one row's factor: f * pinv as table offsets
+                // (the pivot row: pinv; 0 where f == 0); the rows that take
+                // an update are listed, then updated four at a time.
+                const int r = base + lane * nwarps;
+                uint32_t u = 0;
+                if (r == p) u = nibble_offsets(s_exp[lpinv], 1);
+                else if (r < m && colv[r]) u = nibble_offsets(s_exp[s_log[colv[r]] + lpinv], 1);
+                const uint32_t act = __ballot_sync(kFull, u != 0);
+                if (u) wlist[__popc(act & ((1u << lane) - 1u))] = make_int2(r, (int)u);
+                __syncwarp();
+                const int cnt = __popc(act);
+                int k = 0;
+                for (; k + 4 <= cnt; k += 4)
+                    update_rows<4>(cube, stride, wlist + k, tbytes, p, c0, C, lane);
+                for (; k < cnt; ++k)
+                    update_rows<1>(cube, stride, wlist + k, tbytes, p, c0, C, lane);
+                __syncwarp();
             }
         }
-        __syncthreads();
+        if (col + 1 < ub) search(col + 1);
     }
+    __syncthreads();
 
     for (int col = ub + threadIdx.x; col < emax; col += nthreads)
         pivrow[(size_t)b * emax + col] = 0;
@@ -441,8 +523,8 @@ gf256_elim_kernel(const uint32_t* __restrict__ in, uint32_t* out,
 template <bool kSmem>
 cudaError_t gf256_launch(const uint32_t* in, uint32_t* out, const int32_t* nreal,
                          const int32_t* ncols, int32_t* pivrow, int32_t* failed,
-                         const uint8_t* inv_tab, int B, int m, int C, int emax, int a_words,
-                         cudaStream_t stream) {
+                         const int32_t* log_tab, const uint8_t* exp_tab, int B, int m, int C,
+                         int emax, int a_words, cudaStream_t stream) {
     const size_t smem = gf256_smem_bytes(m, C, kSmem);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -450,11 +532,8 @@ cudaError_t gf256_launch(const uint32_t* in, uint32_t* out, const int32_t* nreal
         if (err != cudaSuccess) return err;
     }
     const int stride = kSmem ? row_stride(C) : C;
-    // Small cubes (the RS point: 63 rows) take 4 warps, so that more frames
-    // share an SM; the LDPC cubes take the full 16.
-    const int threads = m <= 128 ? 128 : kThreads;
-    gf256_elim_kernel<kSmem><<<B, threads, smem, stream>>>(
-        in, out, nreal, ncols, pivrow, failed, inv_tab, m, C, emax, a_words, stride);
+    gf256_elim_kernel<kSmem><<<B, gf256_threads(m), smem, stream>>>(
+        in, out, nreal, ncols, pivrow, failed, log_tab, exp_tab, m, C, emax, a_words, stride);
     return cudaGetLastError();
 }
 }  // namespace
@@ -467,14 +546,15 @@ extern "C" int ldpc_gf256_elim_fits_smem(int m, int C) {
 
 extern "C" int ldpc_gf256_elim_launch(const uint32_t* in, uint32_t* out, const int32_t* nreal,
                                       const int32_t* ncols, int32_t* pivrow, int32_t* failed,
-                                      const uint8_t* inv_tab, int B, int m, int C, int emax,
-                                      int a_words, int in_smem, cudaStream_t stream) {
+                                      const int32_t* log_tab, const uint8_t* exp_tab, int B,
+                                      int m, int C, int emax, int a_words, int in_smem,
+                                      cudaStream_t stream) {
     if (B == 0) return (int)cudaSuccess;
     if (in_smem)
-        return (int)gf256_launch<true>(in, out, nreal, ncols, pivrow, failed, inv_tab, B, m, C,
-                                       emax, a_words, stream);
-    return (int)gf256_launch<false>(in, out, nreal, ncols, pivrow, failed, inv_tab, B, m, C,
-                                    emax, a_words, stream);
+        return (int)gf256_launch<true>(in, out, nreal, ncols, pivrow, failed, log_tab, exp_tab,
+                                       B, m, C, emax, a_words, stream);
+    return (int)gf256_launch<false>(in, out, nreal, ncols, pivrow, failed, log_tab, exp_tab,
+                                    B, m, C, emax, a_words, stream);
 }
 // 1 when a frame's cube of m rows x C words fits in the shared memory that
 // one block of the current device may opt in to, else 0.

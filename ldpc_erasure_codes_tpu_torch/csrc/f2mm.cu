@@ -4,7 +4,8 @@
 // j >> 5) and rhs (B, K, W) 32-bit words. Entries:
 //   - ldpc_f2_matvec_launch: one M for every frame (a dense H), bit scan;
 //   - ldpc_f2_matvec_rows_launch: one M given as its rows' column lists (an
-//     LDPC H), the list route;
+//     LDPC H), the list route; also the topology syndrome
+//     (ops/synd.py::syndrome_from_topo), with the Vlist as the lists;
 //   - ldpc_f2_matmul_rows_launch / ldpc_f2_matmul_launch: a matrix per
 //     frame, x written as (B, E, W): every row listed and summed out of a
 //     slab (f2_matmul_rows_kernel, below), or the bit scan where no slab
@@ -43,6 +44,19 @@
 // and no matrix word per output word. Each output word is written once.
 // What bounds it: the values read once (0.94 GB at 448 frames, W = 256);
 // the lists are 13 KB per block from L2.
+//
+// The same route is the topology syndrome syndrome_from_topo, which
+// replaces the TPU kernel ldpc_erasure_codes_tpu/ops/pallas_synd.py::
+// f2_syndrome_tiled (the Vlist baked into the program as constant-offset
+// slice XORs over a tile-major block in VMEM): the code's Vlist is already
+// a row list in this format (vlist_idx (m, dmax) padded with n, vlist_len),
+// so it goes in as it is, over K = n symbols, and the kernel's count is
+// syndrome_from_topo's. Bounded, as H's product, by the bytes of the
+// values (0.349 ms at the bucket): 0.534 ms at Wc 16 against 2.116 ms for
+// the warp walk it replaced there (csrc/synd.cu: a chain of dependent
+// index-then-row loads per check, ~7 warps an SM), which stays the route
+// for the shapes where no slab fits (n >= 65535, checks wider than n / 8,
+// a slab over shared memory even at 4 words; ops/synd.py::synd_route).
 //
 // The transform apply (f2_apply_rows_kernel). At the (2040,1530) GE bucket
 // (448 frames, K = m = 510 syndrome rows, E = 512 transform rows, W = 256)

@@ -35,6 +35,49 @@ __device__ __forceinline__ uint32_t gf_mul4(uint32_t v, uint32_t c) {
     return acc;
 }
 
+// Nibble products: the table that turns a product by any coefficient into
+// two reads. For a packed word x0, row j (1..15) holds the XOR of x0 * x^t
+// over the set bits t of j and row 16 + j the same with x0 * x^(4 + t);
+// rows 0 and 16 hold zero (the caller writes them once). Then c * x0 =
+// row (c & 15) ^ row (16 + (c >> 4)). Rows lie `stride` words apart from
+// tb: csrc/gfmm.cu gives each thread a column (stride = its block width),
+// csrc/elim.cu each pivot-row word 32 consecutive words (stride 1). Seven
+// doublings and 22 XORs per word.
+__device__ __forceinline__ void nibble_products(uint32_t* tb, uint32_t x0, int stride) {
+    const uint32_t x1 = gf_xtime4(x0), x2 = gf_xtime4(x1), x3 = gf_xtime4(x2);
+    const uint32_t x4 = gf_xtime4(x3), x5 = gf_xtime4(x4), x6 = gf_xtime4(x5);
+    const uint32_t x7 = gf_xtime4(x6);
+    uint32_t* lo = tb;
+    uint32_t* hi = tb + 16 * stride;
+    const uint32_t a3 = x0 ^ x1, b3 = x4 ^ x5;
+    const uint32_t a[15] = {x0, x1, a3, x2, x2 ^ x0, x2 ^ x1, x2 ^ a3, x3, x3 ^ x0, x3 ^ x1,
+                            x3 ^ a3, x3 ^ x2, x3 ^ x2 ^ x0, x3 ^ x2 ^ x1, x3 ^ x2 ^ a3};
+    const uint32_t h[15] = {x4, x5, b3, x6, x6 ^ x4, x6 ^ x5, x6 ^ b3, x7, x7 ^ x4, x7 ^ x5,
+                            x7 ^ b3, x7 ^ x6, x7 ^ x6 ^ x4, x7 ^ x6 ^ x5, x7 ^ x6 ^ b3};
+#pragma unroll
+    for (int k = 0; k < 15; ++k) {
+        lo[(k + 1) * stride] = a[k];
+        hi[(k + 1) * stride] = h[k];
+    }
+}
+
+__device__ __forceinline__ uint32_t lookup(const uint8_t* tab, uint32_t off) {
+    return *reinterpret_cast<const uint32_t*>(tab + off);
+}
+
+// c * x0 for the coefficient c given as the byte offsets u of its two
+// nibble products in the table (low half: bits 0..15, high half: 16..31).
+__device__ __forceinline__ uint32_t nibble_product(const uint8_t* tbytes, uint32_t u) {
+    return lookup(tbytes, u & 0xFFFFu) ^ lookup(tbytes, u >> 16);
+}
+
+// The table offsets of coefficient c for rows `stride` words apart
+// (ops/nbmm.py::matrix_tiles's offs); 128 * stride must stay below 65536.
+__device__ __forceinline__ uint32_t nibble_offsets(uint32_t c, int stride) {
+    const uint32_t row = 4u * (uint32_t)stride;
+    return (c & 15u) * row | ((16u + (c >> 4)) * row) << 16;
+}
+
 template <int VEC>
 __device__ __forceinline__ Words<VEC> gf_mul(Words<VEC> w, uint32_t c);
 

@@ -34,10 +34,10 @@
 // tile it reads y_s once, coalesced, forms its 8 multiples y * x^t (7
 // doublings), and writes the 30 nonzero XOR combinations of the low four
 // and of the high four into its own column of a shared-memory table (the
-// "nibble products", nibble_products below; rows 0 and 16 hold zero). Then
-// each row i adds c_is * y_s = lo[c & 15] ^ hi[c >> 4]: two table reads and
-// one XOR, with the table offsets of c_is precomputed on the host and read
-// as warp-uniform words. Per (row, column) that is ~4 instructions where a
+// "nibble products", gf256.cuh's nibble_products; rows 0 and 16 hold
+// zero). Then each row i adds c_is * y_s = lo[c & 15] ^ hi[c >> 4]: two
+// table reads and one XOR, with the table offsets of c_is precomputed on
+// the host and read as warp-uniform words. Per (row, column) that is ~4 instructions where a
 // masked-XOR form (one AND-XOR per coefficient bit, y * x^t & mask(c, t))
 // needs 8 plus the masks' making, and no ballot, shuffle or __ffs remains.
 // Table rows are kTileThreads words apart, so a warp's reads of one row hit
@@ -201,43 +201,9 @@ constexpr int kTileThreads = 64;  // ops/nbmm.py::TILE_THREADS
 constexpr int kTabBytes = 4 * 32 * kTileThreads;
 constexpr int kPanel = 32;        // ops/nbmm.py::GF_APPLY_PANEL
 
-__device__ __forceinline__ uint32_t lookup(const uint8_t* tab, uint32_t off) {
-    return *reinterpret_cast<const uint32_t*>(tab + off);
-}
-
-// The nibble products of x0, this thread's payload word, into its own
-// column tb of the table (rows kTileThreads words apart): row j (1..15) the
-// XOR of x0 * x^t over the set bits t of j, row 16 + j the same with
-// x0 * x^(4 + t). The caller zeroes rows 0 and 16 once.
-__device__ __forceinline__ void nibble_products(uint32_t* tb, uint32_t x0) {
-    const uint32_t x1 = gf_xtime4(x0), x2 = gf_xtime4(x1), x3 = gf_xtime4(x2);
-    const uint32_t x4 = gf_xtime4(x3), x5 = gf_xtime4(x4), x6 = gf_xtime4(x5);
-    const uint32_t x7 = gf_xtime4(x6);
-    uint32_t* lo = tb;
-    uint32_t* hi = tb + 16 * kTileThreads;
-    const uint32_t a3 = x0 ^ x1, b3 = x4 ^ x5;
-    const uint32_t a[15] = {x0, x1, a3, x2, x2 ^ x0, x2 ^ x1, x2 ^ a3, x3, x3 ^ x0, x3 ^ x1,
-                            x3 ^ a3, x3 ^ x2, x3 ^ x2 ^ x0, x3 ^ x2 ^ x1, x3 ^ x2 ^ a3};
-    const uint32_t h[15] = {x4, x5, b3, x6, x6 ^ x4, x6 ^ x5, x6 ^ b3, x7, x7 ^ x4, x7 ^ x5,
-                            x7 ^ b3, x7 ^ x6, x7 ^ x6 ^ x4, x7 ^ x6 ^ x5, x7 ^ x6 ^ b3};
-#pragma unroll
-    for (int k = 0; k < 15; ++k) {
-        lo[(k + 1) * kTileThreads] = a[k];
-        hi[(k + 1) * kTileThreads] = h[k];
-    }
-}
-
-// c * x0 for the coefficient c given as the byte offsets u of its two
-// nibble products in the table (low half: bits 0..15, high half: 16..31).
-__device__ __forceinline__ uint32_t nibble_product(const uint8_t* tbytes, uint32_t u) {
-    return lookup(tbytes, u & 0xFFFFu) ^ lookup(tbytes, u >> 16);
-}
-
-// The table offsets of coefficient c (ops/nbmm.py::matrix_tiles's offs).
-__device__ __forceinline__ uint32_t nibble_offsets(uint32_t c) {
-    constexpr uint32_t kRow = 4 * kTileThreads;
-    return (c & 15u) * kRow | ((16u + (c >> 4)) * kRow) << 16;
-}
+// The nibble-product table (nibble_products, nibble_product, nibble_offsets
+// in gf256.cuh, shared with csrc/elim.cu's GF(256) kernel): each thread's
+// column of 32 rows kTileThreads words apart.
 
 // A block per (frame, chunk of kTileThreads words) and tile: rhs rows
 // tile * R .. of the frame at this thread's word.
@@ -267,7 +233,7 @@ gf_matvec_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __rest
     for (int sp = 0; sp < nc; ++sp) {
         const uint32_t x0 = next;
         if (sp + 1 < nc) next = own ? (uint32_t)__ldg(y + (size_t)__ldg(cl + sp + 1) * W) : 0u;
-        nibble_products(tb, x0);
+        nibble_products(tb, x0, kTileThreads);
         const int4* o = of + (size_t)sp * (R / 4);
 #pragma unroll
         for (int q = 0; q < R / 4; ++q) {
@@ -379,13 +345,13 @@ gf_apply_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __restr
         for (int i = threadIdx.x; i < pc * R; i += kTileThreads) {
             const int col = i / R, r = i % R;
             const uint32_t c = r < rows ? __ldg(mf + (size_t)rows_e[r] * m + p0 + col) : 0u;
-            offs[i] = nibble_offsets(c);
+            offs[i] = nibble_offsets(c, kTileThreads);
         }
         __syncthreads();
         for (int sp = 0; sp < pc; ++sp) {
             const uint32_t x0 = next;
             if (p0 + sp + 1 < m) next = own ? (uint32_t)__ldg(y + (size_t)(p0 + sp + 1) * W) : 0u;
-            nibble_products(tb, x0);
+            nibble_products(tb, x0, kTileThreads);
             const uint4* o = reinterpret_cast<const uint4*>(offs + sp * R);
 #pragma unroll
             for (int q = 0; q < R / 4; ++q) {

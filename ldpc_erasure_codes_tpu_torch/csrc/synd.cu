@@ -1,27 +1,30 @@
-// GF(2) syndrome of packed words through the code's topology:
+// GF(2) syndrome of packed words through the code's topology, the walk
+// route of ops/synd.py::syndrome_from_topo:
 //   rhs[b, c, :] = XOR over j < vlist_len[c] of values[b, vlist_idx[c, j], :]
 // with values (B, n, W) and rhs (B, m, W), 32-bit words.
 //
-// Replaces the TPU kernel ldpc_erasure_codes_tpu/ops/pallas_synd.py::
-// f2_syndrome_tiled (reached through syndrome_from_topo), which bakes the
-// Vlist into the program as constant-offset slice XORs over a tile-major
-// (T, (n+1)*bt, W) block in VMEM. Erased slots hold zero (the repo's
-// invariant), so H . y over all neighbours is the known-only sum and no
-// masking is needed.
+// syndrome_from_topo (the counterpart of the TPU kernel
+// ldpc_erasure_codes_tpu/ops/pallas_synd.py::f2_syndrome_tiled) runs
+// f2_matvec_wide's list route (csrc/f2mm.cu) with the Vlist as its row
+// lists wherever that route's slab fits; this kernel is kept for the
+// shapes where none does (n >= 65535, checks wider than n / 8, a slab over
+// shared memory even at 4 words: ops/synd.py::synd_route). Erased slots
+// hold zero (the repo's invariant), so H . y over all neighbours is the
+// known-only sum and no masking is needed.
 //
-// What bounds it on an H100: bytes. At the (2040,1530) GE point it reads
-// 448 frames x 510 checks x ~13 neighbours x 1 KB ~ 3 GB of symbol rows,
-// each value row ~3.3 times (its column degree), and writes 0.23 GB. A
-// frame is 2 MB, so the re-reads hit L2 only as far as the frames in
-// flight fit in its 50 MB.
+// Design: a warp owns one (frame, chunk of 32*VEC words) and walks the
+// checks in order; each lane XORs and stores its own VEC words, so every
+// row access is a coalesced 512-byte transaction (VEC = 4) and no barrier
+// is needed. The Vlist is read through the read-only cache (the same index
+// for every lane: a broadcast).
 //
-// Design: the layout is the flat (B, n, W) one; baking the topology into
-// the program would cost an nvcc build per code, so the kernel reads
-// vlist_idx / vlist_len from device memory through the read-only cache (the
-// same index for every lane: a broadcast), as csrc/peel.cu does. A warp
-// owns one (frame, chunk of 32*VEC words) and walks the checks in order;
-// each lane XORs and stores its own VEC words, so every row access is a
-// coalesced 512-byte transaction (VEC = 4) and no barrier is needed.
+// What bounds it on an H100: memory latency, not bandwidth. Each check is a
+// chain of ~13 dependent index-then-row loads, one in flight at a time, and
+// at the (2040,1530) GE bucket (448 frames, W = 256) there are 896 warps
+// for the card, about 7 per SM: 2.116 ms against the 0.349 ms byte bound,
+// where the list route takes 0.534 ms on the same operands (chip_smoke.py
+// phase 5 on NVIDIA H100 80GB HBM3, 700.00 W). It stays only as the route
+// for the shapes the slab cannot take.
 
 #include <cstdint>
 

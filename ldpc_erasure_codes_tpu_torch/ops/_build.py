@@ -69,9 +69,9 @@ LAUNCHERS = {
     "ldpc_elim_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # m, C
     "ldpc_elim_fits_smem": [_I, _I],
-    # in, out, nreal, ncols, pivrow, failed, inv_table, B, m, C, emax,
-    # a_words, in_smem, stream
-    "ldpc_gf256_elim_launch": [*[_P] * 7, *[_I] * 6, _P],
+    # in, out, nreal, ncols, pivrow, failed, log_table, exp_table, B, m, C,
+    # emax, a_words, in_smem, stream
+    "ldpc_gf256_elim_launch": [*[_P] * 8, *[_I] * 6, _P],
     # m, C
     "ldpc_gf256_elim_fits_smem": [_I, _I],
     # values, idx, coef, out, B, n, m, d, W, stream

@@ -24,7 +24,10 @@ the plain version apply the same cuts, so they agree on every output.
 ``ops/ge.py::ge_solve_wide_nb``: the same layout and cuts with byte
 columns (byte ``col & 3`` of word ``col >> 2``), the pivot row normalised
 by the field inverse and written back, and every other row with a nonzero
-byte ``f`` in the column updated by ``row ^= f * pivot_row``.
+byte ``f`` in the column updated by ``row ^= f * pivot_row``. The kernel
+computes each product from a table of the pivot row's nibble products,
+with the normalisation folded into the factors;
+:func:`gf256_eliminate_tables_reference` is that form in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from ldpc_erasure_codes_tpu_torch.gf.ops import gf_mul_packed, table
 from ldpc_erasure_codes_tpu_torch.ops import _build
+from ldpc_erasure_codes_tpu_torch.ops.nbmm import _nibble_products
 
 
 def _check(cube: torch.Tensor, nreal: torch.Tensor, emax: int, a_words: int) -> None:
@@ -264,6 +268,51 @@ def gf256_eliminate_reference(
     return r, pivrow, failed
 
 
+def gf256_eliminate_tables_reference(
+    cube: torch.Tensor, nreal: torch.Tensor, *, emax: int, a_words: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch GF(256) elimination in the kernel's form
+    (``csrc/elim.cu``): per column, the nibble products of the pivot row as
+    it stands (:func:`.nbmm._nibble_products`, words [c0, C)), and the
+    normalisation folded into the factors: the pivot row becomes its table
+    at ``pinv`` (the inverse of its pivot byte), every other row with byte
+    f != 0 takes ``row ^= table[f * pinv]``, each product two table reads.
+    Equal to :func:`gf256_eliminate_reference`."""
+    _check_nb(cube, nreal, emax, a_words)
+    b, m, c = cube.shape
+    dev = cube.device
+    inv, mul = table("inv", dev), table("mul", dev)
+    r = cube.clone()
+    used = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    pivrow = torch.zeros((b, emax), dtype=torch.int32, device=dev)
+    failed = torch.zeros((b,), dtype=torch.bool, device=dev)
+    rows = torch.arange(m, device=dev)
+    frames = torch.arange(b, device=dev)
+    ub = emax
+    if a_words:
+        ub = min(int(nreal.max()), emax) if b else 0
+    for col in range(ub):
+        colv = ((r[:, :, col >> 2] >> (8 * (col & 3))) & 0xFF).long()  # (B, m)
+        cand = (colv != 0) & ~used
+        has = cand.any(dim=1)
+        piv = torch.where(has, cand.to(torch.uint8).argmax(dim=1), 0)  # first row
+        is_piv = (rows[None, :] == piv[:, None]) & has[:, None]
+        used |= is_piv
+        pivrow[:, col] = piv.to(torch.int32)
+        c0 = min(col >> 2, a_words) if a_words else 0
+        lo, hi = _nibble_products(r[frames, piv, c0:])  # (B, 16, C - c0)
+        pinv = inv[colv[frames, piv]].long()  # (B,)
+        folded = mul[colv, pinv[:, None]].long()  # f * pinv, 0 where f == 0
+        folded = torch.where(is_piv, pinv[:, None], folded)
+        folded = torch.where(has[:, None], folded, 0)  # (B, m)
+        wid = c - c0
+        prod = (torch.gather(lo, 1, (folded & 15)[:, :, None].expand(b, m, wid))
+                ^ torch.gather(hi, 1, (folded >> 4)[:, :, None].expand(b, m, wid)))
+        r[:, :, c0:] = torch.where(is_piv[:, :, None], prod, r[:, :, c0:] ^ prod)
+        failed |= ~has & (col < nreal)
+    return r, pivrow, failed
+
+
 def _check_nb(cube, nreal, emax: int, a_words: int) -> None:
     _check(cube, nreal, 0, a_words)
     if not 0 <= emax <= 4 * cube.shape[2]:
@@ -279,11 +328,11 @@ def launch_kernel_gf256(cube, nreal, emax: int, a_words: int, in_smem: bool):
     pivrow = torch.empty((b, emax), dtype=torch.int32, device=cube.device)
     failed = torch.empty((b,), dtype=torch.int32, device=cube.device)
     ncols = nreal.max().clamp(max=emax).reshape(1) if b else nreal.new_zeros(1)
-    inv = table("inv", cube.device)
+    log, exp = table("log", cube.device), table("exp", cube.device)
     rc = _build.library().ldpc_gf256_elim_launch(
         cube.data_ptr(), out.data_ptr(), nreal.data_ptr(), ncols.data_ptr(),
-        pivrow.data_ptr(), failed.data_ptr(), inv.data_ptr(), b, m, c, emax, a_words,
-        int(in_smem), torch.cuda.current_stream(cube.device).cuda_stream,
+        pivrow.data_ptr(), failed.data_ptr(), log.data_ptr(), exp.data_ptr(), b, m, c, emax,
+        a_words, int(in_smem), torch.cuda.current_stream(cube.device).cuda_stream,
     )
     _build.check(rc, "ldpc_gf256_elim_launch")
     gf256_eliminate.launches += 1

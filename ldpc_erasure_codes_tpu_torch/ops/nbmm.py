@@ -263,11 +263,16 @@ def f2_rows_smem(k: int, m: int, d: int, wc: int) -> int:
 
 def f2_slab_words(idx: torch.Tensor, k: int, w: int) -> int | None:
     """Wc of the list route for row lists ``idx`` (m, d) over K = ``k``
+    symbols of W = ``w`` words (:func:`f2_rows_slab_words` of its shape)."""
+    return f2_rows_slab_words(k, *idx.shape, w)
+
+
+def f2_rows_slab_words(k: int, m: int, d: int, w: int) -> int | None:
+    """Wc of the list route for m row lists of width d over K = ``k``
     symbols of W = ``w`` words: the first of :data:`F2_SLAB_WORDS` no
-    wider than W rounded up to 4 whose block fits; None (the bit-scan
-    route) for lists wider than K // :data:`F2_LIST_SPARSITY` or a slab
-    that does not fit even at 4 words."""
-    m, d = idx.shape
+    wider than W rounded up to 4 whose block fits; None (no slab: the
+    caller's other route) for lists wider than K // :data:`F2_LIST_SPARSITY`,
+    K >= 65535, or a slab that does not fit even at 4 words."""
     if d > k // F2_LIST_SPARSITY or k >= 65535:
         return None
     fits = [wc for wc in F2_SLAB_WORDS if wc <= max(4, -(-w // 4) * 4)
@@ -276,10 +281,12 @@ def f2_slab_words(idx: torch.Tensor, k: int, w: int) -> int | None:
 
 
 def launch_rows(values: torch.Tensor, idx: torch.Tensor, length: torch.Tensor,
-                wc: int) -> torch.Tensor:
+                wc: int, counter=None) -> torch.Tensor:
     """The list route's kernel on CUDA tensors with Wc = ``wc`` words per
     block (one of :data:`F2_SLAB_WORDS`, the block within shared memory).
-    Counts one launch of ``f2_matvec_wide``."""
+    Counts one launch on ``counter`` (a wrapper with a ``launches``
+    attribute; default ``f2_matvec_wide``; ``synd.syndrome_from_topo``
+    passes itself)."""
     _check_f2_rows(values, idx, length)
     b, k, w = values.shape
     m, d = idx.shape
@@ -293,7 +300,7 @@ def launch_rows(values: torch.Tensor, idx: torch.Tensor, length: torch.Tensor,
         _stream(values),
     )
     _build.check(rc, "ldpc_f2_matvec_rows_launch")
-    f2_matvec_wide.launches += 1
+    (counter or f2_matvec_wide).launches += 1
     return out
 
 
@@ -781,7 +788,8 @@ def gf_apply_smem(e: int, n: int, r: int) -> int:
 def _nibble_products(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The nibble products of words x (B, W): (lo, hi) (B, 16, W), lo[c] =
     c * x for c < 16 and hi[c] = (c << 4) * x, from the 8 multiples x * x^t
-    (7 doublings), as each thread of ``csrc/gfmm.cu`` tables them."""
+    (7 doublings), as ``csrc/gf256.cuh::nibble_products`` tables them
+    (for ``csrc/gfmm.cu``'s products and ``csrc/elim.cu``'s elimination)."""
     mult = [x]
     for _ in range(7):
         mult.append(_xtime_packed(mult[-1]))

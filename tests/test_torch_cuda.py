@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, peel, rank
+from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, peel, rank, synd
 from ldpc_erasure_codes_tpu_torch.ops import encode as enc
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, pack_bits
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
@@ -366,8 +366,15 @@ def test_eliminate_device_memory_mode_at_4000(cuda_device, b):
     _equal(got, elim.f2_eliminate_reference(cube, nreal, emax=emax, a_words=emax // 32))
 
 
+SYND_ROUTES = {"auto": syndrome_from_topo, "list": synd.launch_list, "walk": synd.launch_walk}
+
+
+@pytest.mark.parametrize("route", list(SYND_ROUTES))
 @pytest.mark.parametrize("w,aligned", [(256, True), (256, False), (5, True), (3, True)])
-def test_syndrome_kernel_matches_plain(cuda_device, w, aligned):
+def test_syndrome_kernel_matches_plain(cuda_device, w, aligned, route):
+    """Both routes, forced, and the wrapper's choice (the list route at
+    every W here); each counts one launch of ``syndrome_from_topo`` and
+    none of ``f2_matvec_wide``."""
     code = get_code("n2040_k1530")
     arrays = code_arrays(code, cuda_device)
     rng = np.random.default_rng(w)
@@ -376,10 +383,31 @@ def test_syndrome_kernel_matches_plain(cuda_device, w, aligned):
     values = to_torch(v).to(cuda_device)
     if not aligned:
         values = _misaligned(values)
-    before = syndrome_from_topo.launches
-    got = syndrome_from_topo(arrays, values)
+    assert synd.synd_route(code.n, code.m, arrays.dmax, w) == "list"
+    before = (syndrome_from_topo.launches, nbmm.f2_matvec_wide.launches)
+    got = SYND_ROUTES[route](arrays, values)
     torch.cuda.synchronize()
-    assert syndrome_from_topo.launches == before + 1
+    assert (syndrome_from_topo.launches, nbmm.f2_matvec_wide.launches) == (
+        before[0] + 1, before[1])
+    torch.testing.assert_close(got, syndrome_from_topo_reference(arrays, values), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["n2040_k1530", "n4000_k2000"])
+@pytest.mark.parametrize("wc", nbmm.F2_SLAB_WORDS)
+def test_syndrome_list_route_every_slab_width(cuda_device, name, wc):
+    """The list route at each slab width Wc whose block fits (from the
+    host's size arithmetic), B = 3, W = 64; a Wc over shared memory
+    raises."""
+    code = get_code(name)
+    arrays = code_arrays(code, cuda_device)
+    rng = np.random.default_rng(wc)
+    values = to_torch(random_words(rng, (3, code.n, 64))).to(cuda_device)
+    if nbmm.f2_rows_smem(code.n, code.m, arrays.dmax, wc) > nbmm.SMEM_LIMIT:
+        with pytest.raises(ValueError):
+            synd.launch_list(arrays, values, wc)
+        return
+    got = synd.launch_list(arrays, values, wc)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, syndrome_from_topo_reference(arrays, values), rtol=0, atol=0)
 
 
@@ -709,16 +737,23 @@ def test_peel_nb_kernel_matches_plain(cuda_device, early_stop, wb, aligned, wc):
     assert torch.equal(got[0][~got[1]], cw[~got[1]])
 
 
-def _random_nb_cube(rng, b, m, c, emax, zero_pad_columns):
+def _random_nb_cube(rng, b, m, c, emax, zero_pad_columns, edges=False):
     """Sparse random GF(256) byte systems: a third of the frames have zero
     rows past m - 4, two frames are all zero (they fail); with
     ``zero_pad_columns`` the A bytes past nreal are zero, as the solver
-    makes them."""
+    makes them. ``edges``: frame 0 has nreal 0, and frame 1's A block is
+    the identity (every pivot byte 1)."""
     by = rng.integers(0, 256, (b, m, 4 * c), dtype=np.uint8)
     by[rng.random((b, m, 4 * c)) < 0.6] = 0
     by[: b // 3, m - 4 :] = 0
     by[-2:] = 0
     nreal = rng.integers(0, emax + 1, b).astype(np.int32)
+    if edges:
+        nreal[0] = 0
+        k = min(m, emax)
+        by[1, :, :emax] = 0
+        by[1, :k, :k] = np.eye(k, dtype=np.uint8)
+        nreal[1] = k
     if zero_pad_columns:
         cols = np.arange(4 * c)
         pad = (cols[None, :] >= nreal[:, None]) & (cols[None, :] < emax)  # (B, 4C)
@@ -730,13 +765,19 @@ def _random_nb_cube(rng, b, m, c, emax, zero_pad_columns):
 @pytest.mark.parametrize("b,m,c,emax,in_smem", [
     (64, 63, 32, 63, True), (64, 63, 32, 63, False), (8, 510, 160, 128, False),
     (3, 40, 3, 9, True), (3, 40, 3, 9, False),
+    (40, 32, 16, 32, True), (40, 64, 32, 63, True), (40, 65, 32, 64, True),
+    (16, 128, 32, 128, True), (16, 129, 40, 128, True), (8, 510, 224, 384, False),
 ])
 def test_gf256_eliminate_kernel_matches_plain(cuda_device, a_words, b, m, c, emax, in_smem):
     """Both cube modes, with and without the a_words cuts, at the RS(255,192)
-    cube (63 x 32 words, 8 KB) and the (2040,1530) escalation cube (510 x
-    160 words, 326 KB, which only the device-memory mode can hold)."""
+    cube (63 x 32 words, 8 KB) and the (2040,1530) escalation cubes (510 x
+    160 and 224 words, which only the device-memory mode can hold); m = 32,
+    64, 65, 128 and 129 on each side of a warp's 32 and 64 rows and of the
+    128-thread block. The newer cases hold a frame with nreal 0 and one
+    whose pivot bytes are 1."""
     rng = np.random.default_rng(m + c)
-    cube, nreal = _random_nb_cube(rng, b, m, c, emax, zero_pad_columns=a_words)
+    cube, nreal = _random_nb_cube(rng, b, m, c, emax, zero_pad_columns=a_words,
+                                  edges=b in (40, 16) or c == 224)
     cube, nreal = cube.to(cuda_device), nreal.to(cuda_device)
     aw = -(-emax // 4) if a_words else 0
     fits = elim.fits_shared_memory_gf256(m, c)
@@ -751,6 +792,7 @@ def test_gf256_eliminate_kernel_matches_plain(cuda_device, a_words, b, m, c, ema
         assert want[2].any() and not want[2].all()
     if not in_smem and fits:  # the wrapper picks shared memory here
         _equal(elim.gf256_eliminate(cube, nreal, emax=emax, a_words=aw), want)
+    _equal(elim.gf256_eliminate_tables_reference(cube, nreal, emax=emax, a_words=aw), want)
 
 
 @pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True), (1000, True)])
