@@ -24,7 +24,9 @@ Phases, each fatal on failure:
    (``bench.MainPath``): (2040,1530), B=2048, W=256, PER 0.1406, first-k
    early stop, 50 sweeps at most. The launch counters are zeroed just
    before and read just after; the first decode is verified bit-exactly
-   (``utils/verify.py``), then 10 reps are timed with CUDA events;
+   (``utils/verify.py::check_peel``, which also holds 8 frames' masks and
+   sweeps to the NumPy oracle ``utils/oracle.py``, its seconds logged),
+   then 10 reps are timed with CUDA events;
 4b. the hybrid path at full width (``bench.HybridPath``, the GE-hot point
    of scripts/bench_hybrid_values.py): (2040,1530), B=1024, W=256, PER
    .2031, 10 peel sweeps, emax 512, a GE bucket of 448 frames, the rows
@@ -61,7 +63,8 @@ Phases, each fatal on failure:
    their plain versions at small shapes, bit-exact;
 6a. the NB main path (``bench.NBPath``): ``n2040_k1530_gf256``, B=512,
    1024-byte symbols, PER .1406, first-k early stop; counted, verified
-   (``check_nb``), 5 reps timed;
+   (``check_nb``, with the oracle's GF(256) peel on 8 frames), 5 reps
+   timed;
 6b. the NB hybrid, production knobs (10 sweeps, emax 128, bucket 64; its
    GE is the plain byte Gauss-Jordan ``ge_solve``); counted, verified
    (``check_hybrid``), 3 reps timed;
@@ -70,8 +73,7 @@ Phases, each fatal on failure:
    in device memory; verified, the escalation call timed, with
    ``gf256_eliminate`` on its GE operands (held to the plain version, and
    its column steps alone, as in phase 6d) and ``gf_apply_scatter`` (as in
-   phase 6d's split) beside a stand-in for the kernel it replaced, and
-   ``ge_solve``'s stage time;
+   phase 6d's split), and ``ge_solve``'s stage time;
 6d. RS(255,192) wide decode (``bench.RSPath``), B=1024, 1024-byte
    payloads: verified on ``verify_rs``'s pattern (e = 1..63, one frame at
    64 that must fail, ``check_rs``), then the i.i.d. PER .15 and the e=63
@@ -126,11 +128,12 @@ Phases, each fatal on failure:
    device memory);
    ``channel_apply_per64`` at B=64 and at the main path's shape (beside the
    unfused ``iid_erasures_per64`` + ``apply_erasures``); ``gf_matmul_batched``
-   on phase 6d's RS i.i.d. batch (counted, and held against the rows
-   ``gf_apply_scatter`` places);
+   on phase 6d's RS i.i.d. batch (counted, and held against its tiles twin
+   ``gf_matmul_tiles_reference`` and the rows ``gf_apply_scatter`` places);
 10b. the decoder-top leg, the FPGA's data_in analog (PARITY.md:60):
    (2040,1530), B=2048, W=256, encode -> ``channel_apply_per64`` at 9/64 ->
-   seq peel with first-k stop; counted, verified (``check_peel``), timed;
+   seq peel with first-k stop; counted, verified (``check_peel``, the
+   oracle's seconds logged), timed;
 11. the parallel layer on the card: ``multihost.initialize`` over NCCL at
    world size 1 (``file://`` rendezvous), the sharded 9b and 9c steps equal
    to the unsharded ones, ``run_fer_point(mesh=...)`` at 9a's point equal to
@@ -138,9 +141,10 @@ Phases, each fatal on failure:
    ``dryrun_multichip(1)``; the process group is destroyed before the end.
 
 ``python3 chip_smoke.py --ge-kernels`` builds the kernels and only times
-the topology syndrome and ``gf256_eliminate`` on the operands of phases 5,
-6c and 6d through the public wrappers; copied to the root of an earlier
-checkout of the port, it times that checkout's kernels on the same operands.
+the topology syndrome, ``gf256_eliminate``, ``gf_matmul_batched`` and
+``gf_apply_scatter`` on the operands of phases 5, 6c and 6d through the
+public wrappers; copied to the root of an earlier checkout of the port, it
+times that checkout's kernels on the same operands.
 
 Every kernel's entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and the
@@ -1516,18 +1520,11 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     log(f"phase 6c: gf256_eliminate on its GE operands: "
         f"{gf256_elim_line(gf256_elim_split(ge, errs))}; on {card}")
     split = gf_apply_split(ge.values, ge.rhs, ge.t_top, ge.idx, errs)
-    # The replaced kernel was a clone of the values, then gf_matmul_batched's
-    # body over the placed rows (dropped rows skipped): the same body on
-    # the rows with the dropped ones zeroed, after a clone, stands in for it.
-    cut = torch.where((ge.idx < code.n)[:, :, None], ge.t_top, 0)
-    old_ms = cuda_ms(lambda: (ge.values.clone(), gf_matmul_batched(ge.rhs, cut)), 5)
     r_ms = split[f"r{split['r']}_ms"]
     log(f"phase 6c: the escalation call {esc_ms:.3f} ms (CUDA events, 3 reps); gf_apply_scatter "
         f"on its GE operands ({ge.values.shape[0]} frames, E={ge.t_top.shape[1]}, "
-        f"m={code.m}): {r_ms:.3f} ms; by R: {gf_apply_line(split)}; "
-        f"the replaced body's stand-in (a clone, then gf_matmul_batched on the placed rows) "
-        f"{old_ms:.3f} ms; on {card}")
-    del ge, cut
+        f"m={code.m}): {r_ms:.3f} ms; by R: {gf_apply_line(split)}; on {card}")
+    del ge
     sel = residual_order(resid, kw["ge_subbatch"])[0]
     vs, es = pv[sel], resid[sel]
     ge_ms = cuda_ms(lambda: ge_solve(esc.arrays, vs, es, emax=kw["emax"], gf_order=256), 2)
@@ -2038,8 +2035,9 @@ def channel_phase(device, card: str, errs: dict, times: dict, plain: dict, bound
 def gf_matmul_phase(ge, card: str, errs: dict, times: dict, plain: dict, bounds: dict,
                     launches: dict) -> None:
     """Phase 10, ``gf_matmul_batched`` on phase 6d's RS i.i.d. batch: the
-    solved rows of every frame (T . rhs), counted, against the plain version
-    and against the rows ``gf_apply_scatter`` places."""
+    solved rows of every frame (T . rhs), counted, against the plain version,
+    against its tiles twin (``gf_matmul_tiles_reference``, the kernel's
+    order) and against the rows ``gf_apply_scatter`` places."""
     zero_counts()
     x = gf_matmul_batched(ge.rhs, ge.t_top)
     torch.cuda.synchronize()
@@ -2047,14 +2045,16 @@ def gf_matmul_phase(ge, card: str, errs: dict, times: dict, plain: dict, bounds:
     require(counts["gf_matmul_batched"] > 0, "the RS rows leg never launched gf_matmul_batched")
     add_counts(launches, counts)
     e_err = max_abs_err(x, gf_matmul_batched_reference(ge.rhs, ge.t_top))
+    t_err = max_abs_err(x, nbmm.gf_matmul_tiles_reference(ge.rhs, ge.t_top))
     placed = gf_apply_scatter(ge.values, ge.rhs, ge.t_top, ge.idx)
     b, n, wb = ge.values.shape
     keep = ge.idx < n
     frames = torch.arange(b, device=x.device)[:, None].expand_as(ge.idx)[keep]
     rows = placed[frames, ge.idx[keep].long()]
     require(torch.equal(rows, x[keep]), "gf_matmul_batched rows differ from the placed rows")
-    errs["gf_matmul_batched"] = max(errs["gf_matmul_batched"], e_err)
+    errs["gf_matmul_batched"] = max(errs["gf_matmul_batched"], e_err, t_err)
     require(e_err == 0, f"gf_matmul_batched kernel != plain ({e_err})")
+    require(t_err == 0, f"gf_matmul_batched kernel != its tiles twin ({t_err})")
     times["gf_matmul_batched"] = cuda_ms(lambda: gf_matmul_batched(ge.rhs, ge.t_top), 5)
     _, plain["gf_matmul_batched"] = host_ms(lambda: gf_matmul_batched_reference(ge.rhs, ge.t_top))
     m, e = ge.rhs.shape[1], ge.t_top.shape[1]
@@ -2062,10 +2062,12 @@ def gf_matmul_phase(ge, card: str, errs: dict, times: dict, plain: dict, bounds:
     bounds["gf_matmul_batched"] = bound(b * m * wb + b * e * m + b * e * wb,
                                         (wb // 4) * int(t_ops))
     bnd = bounds["gf_matmul_batched"]
-    log(f"phase 10: gf_matmul_batched at RS(255,192) B={b} {wb} bytes ({e} rows of {m}): "
-        f"kernel {times['gf_matmul_batched']:.3f} ms, plain {plain['gf_matmul_batched']:.1f} "
-        f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); equal to the plain version and "
-        f"to gf_apply_scatter's {int(keep.sum())} placed rows; launches "
+    r = nbmm.gf_apply_rows(e)
+    log(f"phase 10: gf_matmul_batched at RS(255,192) B={b} {wb} bytes ({e} rows of {m}; tiles "
+        f"of R = {r}, {-(-e // r)} a frame): kernel {times['gf_matmul_batched']:.3f} ms, plain "
+        f"{plain['gf_matmul_batched']:.1f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}); equal to the plain version, to its tiles twin and to "
+        f"gf_apply_scatter's {int(keep.sum())} placed rows; launches "
         f"{counts['gf_matmul_batched']}; on {card}")
 
 
@@ -2166,8 +2168,9 @@ def parallel_phase(device, card: str, sim_9a: dict) -> None:
 
 def paired_kernels(device, card: str) -> None:
     """``python3 chip_smoke.py --ge-kernels``: the topology syndrome at
-    phase 4b's GE bucket and ``gf256_eliminate`` at phase 6d's RS i.i.d.
-    batch and on phase 6c's escalation operands, timed through the public
+    phase 4b's GE bucket, ``gf256_eliminate``, ``gf_matmul_batched`` and
+    ``gf_apply_scatter`` at phase 6d's RS i.i.d. batch, and
+    ``gf256_eliminate`` on phase 6c's escalation operands, timed through the public
     wrappers only (CUDA events, 20 calls after a warm-up), printed as one
     JSON line. Copied to the root of another checkout of the port (an
     earlier commit), the script times that checkout's kernels on the same
@@ -2183,6 +2186,9 @@ def paired_kernels(device, card: str) -> None:
     _, ge = rs_ge(bench.RSPath(seed=2024, device=device, **bench.RS), device)
     kw = dict(emax=ge.emax, a_words=ge.wa)
     out["gf256_eliminate RS batch"] = cuda_ms(lambda: gf256_eliminate(ge.cube, ge.nreal, **kw), 20)
+    out["gf_matmul_batched RS batch"] = cuda_ms(lambda: gf_matmul_batched(ge.rhs, ge.t_top), 20)
+    out["gf_apply_scatter RS batch"] = cuda_ms(
+        lambda: gf_apply_scatter(ge.values, ge.rhs, ge.t_top, ge.idx), 20)
     esc, mask, prod = nb_escalation(device)
     ge = escalation_ge(esc, mask, prod)[2]
     kw = dict(emax=ge.emax, a_words=ge.wa)

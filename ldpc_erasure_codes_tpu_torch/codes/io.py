@@ -1,9 +1,10 @@
 """LDPC codes as data: the Vlist form, loaded from the shipped ``.npz`` files.
 
-Counterpart of ``ldpc_erasure_codes_tpu/codes/io.py`` (``load_code``,
-``get_code``) and of ``codes/registry.py``: the fields of ``LDPCCode``,
-``h_dense_nb``, the seed-0 GF(256) lift (``lift_to_gf256``, :184-199) and
-``from_h_dense`` (:215-253), which the Reed-Solomon codes use. The JAX
+Counterpart of ``ldpc_erasure_codes_tpu/codes/io.py`` (``save_code``,
+``load_code``, ``get_code``) and of ``codes/registry.py``: the fields of
+``LDPCCode``, ``h_dense`` and ``h_dense_nb``, ``validate`` (:201-212), the
+seed-0 GF(256) lift (``lift_to_gf256``, :184-199) and ``from_h_dense``
+(:215-253), which the Reed-Solomon codes and the generators use. The JAX
 package's host modules import ``jax`` (through ``gf/__init__.py``), so this
 package does not import them: it reads the same archives with ``np.load``
 instead.
@@ -74,6 +75,16 @@ class LDPCCode:
         return self.vlist_idx.shape[1]
 
     @functools.cached_property
+    def h_dense(self) -> np.ndarray:
+        """(m, n) uint8 binary parity-check matrix (the Vlist's support)."""
+        h = np.zeros((self.m, self.n), dtype=np.uint8)
+        rows = np.repeat(np.arange(self.m), self.dmax)
+        cols = self.vlist_idx.reshape(-1)
+        valid = cols < self.n
+        h[rows[valid], cols[valid]] = 1
+        return h
+
+    @functools.cached_property
     def h_dense_nb(self) -> np.ndarray:
         """(m, n) uint8 GF(256) parity-check matrix (the coefficients)."""
         h = np.zeros((self.m, self.n), dtype=np.uint8)
@@ -82,6 +93,26 @@ class LDPCCode:
         valid = cols < self.n
         h[rows[valid], cols[valid]] = self.vlist_val.reshape(-1)[valid]
         return h
+
+    def validate(self) -> None:
+        """Structural checks (``registry.py::validate``): degrees in [1,
+        dmax], neighbours in [0, n) and distinct, pads n and 0, nonzero
+        coefficients on the support. Raises ValueError."""
+        for r in range(self.m):
+            d = int(self.vlist_len[r])
+            idx = self.vlist_idx[r, :d]
+            if not 1 <= d <= self.dmax:
+                raise ValueError(f"row {r}: bad degree {d}")
+            if not np.all((idx >= 0) & (idx < self.n)):
+                raise ValueError(f"row {r}: index out of range")
+            if len(np.unique(idx)) != d:
+                raise ValueError(f"row {r}: duplicate neighbor")
+            if not np.all(self.vlist_idx[r, d:] == self.n):
+                raise ValueError(f"row {r}: bad padding")
+            if not np.all(self.vlist_val[r, :d] >= 1):
+                raise ValueError(f"row {r}: zero coefficient")
+            if not np.all(self.vlist_val[r, d:] == 0):
+                raise ValueError(f"row {r}: bad value padding")
 
     def lift_to_gf256(self, seed: int = 0, name: str | None = None) -> "LDPCCode":
         """Non-binary lift: every 1 of H becomes a uniform draw from 1..255,
@@ -143,6 +174,23 @@ def from_vlist(
     return LDPCCode(
         name=name, n=int(n), k=int(k), vlist_idx=idx, vlist_len=ln,
         vlist_val=val, gf_order=int(gf_order), rs_n=int(rs_n), rs_k=int(rs_k),
+    )
+
+
+def save_code(code: LDPCCode, path: str) -> None:
+    """Write ``code`` as the ``.npz`` archive :func:`load_code` reads (the
+    JAX package's format, ``codes/io.py::save_code``)."""
+    np.savez_compressed(
+        path,
+        name=np.array(code.name),
+        n=code.n,
+        k=code.k,
+        vlist_idx=code.vlist_idx,
+        vlist_len=code.vlist_len,
+        vlist_val=code.vlist_val,
+        rs_n=code.rs_n,
+        rs_k=code.rs_k,
+        gf_order=code.gf_order,
     )
 
 

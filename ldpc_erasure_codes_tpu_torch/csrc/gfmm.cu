@@ -11,7 +11,7 @@
 //     rows placed in the erased slots (which hold zero); rows whose target
 //     is outside [0, n) are dropped.
 //   - ldpc_gf_matmul_launch: out[b, e, :] = sum_i M[b, e, i] * rhs[b, i, :],
-//     the same product with its rows written in order (no placement).
+//     the apply's product over every row, written in order (no placement).
 //
 // Replaces the TPU kernels ldpc_erasure_codes_tpu/ops/pallas_nbmm.py::
 // gf_matvec_wide, gf_apply_scatter and gf_matmul_batched, which lift the
@@ -54,19 +54,19 @@
 // shares few columns) keeps the earlier kernel: a block per (frame, chunk
 // of 32 words), a warp per output row whose coefficients are uniform over
 // the warp, Horner over the coefficient bits per 32 terms, the rows staged
-// in shared memory where they fit. gf_matmul_kernel (gf_matmul_batched) has
-// the same shape over the per-frame matrix.
+// in shared memory where they fit.
 //
 // The transform apply (gf_apply_tiled_kernel). At RS(255,192), B = 1024,
 // 1 KB payloads (m = E = 63), i.i.d. PER .15 places ~38 of a frame's 63
 // rows. What bounds it on an H100: device memory, the frame's values
 // copied to the output and the rhs read once (0.61 GB, PERF.md's bound
 // 0.181 ms); the placed rows' Horner work is ~0.1 ms at the INT32 rate.
-// The kernel it replaced (the gf_matmul_kernel body with placement: a warp
-// per row, Horner with a ballot, __ffs and shuffle per set coefficient bit,
-// after a separate clone of the values) took 1.242 ms on NVIDIA H100 80GB
-// HBM3, 700 W. Design, a block per (frame, chunk of kTileThreads words,
-// tile of R placed rows; R = 16 up to E = 16, else 32, chosen on the host):
+// The kernel it replaced (the list route's body over the per-frame matrix,
+// with placement: a warp per row, Horner with a ballot, __ffs and shuffle
+// per set coefficient bit, after a separate clone of the values) took 1.242
+// ms on NVIDIA H100 80GB HBM3, 700 W. Design, a block per (frame, chunk of
+// kTileThreads words, tile of R placed rows; R = 16 up to E = 16, else 32,
+// chosen on the host):
 //   1. the frame's placed rows (target in [0, n)) are listed first, in row
 //      order, by one warp's ballots over the targets staged in shared
 //      memory, with the targets as a bit per symbol; the tile takes places
@@ -74,24 +74,40 @@
 //   2. every block copies 1 / (chunks x tiles) of the frame's symbols that
 //      are not targets to the output, whole rows, 16 bytes a lane where
 //      aligned; a block whose tile holds no placed row does only this;
-//   3. the dense route's product over the tile's rows: per column i the
-//      thread reads rhs[b, i, w] (the next row prefetched), writes its
-//      nibble products, and each placed row adds two table reads. The
-//      coefficients are per frame, so the block stages the table offsets
-//      of its rows for a panel of kPanel columns in shared memory (read as
-//      warp-uniform 16-byte words), and rows past the tile's count are
-//      skipped four at a time. Tiles of 64 rows (the dense route's) ran
-//      slower than two of 32 at every shape tried, RS's and the NB
-//      escalation's: the 96 registers a thread needs for 64 sums leave too
-//      few warps an SM to cover the table reads;
+//   3. the dense route's product over the tile's rows (tile_rows, shared
+//      with gf_matmul_batched): per column i the thread reads rhs[b, i, w]
+//      (the next row prefetched), writes its nibble products, and each
+//      placed row adds two table reads. The coefficients are per frame, so
+//      the block stages the table offsets of its rows for a panel of kPanel
+//      columns in shared memory (read as warp-uniform 16-byte words), and
+//      rows past the tile's count are skipped four at a time. Tiles of 64
+//      rows (the dense route's) ran slower than two of 32 at every shape
+//      tried, RS's and the NB escalation's: the 96 registers a thread needs
+//      for 64 sums leave too few warps an SM to cover the table reads;
 //   4. each placed row is written once, values[idx] ^ sum; no other write
 //      touches it.
+//
+// The in-order product (gf_matmul_tiled_kernel, gf_matmul_batched). At
+// RS(255,192), B = 1024, 1 KB payloads, all 63 rows of every frame: what
+// bounds it on an H100 is integer operations, one XOR per set coefficient
+// bit plus 7 doublings per output word (PERF.md's bound, 0.155 ms), against
+// ~0.13 GB of memory traffic. The kernel it replaced (the list route's body:
+// a warp per row, Horner with a ballot, __ffs and shuffle per set bit) took
+// 1.622 ms on NVIDIA H100 80GB HBM3, 700 W. Design: the apply's steps 3-4
+// without the listing, the targets or the copy. A block per (frame, chunk
+// of kTileThreads words, tile t of R rows) takes rows t * R .. min(E, (t +
+// 1) * R) - 1 in order (R = 16 up to E = 16, else 32, chosen on the host as
+// the apply's), runs tile_rows over them, and writes each sum once. Its
+// shared memory is the table and a panel's offsets only (12 KB at R = 32),
+// so one route serves every E and m.
 //
 // Measured by chip_smoke.py on NVIDIA H100 80GB HBM3, 700 W: the dense
 // route 2.193 ms at RS(255,192), B = 1024, 1 KB payloads, against the
 // 0.805 ms operations bound (PERF.md section 6, row 13); the apply 0.479 ms
 // there (700.00 W), against its 0.181 ms byte bound: its copy alone 0.199
-// ms beside a clone's 0.180, its rows alone 0.382 ms.
+// ms beside a clone's 0.180, its rows alone 0.382 ms. The in-order product
+// 0.496 ms there (700.00 W; 1.630 before, in the same call), against its
+// 0.155 ms operations bound (row 14), with the apply unchanged at 0.471.
 
 #include <cstdint>
 
@@ -166,37 +182,6 @@ gf_matvec_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__
     }
 }
 
-// out (B, E, W) = the rows of M_b . rhs_b in order (gf_matmul_batched): a
-// block per (frame, chunk of kChunk words), the chunk of the m rhs rows
-// staged, a warp per row.
-__global__ void __launch_bounds__(kThreads)
-gf_matmul_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mats,
-                 int32_t* __restrict__ out, int m, int E, int W) {
-    extern __shared__ uint32_t stage[];
-    const int n_chunks = (W + kChunk - 1) / kChunk;
-    const int b = blockIdx.x / n_chunks;
-    const int w0 = (blockIdx.x % n_chunks) * kChunk;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const bool own = w0 + lane < W;
-    const int32_t* r = rhs + (size_t)b * m * W + w0;
-    for (int i = threadIdx.x; i < m * kChunk; i += kThreads) {
-        const int j = i / kChunk, w = i % kChunk;
-        stage[i] = w0 + w < W ? (uint32_t)__ldg(r + (size_t)j * W + w) : 0u;
-    }
-    __syncthreads();
-    for (int e = warp; e < E; e += kThreads / 32) {
-        const uint8_t* row = mats + ((size_t)b * E + e) * m;
-        uint32_t acc = 0;
-        for (int j0 = 0; j0 < m; j0 += 32) {
-            const int j = j0 + lane;
-            const uint32_t c = j < m ? __ldg(row + j) : 0u;
-            acc ^= horner32(c, j, stage, nullptr, 0, lane, own);
-        }
-        if (own) out[((size_t)b * E + e) * W + w0 + lane] = (int32_t)acc;
-    }
-}
-
 constexpr int kTileThreads = 64;  // ops/nbmm.py::TILE_THREADS
 constexpr int kTabBytes = 4 * 32 * kTileThreads;
 constexpr int kPanel = 32;        // ops/nbmm.py::GF_APPLY_PANEL
@@ -252,6 +237,83 @@ gf_matvec_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __rest
     }
 }
 
+// The product of both tiled entries: acc[r] = sum_i mf[row r, i] * rhs[i]
+// at this thread's word, for the tile's `rows` rows of the frame's (E, m)
+// matrix mf, row r being rows_e[r] (the apply's placed rows) or, where
+// rows_e is null, e0 + r (rows in order). y points at rhs row 0 of the
+// frame at this thread's word. Per column i the thread reads rhs[i] (the
+// next row prefetched) and writes its nibble products into its column of
+// the table; each row adds two table reads, four rows at a time, rows past
+// `rows` skipped four at a time. The coefficients are per frame, so the
+// block stages the table offsets of its rows for a panel of kPanel columns
+// in shared memory (read as warp-uniform 16-byte words). smem holds the
+// table (kTabBytes) and then the panel's offsets (4 kPanel R bytes). Every
+// thread of the block calls it: it holds barriers.
+template <int R>
+__device__ __forceinline__ void tile_rows(uint32_t (&acc)[R], uint8_t* smem, const int32_t* y,
+                                          const uint8_t* mf, const int* rows_e, int e0, int rows,
+                                          int m, int W, bool own) {
+    uint32_t* tb = reinterpret_cast<uint32_t*>(smem) + threadIdx.x;
+    uint32_t* offs = reinterpret_cast<uint32_t*>(smem + kTabBytes);
+    const uint8_t* tbytes = reinterpret_cast<const uint8_t*>(tb);
+    tb[0] = 0;
+    tb[16 * kTileThreads] = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0;
+    uint32_t next = (own && m > 0) ? (uint32_t)__ldg(y) : 0u;
+    for (int p0 = 0; p0 < m; p0 += kPanel) {
+        const int pc = min(kPanel, m - p0);
+        __syncthreads();  // the previous panel's offsets are read
+        for (int i = threadIdx.x; i < pc * R; i += kTileThreads) {
+            const int col = i / R, r = i % R;
+            const int e = rows_e ? rows_e[r] : e0 + r;
+            const uint32_t c = r < rows ? __ldg(mf + (size_t)e * m + p0 + col) : 0u;
+            offs[i] = nibble_offsets(c, kTileThreads);
+        }
+        __syncthreads();
+        for (int sp = 0; sp < pc; ++sp) {
+            const uint32_t x0 = next;
+            if (p0 + sp + 1 < m) next = own ? (uint32_t)__ldg(y + (size_t)(p0 + sp + 1) * W) : 0u;
+            nibble_products(tb, x0, kTileThreads);
+            const uint4* o = reinterpret_cast<const uint4*>(offs + sp * R);
+#pragma unroll
+            for (int q = 0; q < R / 4; ++q) {
+                if (4 * q < rows) {
+                    const uint4 u = o[q];
+                    acc[4 * q] ^= nibble_product(tbytes, u.x);
+                    acc[4 * q + 1] ^= nibble_product(tbytes, u.y);
+                    acc[4 * q + 2] ^= nibble_product(tbytes, u.z);
+                    acc[4 * q + 3] ^= nibble_product(tbytes, u.w);
+                }
+            }
+        }
+    }
+}
+
+// out (B, E, W) = M_b . rhs_b, the rows in order (gf_matmul_batched): a
+// block per (frame, chunk of kTileThreads words) and tile t, rows t * R ..
+// min(E, (t + 1) * R) - 1, each sum written once. Its shared memory is the
+// table and a panel's offsets at every E and m.
+template <int R>
+__global__ void __launch_bounds__(kTileThreads)
+gf_matmul_tiled_kernel(const int32_t* __restrict__ rhs, const uint8_t* __restrict__ mats,
+                       int32_t* __restrict__ out, int m, int E, int W, int n_chunks) {
+    __shared__ __align__(16) uint8_t smem[kTabBytes + 4 * kPanel * R];
+    const int b = blockIdx.x / n_chunks;
+    const int w = (blockIdx.x % n_chunks) * kTileThreads + threadIdx.x;
+    const int e0 = blockIdx.y * R;
+    const int rows = min(R, E - e0);
+    const bool own = w < W;
+    uint32_t acc[R];
+    tile_rows<R>(acc, smem, rhs + (size_t)b * m * W + w, mats + (size_t)b * E * m, nullptr, e0,
+                 rows, m, W, own);
+    if (!own) return;
+    int32_t* o = out + ((size_t)b * E + e0) * W + w;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+        if (r < rows) o[(size_t)r * W] = (int32_t)acc[r];
+}
+
 // The apply's shared memory: the nibble-product table, the offsets of a
 // panel of kPanel columns for R rows, the tile's placed rows, their count,
 // every row's target, and a bit per symbol (set where a row is placed).
@@ -269,8 +331,6 @@ gf_apply_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __restr
                       int32_t* __restrict__ out, int m, int E, int W, int n, int n_chunks,
                       int copy) {
     extern __shared__ __align__(16) uint8_t smem_raw[];
-    uint32_t* tab = reinterpret_cast<uint32_t*>(smem_raw);
-    uint32_t* offs = reinterpret_cast<uint32_t*>(smem_raw + kTabBytes);
     int* rows_e = reinterpret_cast<int*>(smem_raw + kTabBytes + 4 * kPanel * R);
     int* count = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(rows_e) + round16(4 * R));
     int* to = count + 4;
@@ -325,46 +385,12 @@ gf_apply_tiled_kernel(const int32_t* __restrict__ values, const int32_t* __restr
     }
     if (rows <= 0) return;
 
-    // 3. The tile's rows: per column the nibble products of this thread's
-    //    rhs word, two table reads per placed row, four rows at a time.
+    // 3. The tile's placed rows (tile_rows).
     const int w = chunk * kTileThreads + threadIdx.x;
     const bool own = w < W;
-    uint32_t* tb = tab + threadIdx.x;
-    const uint8_t* tbytes = reinterpret_cast<const uint8_t*>(tb);
-    tb[0] = 0;
-    tb[16 * kTileThreads] = 0;
-    const int32_t* y = rhs + (size_t)b * m * W + w;
-    const uint8_t* mf = mats + (size_t)b * E * m;
     uint32_t acc[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = 0;
-    uint32_t next = (own && m > 0) ? (uint32_t)__ldg(y) : 0u;
-    for (int p0 = 0; p0 < m; p0 += kPanel) {
-        const int pc = min(kPanel, m - p0);
-        __syncthreads();  // the previous panel's offsets are read
-        for (int i = threadIdx.x; i < pc * R; i += kTileThreads) {
-            const int col = i / R, r = i % R;
-            const uint32_t c = r < rows ? __ldg(mf + (size_t)rows_e[r] * m + p0 + col) : 0u;
-            offs[i] = nibble_offsets(c, kTileThreads);
-        }
-        __syncthreads();
-        for (int sp = 0; sp < pc; ++sp) {
-            const uint32_t x0 = next;
-            if (p0 + sp + 1 < m) next = own ? (uint32_t)__ldg(y + (size_t)(p0 + sp + 1) * W) : 0u;
-            nibble_products(tb, x0, kTileThreads);
-            const uint4* o = reinterpret_cast<const uint4*>(offs + sp * R);
-#pragma unroll
-            for (int q = 0; q < R / 4; ++q) {
-                if (4 * q < rows) {
-                    const uint4 u = o[q];
-                    acc[4 * q] ^= nibble_product(tbytes, u.x);
-                    acc[4 * q + 1] ^= nibble_product(tbytes, u.y);
-                    acc[4 * q + 2] ^= nibble_product(tbytes, u.z);
-                    acc[4 * q + 3] ^= nibble_product(tbytes, u.w);
-                }
-            }
-        }
-    }
+    tile_rows<R>(acc, smem_raw, rhs + (size_t)b * m * W + w, mats + (size_t)b * E * m, rows_e, 0,
+                 rows, m, W, own);
 
     // 4. Each placed row, once: values[idx] ^ its sum.
     if (!own) return;
@@ -476,14 +502,23 @@ extern "C" int ldpc_gf_apply_launch(const int32_t* values, const int32_t* rhs,
     return (int)cudaErrorInvalidValue;
 }
 
-// out (B, E, W) = M_b (E, m) . rhs_b (m, W) per frame, over GF(256).
+// out (B, E, W) = M_b (E, m) . rhs_b (m, W) per frame, over GF(256), the
+// rows in order; tiles of R (16 or 32) rows.
 extern "C" int ldpc_gf_matmul_launch(const int32_t* rhs, const uint8_t* mats, int32_t* out,
-                                     int B, int m, int E, int W, cudaStream_t stream) {
-    if (B == 0 || E == 0) return (int)cudaSuccess;
-    const size_t smem = (size_t)m * kChunk * sizeof(uint32_t);
-    const cudaError_t err = opt_in((const void*)gf_matmul_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long blocks = (long long)B * ((W + kChunk - 1) / kChunk);
-    gf_matmul_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(rhs, mats, out, m, E, W);
+                                     int B, int m, int E, int W, int R, cudaStream_t stream) {
+    if (R != 16 && R != 32) return (int)cudaErrorInvalidValue;
+    if (B == 0 || E == 0 || W == 0) return (int)cudaSuccess;
+    const int n_chunks = (W + kTileThreads - 1) / kTileThreads;
+    const dim3 grid((unsigned)((long long)B * n_chunks), (unsigned)((E + R - 1) / R));
+    switch (R) {
+        case 16:
+            gf_matmul_tiled_kernel<16><<<grid, kTileThreads, 0, stream>>>(rhs, mats, out, m, E, W,
+                                                                          n_chunks);
+            break;
+        case 32:
+            gf_matmul_tiled_kernel<32><<<grid, kTileThreads, 0, stream>>>(rhs, mats, out, m, E, W,
+                                                                          n_chunks);
+            break;
+    }
     return (int)cudaGetLastError();
 }

@@ -16,6 +16,7 @@ from ldpc_erasure_codes_tpu_torch.gf.tables import (
     gf_inv_matrix_np,
     gf_inv_np,
     gf_matmul_np,
+    gf_matvec_np,
     gf_mul_np,
 )
 
@@ -31,6 +32,7 @@ __all__ = [
     "gf_inv_matrix_np",
     "gf_inv_np",
     "gf_matmul_np",
+    "gf_matvec_np",
     "gf_mul",
     "gf_mul_np",
     "gf_mul_packed",

@@ -77,6 +77,13 @@ def gf_inv_np(a, tables: GFTables | None = None) -> np.ndarray:
     return t.inv[np.asarray(a, dtype=np.int64)]
 
 
+def gf_matvec_np(mat, vec, tables: GFTables | None = None) -> np.ndarray:
+    """y[i] = XOR_j mat[i, j] * vec[j] over GF(256) (the oracle's host path)."""
+    t = tables or build_tables()
+    prod = t.mul[np.asarray(mat, dtype=np.int64), np.asarray(vec, dtype=np.int64)[None, :]]
+    return np.bitwise_xor.reduce(prod, axis=1)
+
+
 def gf_matmul_np(a, b, tables: GFTables | None = None) -> np.ndarray:
     """C = A @ B over GF(256) for 2-D NumPy arrays (small sizes)."""
     t = tables or build_tables()

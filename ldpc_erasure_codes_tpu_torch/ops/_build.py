@@ -80,8 +80,8 @@ LAUNCHERS = {
     "ldpc_gf_matvec_tiled_launch": [*[_P] * 5, *[_I] * 7, _P],
     # values, rhs, mats, idx, out, B, m, E, W, n, R, copy, stream
     "ldpc_gf_apply_launch": [*[_P] * 5, *[_I] * 7, _P],
-    # rhs, mats, out, B, m, E, W, stream
-    "ldpc_gf_matmul_launch": [*[_P] * 3, *[_I] * 4, _P],
+    # rhs, mats, out, B, m, E, W, R, stream
+    "ldpc_gf_matmul_launch": [*[_P] * 3, *[_I] * 5, _P],
     # erased, clist_idx, clist_len, scratch, failed, B, n, m, cmax, emax,
     # route, stream
     "ldpc_rank_launch": [*[_P] * 5, *[_I] * 6, _P],

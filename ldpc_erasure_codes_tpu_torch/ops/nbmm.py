@@ -39,8 +39,9 @@ for CUDA tensors and run the plain versions for CPU tensors:
 * ``gf_apply_scatter``: the dense route's nibble products over each
   frame's placed rows, in tiles of :func:`gf_apply_rows` rows, with the
   copy of the values in the same kernel;
-* ``gf_matmul_batched`` (the apply without the placement): a warp per
-  row, Horner over the coefficient bits.
+* ``gf_matmul_batched`` (the apply without the placement): the apply's
+  nibble products over every row, in tiles of :func:`gf_apply_rows` rows
+  in order.
 """
 
 from __future__ import annotations
@@ -896,6 +897,26 @@ def gf_matmul_batched_reference(rhs: torch.Tensor, mats: torch.Tensor) -> torch.
     return _gf_rows(_check_gf_matmul(rhs, mats), mats).view(torch.uint8)
 
 
+def gf_matmul_tiles_reference(rhs: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch product in the kernel's order (``csrc/gfmm.cu``, the
+    apply's tiles with every row, in order): rows cut into tiles of R =
+    :func:`gf_apply_rows` (E); per tile and column i the nibble products of
+    rhs row i, and each of the tile's rows adds lo[c & 15] ^ hi[c >> 4] for
+    its coefficient c; each sum written once, in row order. Equal to
+    :func:`gf_matmul_batched_reference`."""
+    rw = _check_gf_matmul(rhs, mats)
+    e, m = mats.shape[1:]
+    r = gf_apply_rows(e)
+    out = rw.new_zeros(rw.shape[0], e, rw.shape[2])
+    for e0 in range(0, e, r):
+        acc = out[:, e0 : e0 + r]
+        for i in range(m):
+            lo, hi = _nibble_products(rw[:, i])
+            c = mats[:, e0 : e0 + r, i, None].long().expand(-1, -1, rw.shape[2])
+            acc ^= lo.gather(1, c & 15) ^ hi.gather(1, c >> 4)
+    return out.view(torch.uint8)
+
+
 def gf_matmul_batched(rhs: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
     """x[b] = M_b . rhs[b] over GF(256): rhs (B, m, W) uint8 (W % 4 == 0),
     mats (B, E, m) uint8 -> (B, E, W) uint8, each frame with its own matrix.
@@ -904,8 +925,9 @@ def gf_matmul_batched(rhs: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
     to multiples of 8 with zeros; any m and E serve here, and padded
     operands give the padded product. ``gf_apply_scatter`` without the
     placement: the rows come back in order. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise).
-    ``gf_matmul_batched.launches`` counts kernel launches.
+    version; CUDA tensors launch the kernel (or raise): the apply's tiled
+    product over every row, tiles of :func:`gf_apply_rows` (E) rows in
+    order. ``gf_matmul_batched.launches`` counts kernel launches.
     """
     rw = _check_gf_matmul(rhs, mats)
     if rw.device.type == "cpu":
@@ -914,7 +936,7 @@ def gf_matmul_batched(rhs: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
     e = mats.shape[1]
     out = torch.empty((b, e, w), dtype=torch.int32, device=rw.device)
     rc = _build.library().ldpc_gf_matmul_launch(
-        rw.data_ptr(), mats.data_ptr(), out.data_ptr(), b, m, e, w, _stream(rw)
+        rw.data_ptr(), mats.data_ptr(), out.data_ptr(), b, m, e, w, gf_apply_rows(e), _stream(rw)
     )
     _build.check(rc, "ldpc_gf_matmul_launch")
     gf_matmul_batched.launches += 1

@@ -14,21 +14,67 @@ erased must hold zero, and no slot may be erased that the channel did not
 erase. For a sample of frames the mask and the iteration counts must equal
 the plain PyTorch decode's: the mask evolves independently of the values,
 so the sample decodes one word per symbol and stays cheap at any width.
-All comparisons run over the (B, n) codeword symbols only; the layout has
-no pad column.
+The same sample goes through the NumPy oracle (``utils/oracle.py``, the
+reference's sequential sweep on word 0's bit 0, or byte 0 for GF(256)),
+the second judge, as JAX's ``_check_peel`` asks it (:97-108). All
+comparisons run over the (B, n) codeword symbols only; the layout has no
+pad column.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from ldpc_erasure_codes_tpu_torch.codes.io import from_vlist
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_jacobi,
     peel_decode_jacobi_reference,
 )
+from ldpc_erasure_codes_tpu_torch.utils import oracle
+
+
+def _oracle_check(
+    arrays: CodeArrays,
+    codewords: torch.Tensor,
+    channel_mask: torch.Tensor,
+    erased: torch.Tensor,
+    iters: torch.Tensor,
+    *,
+    max_iters: int,
+    early_stop_k: int | None,
+    gf_order: int = 2,
+) -> tuple[int, int]:
+    """(mask mismatches, iteration mismatches) of a peel's frames against
+    the oracle's decode of the same symbols (``oracle.peel_decode``, or
+    ``peel_decode_nb`` for GF(256)), one frame at a time on the host.
+    Without early stop the residual mask and the sweeps must equal the
+    oracle's. With ``early_stop_k`` the oracle runs to its fixed point and
+    the early-stop contract holds instead: every symbol the peel resolved
+    is one the oracle resolves, and the peel took no more sweeps."""
+    code = from_vlist("verify", arrays.n, arrays.n - arrays.m, arrays.vlist_idx.cpu().numpy(),
+                      arrays.vlist_len.cpu().numpy(), arrays.vlist_val.cpu().numpy(),
+                      gf_order=gf_order)
+    peel = oracle.peel_decode_nb if gf_order == 256 else oracle.peel_decode
+    sym = codewords[:, :, 0].cpu().numpy().astype(np.int64)
+    if gf_order != 256:
+        sym &= 1  # bit 0 of word 0
+    mask, er, it = (x.cpu().numpy() for x in (channel_mask, erased, iters))
+    mask_bad = iter_bad = 0
+    for f in range(sym.shape[0]):
+        out, o_iters = peel(code, np.where(mask[f], oracle.ERASED, sym[f]), max_iters=max_iters)
+        o_er = out == oracle.ERASED
+        if early_stop_k is None:
+            mask_bad += int((o_er != er[f]).sum())
+            iter_bad += int(o_iters != it[f])
+        else:
+            mask_bad += int((o_er & ~er[f]).sum())
+            iter_bad += int(it[f] > o_iters)
+    return mask_bad, iter_bad
 
 
 def check_peel(
@@ -46,7 +92,8 @@ def check_peel(
 ) -> dict:
     """Returns the mismatch counts and ``ok`` (all zero). Binary frames are
     int32 words, GF(256) frames uint8 bytes; the sample decodes one word
-    (four bytes) per symbol."""
+    (four bytes) per symbol, and its first ``n_ref`` frames also go through
+    the oracle (:func:`_oracle_check`, its host seconds reported)."""
     resolved = ~erased[:, :, None]
     value_bad = int(((values != codewords) & resolved).sum())
     zero_bad = int(((values != 0) & ~resolved).sum())
@@ -62,8 +109,14 @@ def check_peel(
     )
     mask_bad = int((ref_er != erased[:nr]).sum())
     iter_bad = int((ref_iters != iters[:nr]).sum())
+    t0 = time.perf_counter()
+    o_mask_bad, o_iter_bad = _oracle_check(
+        arrays, codewords[:nr], channel_mask[:nr], erased[:nr], iters[:nr],
+        max_iters=max_iters, early_stop_k=early_stop_k, gf_order=gf_order,
+    )
     return {
-        "ok": value_bad == zero_bad == outside == mask_bad == iter_bad == 0,
+        "ok": value_bad == zero_bad == outside == mask_bad == iter_bad == o_mask_bad
+        == o_iter_bad == 0,
         "frames": int(codewords.shape[0]),
         "value_mismatches": value_bad,
         "erased_nonzero": zero_bad,
@@ -71,6 +124,9 @@ def check_peel(
         "ref_frames": nr,
         "ref_mask_mismatches": mask_bad,
         "ref_iter_mismatches": iter_bad,
+        "oracle_mask_mismatches": o_mask_bad,
+        "oracle_iter_mismatches": o_iter_bad,
+        "oracle_seconds": time.perf_counter() - t0,
     }
 
 
@@ -88,7 +144,8 @@ def check_nb(
 ) -> dict:
     """:func:`check_peel` for a GF(256) peel of uint8 byte frames: resolved
     bytes exact, erased slots zero, and the sample's mask and iteration
-    counts equal to the plain GF(256) decode's (``verify_nb``)."""
+    counts equal to the plain GF(256) decode's and held to the oracle's
+    GF(256) peel (``verify_nb``)."""
     return check_peel(arrays, codewords, channel_mask, values, erased, iters,
                       max_iters=max_iters, early_stop_k=early_stop_k, n_ref=n_ref,
                       gf_order=256)

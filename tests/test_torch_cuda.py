@@ -1198,16 +1198,30 @@ def test_channel_kernel_matches_plain(cuda_device, dtype, w, aligned, num):
     torch.testing.assert_close(got[1].cpu(), cpu[1], rtol=0, atol=0)
 
 
+# (B, m, E): the padded and unpadded RS shapes, a small one, every E in
+# (1, 16, 17, 32, 33, 64) (R = 16 or 32, one tile or more, a last tile
+# short) against m in (1, 31, 33, 255) (one panel of columns or more, a
+# last panel short), and the RS batch (B = 1024, m = E = 63).
+MATMUL_SHAPES = ([(8, 63, 63), (8, 64, 56), (8, 9, 5)]
+                 + [(8, m, e) for e in (1, 16, 17, 32, 33, 64) for m in (1, 31, 33, 255)]
+                 + [(1024, 63, 63)])
+
+
 @pytest.mark.parametrize("wb,aligned", [(1024, True), (1024, False), (12, True)])
-@pytest.mark.parametrize("m,e", [(63, 63), (64, 56), (9, 5)])
-def test_gf_matmul_kernel_matches_plain(cuda_device, wb, aligned, m, e):
-    rng = np.random.default_rng(m + e + wb)
-    rhs = _random_bytes(rng, (8, m, wb), cuda_device)
+@pytest.mark.parametrize("b,m,e", MATMUL_SHAPES)
+def test_gf_matmul_kernel_matches_plain(cuda_device, wb, aligned, b, m, e):
+    """The in-order tiled product against both plain versions (the column
+    loop and the tiles twin), one launch a call, at every shape above with
+    W = 1024 bytes (16 word chunks), misaligned, and 12 bytes (a chunk
+    mostly idle)."""
+    rng = np.random.default_rng(m + e + wb + b)
+    rhs = _random_bytes(rng, (b, m, wb), cuda_device)
     if not aligned:
         rhs = _misaligned_bytes(rhs)
-    mats = _random_bytes(rng, (8, e, m), cuda_device)
+    mats = _random_bytes(rng, (b, e, m), cuda_device)
     before = nbmm.gf_matmul_batched.launches
     got = nbmm.gf_matmul_batched(rhs, mats)
     torch.cuda.synchronize()
     assert nbmm.gf_matmul_batched.launches == before + 1
     torch.testing.assert_close(got, nbmm.gf_matmul_batched_reference(rhs, mats), rtol=0, atol=0)
+    torch.testing.assert_close(got, nbmm.gf_matmul_tiles_reference(rhs, mats), rtol=0, atol=0)

@@ -26,7 +26,7 @@ from ldpc_erasure_codes_tpu_torch import bench, sim
 from ldpc_erasure_codes_tpu_torch.channel import erasure as ch
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
-from ldpc_erasure_codes_tpu_torch.ops.encode import encode
+from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_nb, encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_mask
 from ldpc_erasure_codes_tpu_torch.sim import driver
 from ldpc_erasure_codes_tpu_torch.utils import cli
@@ -128,6 +128,45 @@ def test_driver_decode_matches_jax(dec):
     got_m = driver._decode_mask(arrays, cfg, torch.from_numpy(mask), code.k)
     want_m = jax_driver._decode_mask(jarr, jcfg, jnp.asarray(mask), code.k)
     for g, w in zip(got_m, want_m):
+        assert (g is None) == (w is None)
+        if g is not None:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+NB_DECODERS = [
+    dict(kind="peel"),
+    dict(kind="peel", early_stop_k=True),
+    dict(kind="hybrid", emax=14),
+    dict(kind="hybrid", emax=14, ge_subbatch=3),
+    dict(kind="ml", emax=16),
+]
+
+
+@pytest.mark.parametrize("wb", [0, 8])
+@pytest.mark.parametrize("dec", NB_DECODERS, ids=lambda d: "-".join(f"{v}" for v in d.values()))
+def test_driver_decode_gf256_matches_jax(dec, wb):
+    """``sim/driver.py``'s GF(256) value decode on the small code lifted with seed
+    0, scalar byte symbols (wb 0) and 8-byte symbols, PER .3: residual
+    masks, iteration counts, failed and overflow flags, and the values of
+    frames that did not fail, as JAX's ``_decode`` gives them."""
+    jcode = small_jax_code().lift_to_gf256(seed=0)
+    code = to_port_code(jcode)
+    arrays, jarr = code_arrays(code, "cpu"), device_arrays(jcode)
+    rng = np.random.default_rng(9)
+    src = torch.from_numpy(rng.integers(0, 256, (16, code.k, wb)[: 3 if wb else 2],
+                                        dtype=np.uint8))
+    cw = encode_packed(arrays, src, gf_order=256) if wb else encode_nb(arrays, src)
+    mask = rng.random((16, code.n)) < 0.3
+    m = torch.from_numpy(mask)
+    recv = cw.masked_fill(m[:, :, None] if wb else m, 0)
+    cfg = sim.SimConfig(batch=16, gf_order=256, decoder=sim.DecoderConfig(**dec))
+    jcfg = jax_sim.SimConfig(batch=16, gf_order=256, decoder=jax_sim.DecoderConfig(**dec))
+    got = driver._decode(arrays, cfg, recv, m, code.k)
+    want = jax_driver._decode(jarr, jcfg, jnp.asarray(recv.numpy()), jnp.asarray(mask), code.k)
+    ok = ~np.asarray(want[3]) if want[3] is not None else np.ones(16, bool)
+    assert ok.any() and np.asarray(want[1]).any()  # solved and stuck frames both occur
+    np.testing.assert_array_equal(got[0].numpy()[ok], np.asarray(want[0])[ok])
+    for g, w in zip(got[1:], want[1:]):
         assert (g is None) == (w is None)
         if g is not None:
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
