@@ -138,7 +138,13 @@ Phases, each fatal on failure:
    world size 1 (``file://`` rendezvous), the sharded 9b and 9c steps equal
    to the unsharded ones, ``run_fer_point(mesh=...)`` at 9a's point equal to
    9a's counts, one ``cli scaling --devices 1`` subprocess,
-   ``dryrun_multichip(1)``; the process group is destroyed before the end.
+   ``dryrun_multichip(1)``; the process group is destroyed before the end;
+12. the PASSED/FAILED verification battery (``utils/verify.py::run_battery``)
+   at full size in this process, counted: every tier PASSED and the hybrid
+   tier holding GE-solved frames (``ge_frames > failed_frames``); then, as
+   four subprocesses started together (120 s each at most), ``cli verify
+   --quick`` and the ``golden`` commands of (2000,1000), its GF(256) lift
+   (2040,1530) and RS(255,192), each PASSED; the native I/O library loaded.
 
 ``python3 chip_smoke.py --ge-kernels`` builds the kernels and only times
 the topology syndrome, ``gf256_eliminate``, ``gf_matmul_batched`` and
@@ -231,13 +237,16 @@ from ldpc_erasure_codes_tpu_torch.parallel.dryrun import dryrun_multichip
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode
 from ldpc_erasure_codes_tpu_torch.utils import cli
+from ldpc_erasure_codes_tpu_torch.utils import native
 from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
 from ldpc_erasure_codes_tpu_torch.utils.verify import (
+    TIERS,
     check_hybrid,
     check_nb,
     check_peel,
     check_rs,
     check_schedule,
+    run_battery,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2166,6 +2175,96 @@ def parallel_phase(device, card: str, sim_9a: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 12's commands (``utils/cli.py``), started together; {tmp} is a
+# fresh directory.
+VERIFY_CMDS = {
+    "verify --quick": ["verify", "--quick", "--out", "{tmp}/verify.json"],
+    "golden n2000_k1000": ["golden", "--code", "n2000_k1000", "--dir", "{tmp}/bin"],
+    "golden gf256 n2040_k1530_gf256": ["golden", "--gf", "256", "--code", "n2040_k1530_gf256",
+                                       "--dir", "{tmp}/nb"],
+    "golden rs 255,192": ["golden", "--rs", "255,192", "--dir", "{tmp}/rs"],
+}
+VERIFY_TIMEOUT_S = 120
+
+
+def run_together(cmds: dict, tmp: str) -> dict:
+    """Start every command at once (the port's CLI, output to files in
+    ``tmp``); returns name -> (return code, stdout, seconds). A command
+    still running after ``VERIFY_TIMEOUT_S`` is killed, and fails the run."""
+    procs, done = {}, {}
+    try:
+        for i, (name, argv) in enumerate(cmds.items()):
+            out = open(os.path.join(tmp, f"cmd{i}.out"), "w+")
+            cmd = [sys.executable, "-m", "ldpc_erasure_codes_tpu_torch.utils.cli",
+                   *(a.format(tmp=tmp) for a in argv)]
+            procs[name] = (subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                            text=True), out, time.perf_counter())
+        while len(done) < len(procs):
+            for name, (proc, out, t0) in procs.items():
+                if name in done:
+                    continue
+                secs = time.perf_counter() - t0
+                if proc.poll() is not None:
+                    out.seek(0)
+                    done[name] = (proc.returncode, out.read(), secs)
+                else:
+                    require(secs < VERIFY_TIMEOUT_S, f"12: `{name}` ran past {VERIFY_TIMEOUT_S} s")
+            time.sleep(0.05)
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    return done
+
+
+def verify_phase(device, card: str, launches: dict) -> None:
+    """Phase 12: the full-size battery in this process, counted, and the
+    ``verify --quick`` and ``golden`` commands as subprocesses."""
+    require(native.have_native(), "12: the native I/O library did not build or load")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    records = run_battery(device=device)
+    torch.cuda.synchronize()
+    battery_s = time.perf_counter() - t0
+    counts = read_counts()
+    for r in records:
+        log(f"phase 12: {json.dumps(r)}")
+    require([r["tier"] for r in records] == list(TIERS), f"12: tiers {records}")
+    for r in records:
+        require(r["status"] == "PASSED", f"12: tier {r['tier']} FAILED: {json.dumps(r)}")
+    hy = records[TIERS.index("hybrid_ge")]
+    require(hy["ge_frames"] > hy["failed_frames"],
+            f"12: hybrid_ge solved no GE frame (ge_frames {hy['ge_frames']}, failed "
+            f"{hy['failed_frames']})")
+    add_counts(launches, counts)
+    log(f"phase 12: full battery {battery_s:.2f} s (" + ", ".join(
+        f"{r['tier']} {r['elapsed_s']} s" for r in records) + f"); launches "
+        f"{ {k: v for k, v in counts.items() if v} } on {card}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_verify_")
+    try:
+        t0 = time.perf_counter()
+        done = run_together(VERIFY_CMDS, tmp)
+        wall = time.perf_counter() - t0
+        for name, (rc, out, secs) in done.items():
+            require(rc == 0, f"12: `{name}` returned {rc}: {out[-3000:]}")
+            if name.startswith("golden"):
+                require("encode=PASSED decode=PASSED" in out, f"12: `{name}` printed {out}")
+            log(f"phase 12: `{name}` rc 0 in {secs:.2f} s: {out.strip().splitlines()[-1]}")
+        with open(os.path.join(tmp, "verify.json")) as f:
+            quick = json.load(f)
+        require(quick["all_passed"] and quick["backend"] == "gpu"
+                and [r["tier"] for r in quick["tiers"]] == list(TIERS),
+                f"12: verify --quick wrote {json.dumps(quick)}")
+        log("phase 12: verify --quick tiers: " + ", ".join(
+            f"{r['tier']} {r['status']} {r['elapsed_s']} s" for r in quick["tiers"])
+            + f"; the four commands together {wall:.2f} s on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paired_kernels(device, card: str) -> None:
     """``python3 chip_smoke.py --ge-kernels``: the topology syndrome at
     phase 4b's GE bucket, ``gf256_eliminate``, ``gf_matmul_batched`` and
@@ -2326,6 +2425,7 @@ def main() -> None:
     channel_phase(device, card, errs, times, plain, bounds)
     decoder_top_phase(device, card, launches)
     parallel_phase(device, card, sim_9a)
+    verify_phase(device, card, launches)
 
     for name, count in launches.items():
         require(count > 0, f"no path launched the {name} kernel")

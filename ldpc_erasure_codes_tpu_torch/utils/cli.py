@@ -6,13 +6,20 @@ Counterpart of ``ldpc_erasure_codes_tpu/utils/cli.py`` for the subcommands
   throughput  decoder throughput (main.cpp:652-658 formula)
   codes       list the shipped codes
   scaling     scaling-efficiency sweep over the ranks (north star BASELINE.md:28)
+  census      4/6/8-cycle census of a code (Hcyclefinder)
+  gen         construct a girth-8 code and save it (.npz)
+  golden      generate + verify golden vector files (the MATLAB<->OpenCL
+              cross-validation protocol)
+  verify      the PASSED/FAILED decode verification battery
 
 with the JAX CLI's flags, defaults and output (``format_report`` then, with
 ``--json``, one JSON line per point; throughput prints one JSON line), and
 ``--device``: the CUDA card by default, ``cpu`` where the caller asks for
-it. The JAX CLI falls back to its XLA path where its VMEM kernel cannot
-take a shape (:131-137, :172-180); the CUDA kernels take any width, so this
-CLI has no fallback. The JAX ``throughput`` flags ``--b-tile`` and
+it (``verify`` keeps JAX's ``--cpu`` flag instead; JAX's ``--fence-gate``
+tunes a TPU program the port does not have, and is refused). The JAX CLI
+falls back to its XLA path where its VMEM kernel cannot take a shape
+(:131-137, :172-180); the CUDA kernels take any width, so this CLI has no
+fallback. The JAX ``throughput`` flags ``--b-tile`` and
 ``--tiled`` (the VMEM frame tile, the tile-major layout) have no
 counterpart: the port keeps the flat layout, and its kernels take any batch
 and fuse the masking.
@@ -183,14 +190,121 @@ def cmd_scaling(args) -> int:
     return 0
 
 
+def _triangular(c) -> bool:
+    """H[:, k:] lower triangular with a nonzero diagonal (registry.py:123-131)."""
+    hp = c.h_dense_nb[:, c.k:]
+    return bool((np.diagonal(hp) != 0).all() and not np.triu(hp, 1).any())
+
+
 def cmd_codes(_args) -> int:
     for name in list_codes():
         c = get_code(name)
-        hp = c.h_dense_nb[:, c.k:]  # triangle form: registry.py:123-131
-        triangular = bool((np.diagonal(hp) != 0).all() and not np.triu(hp, 1).any())
         print(f"{name}: n={c.n} k={c.k} rate={c.k / c.n:.3f} dmax={c.dmax} "
-              f"gf={c.gf_order} rs=({c.rs_n},{c.rs_k}) triangular={triangular}")
+              f"gf={c.gf_order} rs=({c.rs_n},{c.rs_k}) triangular={_triangular(c)}")
     return 0
+
+
+def _parse_profile(s: str):
+    """'102x6,30x5' -> [(102, 6), (30, 5)] (cli.py:29-35)."""
+    out = []
+    for part in s.split(","):
+        cnt, deg = part.lower().split("x")
+        out.append((int(cnt), int(deg)))
+    return out
+
+
+def cmd_census(args) -> int:
+    from ldpc_erasure_codes_tpu_torch.codes import cycle_census, load_code
+
+    code = load_code(args.code) if args.code.endswith(".npz") else get_code(args.code)
+    cen = cycle_census(code)
+    n4, n6, n8 = cen.totals()
+    print(f"{code.name}: 4-cycles={n4} 6-cycles={n6} 8-cycles={n8} "
+          f"girth>=8: {cen.girth_at_least_8}")
+    return 0
+
+
+def cmd_gen(args) -> int:
+    from ldpc_erasure_codes_tpu_torch.codes import (
+        cycle_census,
+        gen_column_wise,
+        gen_row_wise,
+        save_code,
+    )
+
+    prof_c = _parse_profile(args.profile_c)
+    prof_v = _parse_profile(args.profile_v)
+    t0 = time.time()
+    if args.kind == "row":
+        code = gen_row_wise(prof_c, prof_v, seed=args.seed, max_tries=args.max_tries)
+    else:
+        code = gen_column_wise(prof_c, prof_v, systematic=not args.non_systematic,
+                               seed=args.seed, max_tries=args.max_tries)
+    cen = cycle_census(code)
+    print(f"built {code.name} in {time.time() - t0:.1f}s; census 4/6/8 = {cen.totals()}; "
+          f"triangular={_triangular(code)}")
+    if args.out:
+        save_code(code, args.out)
+        print(f"saved to {args.out}")
+    return 0
+
+
+def cmd_golden(args) -> int:
+    """Generate a golden set with the NumPy oracle and verify it with the
+    port's encoder and decoders on ``--device`` (cli.py:416-452)."""
+    from ldpc_erasure_codes_tpu_torch.utils import golden
+
+    device = resolve_device(args.device)
+    if args.rs:
+        n, k = (int(x) for x in args.rs.split(","))
+        gs = golden.generate_golden_rs(n, k, args.dir, frames=args.frames, per=args.per,
+                                       seed=args.seed)
+        print(f"wrote {gs.frames} golden RS frames to {gs.directory}")
+        passed, report = golden.verify_golden_rs(n, k, args.dir, device=device,
+                                                 words=args.symbol_words)
+        print(report)
+        return 0 if passed else 1
+
+    code = get_code(args.code)
+    if args.gf == 256:
+        code = code.lift_to_gf256() if code.gf_order == 2 else code
+        gs = golden.generate_golden_nb(code, args.dir, frames=args.frames, per=args.per,
+                                       seed=args.seed)
+        print(f"wrote {gs.frames} golden NB frames to {gs.directory}")
+        passed, report = golden.verify_golden_nb(code, args.dir, device=device,
+                                                 words=args.symbol_words)
+    else:
+        gs = golden.generate_golden(code, args.dir, frames=args.frames, per=args.per,
+                                    seed=args.seed)
+        print(f"wrote {gs.frames} golden frames to {gs.directory}")
+        passed, report = golden.verify_golden(code, args.dir, device=device,
+                                              words=args.symbol_words)
+    print(report)
+    return 0 if passed else 1
+
+
+def cmd_verify(args) -> int:
+    """The PASSED/FAILED verification battery (utils/verify.py,
+    cli.py:455-493): one JSON line per tier, then ``VERIFY: ALL PASSED`` or
+    ``VERIFY: FAILURES``; 0 only if every tier passed. On the card unless
+    ``--cpu``; it raises where there is no card."""
+    from ldpc_erasure_codes_tpu_torch.utils.verify import run_battery
+
+    if args.fence_gate:
+        print("verify: --fence-gate tunes the TPU's constant-topology peel program, which "
+              "the CUDA port does not have; run without it", file=sys.stderr)
+        return 2
+    device = torch.device("cpu") if args.cpu else resolve_device("cuda")
+    results = run_battery(device=device, quick=args.quick)
+    for r in results:
+        print(json.dumps(r), flush=True)
+    ok = all(r["status"] == "PASSED" for r in results)
+    print(f"VERIFY: {'ALL PASSED' if ok else 'FAILURES'}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"backend": "cpu" if args.cpu else "gpu", "all_passed": ok,
+                       "tiers": results}, f, indent=1)
+    return 0 if ok else 1
 
 
 def parser() -> argparse.ArgumentParser:
@@ -254,6 +368,40 @@ def parser() -> argparse.ArgumentParser:
     psc.add_argument("--device", default="cuda", help="cuda (a card per rank, NCCL) or cpu "
                      "(gloo)")
     psc.set_defaults(fn=cmd_scaling)
+
+    pn = sub.add_parser("census", help="cycle census")
+    pn.add_argument("--code", default="n2000_k1000")
+    pn.set_defaults(fn=cmd_census)
+
+    pg = sub.add_parser("gen", help="construct a girth-8 code")
+    pg.add_argument("--kind", default="row", choices=["row", "col"])
+    pg.add_argument("--profile-c", required=True, help="e.g. 102x6")
+    pg.add_argument("--profile-v", required=True, help="e.g. 204x3")
+    pg.add_argument("--non-systematic", action="store_true")
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--max-tries", type=int, default=200)
+    pg.add_argument("--out", default="")
+    pg.set_defaults(fn=cmd_gen)
+
+    pvf = sub.add_parser("verify", help="PASSED/FAILED decode verification battery")
+    pvf.add_argument("--quick", action="store_true")
+    pvf.add_argument("--cpu", action="store_true", help="run on the CPU (default: the card)")
+    pvf.add_argument("--fence-gate", action="store_true",
+                     help="JAX's TPU-only option; refused here")
+    pvf.add_argument("--out", default=None)
+    pvf.set_defaults(fn=cmd_verify)
+
+    pv = sub.add_parser("golden", help="golden-vector generate + verify")
+    pv.add_argument("--code", default="n2000_k1000")
+    pv.add_argument("--gf", type=int, default=2, choices=[2, 256])
+    pv.add_argument("--rs", default="", help="RS golden instead: 'n,k'")
+    pv.add_argument("--dir", required=True)
+    pv.add_argument("--frames", type=int, default=4)
+    pv.add_argument("--per", type=float, default=0.2)
+    pv.add_argument("--symbol-words", type=int, default=8)
+    pv.add_argument("--seed", type=int, default=0)
+    pv.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    pv.set_defaults(fn=cmd_golden)
     return p
 
 

@@ -19,22 +19,54 @@ reference's sequential sweep on word 0's bit 0, or byte 0 for GF(256)),
 the second judge, as JAX's ``_check_peel`` asks it (:97-108). All
 comparisons run over the (B, n) codeword symbols only; the layout has no
 pad column.
+
+The PASSED/FAILED battery (``run_battery``, the counterpart of JAX's
+``run_battery``, :350-389) is the reference's ``verify_output()`` contract
+(OpenCL/host/src/main.cpp:298-305,413-425): every production decode tier
+runs end to end — encode -> channel -> decode — on ``device`` and is held
+bit-exactly by the checks above. Tiers, in JAX's order:
+
+  binary_unrolled  the binary peel, schedule "unrolled"
+  binary_seq       the binary peel, schedule "seq"
+  nb_unrolled      the GF(256) peel, schedule "unrolled"
+  hybrid_ge        peel + packed-bit GE at a GE-firing PER: every
+                   non-failed frame reproduces its codeword exactly
+  rs_wide          RS(255,192) wide decode across e = 1..63 erasures in
+                   one batch, plus an e=64 frame that must flag failed
+                   (the MDS bound)
+
+On the card "unrolled" and "seq" are one program: both schedules map to
+visit order 0 of ``csrc/peel.cu`` (``ops/peel.py::_ORDER``), since the CUDA
+kernel needs no constant-topology unrolling. JAX's two tiers stay two
+tiers. JAX's ``fence_gate`` tunes a TPU program the port does not have and
+has no counterpart. Inputs are drawn on the device from a seeded
+``torch.Generator`` with JAX's seeds (11 binary, 21 GF(256), 31 hybrid, 41
+RS); the RS erasure positions come from ``np.random.default_rng(5)``, so
+that pattern is JAX's own.
 """
 
 from __future__ import annotations
 
+import functools
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
-from ldpc_erasure_codes_tpu_torch.codes.io import from_vlist
-from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
+from ldpc_erasure_codes_tpu_torch.bench import random_bytes, random_words
+from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
+from ldpc_erasure_codes_tpu_torch.codes import gen_row_wise, toy_code
+from ldpc_erasure_codes_tpu_torch.codes.io import from_vlist, get_code
+from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
+from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
+from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_jacobi,
     peel_decode_jacobi_reference,
 )
+from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_decode_wide, rs_encode
 from ldpc_erasure_codes_tpu_torch.utils import oracle
 
 
@@ -297,3 +329,164 @@ def check_hybrid(
         "value_mismatches": value_bad,
         "residual_on_solved": resid_bad,
     }
+
+
+# ---------------------------------------------------------------------------
+# The PASSED/FAILED battery
+# ---------------------------------------------------------------------------
+
+MAX_ITERS = 50
+PEEL_ITERS = 10
+TIERS = ("binary_unrolled", "binary_seq", "nb_unrolled", "hybrid_ge", "rs_wide")
+
+
+def _tier(name: str, fn: Callable[[], dict]) -> dict:
+    """One tier's record: ``tier``, ``status`` (PASSED when the detail's
+    ``_ok``), ``elapsed_s``, then the detail; a crash is a FAILED record
+    holding the error."""
+    t0 = time.perf_counter()
+    try:
+        detail = fn()
+        status = "PASSED" if detail.pop("_ok") else "FAILED"
+    except Exception as exc:  # noqa: BLE001 — a crash is a FAILED tier
+        detail = {"error": f"{type(exc).__name__}: {exc}"}
+        status = "FAILED"
+    return {"tier": name, "status": status, "elapsed_s": round(time.perf_counter() - t0, 2),
+            **detail}
+
+
+def _record(report: dict) -> dict:
+    """A check's report as a tier's detail: its ``ok`` becomes ``_ok``."""
+    return {"_ok": report.pop("ok"), **report}
+
+
+@functools.cache
+def _small_code():
+    """The quick battery's code (JAX :52-59): the small generated code
+    exercises the same kernels as the full-size one. Built once per
+    process (about 13 s on a host core)."""
+    return gen_row_wise([(16, 6)], [(48, 2)], seed=3, max_tries=40, strict_tries=4)
+
+
+def _generator(seed: int, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _binary_case(b: int, w: int, per: float, seed: int, code, device):
+    """(arrays, codewords, channel mask): random int32 words encoded on
+    ``device`` and an i.i.d. mask, from one generator seeded ``seed``."""
+    code = get_code("n2040_k1530") if code is None else code
+    arrays = code_arrays(code, device)
+    gen = _generator(seed, device)
+    cw = encode_packed(arrays, random_words((b, code.k, w), gen, device))
+    mask = iid_erasures((b, code.n), per, generator=gen, device=device)
+    return arrays, cw, mask
+
+
+def check_peel_tier(arrays, codewords, channel_mask, values, erased, iters, *,
+                    gf_order: int = 2, n_oracle: int = 8) -> dict:
+    """A peel tier's detail (JAX's ``_check_peel``, :86-119): the full
+    decode (``MAX_ITERS`` sweeps, no early stop) held by :func:`check_peel`
+    with ``n_oracle`` frames through the oracle."""
+    return _record(check_peel(arrays, codewords, channel_mask, values, erased, iters,
+                              max_iters=MAX_ITERS, early_stop_k=None, n_ref=n_oracle,
+                              gf_order=gf_order))
+
+
+def verify_binary(schedule: str = "unrolled", *, device, b: int = 64, w: int = 256,
+                  per: float = 0.1406, code=None) -> dict:
+    """The binary peel tier (JAX :122-151): (2040,1530) by default."""
+    arrays, cw, mask = _binary_case(b, w, per, 11, code, device)
+    v, e, iters = peel_decode(arrays, apply_erasures(cw, mask), mask, max_iters=MAX_ITERS,
+                              schedule=schedule)
+    return check_peel_tier(arrays, cw, mask, v, e, iters)
+
+
+def verify_nb(*, device, b: int = 32, wb: int = 1024, per: float = 0.1406, code=None) -> dict:
+    """The GF(256) peel tier (JAX :154-220): ``n2040_k1530_gf256`` by
+    default, ``wb``-byte symbols, 4 frames through the oracle."""
+    code = get_code("n2040_k1530_gf256") if code is None else code
+    arrays = code_arrays(code, device)
+    gen = _generator(21, device)
+    cw = encode_packed(arrays, random_bytes((b, code.k, wb), gen, device), gf_order=256)
+    mask = iid_erasures((b, code.n), per, generator=gen, device=device)
+    v, e, iters = peel_decode(arrays, apply_erasures(cw, mask), mask, max_iters=MAX_ITERS,
+                              gf_order=256, schedule="unrolled")
+    return check_peel_tier(arrays, cw, mask, v, e, iters, gf_order=256, n_oracle=4)
+
+
+def verify_hybrid(*, device, b: int = 64, w: int = 256, per: float = 0.1875, emax: int = 192,
+                  code=None) -> dict:
+    """Hybrid peel + packed-bit GE at a GE-firing PER (JAX :223-297): every
+    non-failed frame reproduces its codeword bit-exactly, and the GE had
+    frames to solve (``ge_frames`` > 0, by the host replay of a
+    ``PEEL_ITERS``-sweep peel). On the card the production configuration
+    (JAX :262-279): the peel kernel, the flat tile-direct GE branch
+    (``tiled=True``) and the syndrome through the topology
+    (``static_topo=True``); on the CPU JAX's CPU branch, ``impl="gather"``
+    (:280-284)."""
+    arrays, cw, mask = _binary_case(b, w, per, 31, code, device)
+    kw = dict(peel_iters=PEEL_ITERS, emax=emax, ge_subbatch=min(b, 64))
+    if cw.device.type == "cuda":
+        kw.update(impl="vmem", tiled=True, static_topo=True)
+    else:
+        kw.update(impl="gather")
+    v, e, _iters, failed = hybrid_decode(arrays, apply_erasures(cw, mask), mask, **kw)
+    return _record(check_hybrid(arrays, cw, mask, v, e, failed, peel_iters=PEEL_ITERS))
+
+
+def rs_battery_mask(b: int, n: int) -> np.ndarray:
+    """The RS tier's (b, n) erasure pattern, drawn exactly as JAX draws it
+    (:322-331): e spread over 1..63 across the first b - 1 frames (full
+    coverage at b >= 64), the last frame at e = 64, beyond the MDS bound."""
+    rng = np.random.default_rng(5)
+    mask = np.zeros((b, n), bool)
+    for f in range(b):
+        if f < b - 1:
+            e = 1 + round((b - 2 and f * 62 / (b - 2)) or 0)
+        else:
+            e = 64
+        mask[f, rng.choice(n, e, replace=False)] = True
+    return mask
+
+
+def verify_rs(*, device, b: int = 64, wb: int = 1024) -> dict:
+    """RS(255,192) wide decode (JAX :300-347): e spread over 1..63 across
+    the batch + one frame at e = 64 that must flag failed."""
+    code = rs_code(255, 192)
+    arrays = code_arrays(code, device)
+    cw = rs_encode(arrays, random_bytes((b, code.k, wb), _generator(41, device), device))
+    mask = torch.from_numpy(rs_battery_mask(b, code.n)).to(cw.device)
+    v, e, failed = rs_decode_wide(arrays, apply_erasures(cw, mask), mask)
+    report = check_rs(cw, mask, v, e, failed, n_minus_k=code.n - code.k)
+    return {"_ok": report.pop("ok"), "frames": report.pop("frames"),
+            "erasures": f"spread 1..63 over {b - 1} frames + one 64 (must fail)", **report}
+
+
+def run_battery(*, device, quick: bool = False) -> list[dict]:
+    """Run every tier on ``device``; returns the list of records, in
+    :data:`TIERS` order. ``quick`` takes JAX's quick shapes (:356-375) on
+    the small code and a toy GF(256) code: its chip widths (w 128, wb 512)
+    on the card, its interpret widths (w 2, wb 8) on the CPU."""
+    device = torch.device(device)
+    card = device.type == "cuda"
+    kw: dict = dict(device=device)
+    if quick:
+        small = _small_code()
+        bin_kw = dict(b=16, w=128 if card else 2, per=0.25, code=small, **kw)
+        nb_kw = dict(b=8, wb=512 if card else 8, per=0.12,
+                     code=toy_code(n=96, k=64, seed=3, gf_order=256), **kw)
+        hy_kw = dict(b=16, w=128 if card else 2, per=0.25, emax=16, code=small, **kw)
+        rs_kw = dict(b=16, wb=512 if card else 8, **kw)
+    else:
+        bin_kw, nb_kw, hy_kw, rs_kw = kw, kw, kw, kw
+    fns = (
+        lambda: verify_binary("unrolled", **bin_kw),
+        lambda: verify_binary("seq", **bin_kw),
+        lambda: verify_nb(**nb_kw),
+        lambda: verify_hybrid(**hy_kw),
+        lambda: verify_rs(**rs_kw),
+    )
+    return [_tier(name, fn) for name, fn in zip(TIERS, fns)]

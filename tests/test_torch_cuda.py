@@ -27,6 +27,7 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_mask,
 )
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
+from ldpc_erasure_codes_tpu_torch.utils import golden, verify
 from torch_port_cases import (  # noqa: F401 (fixture)
     cuda_device,
     random_words,
@@ -1225,3 +1226,33 @@ def test_gf_matmul_kernel_matches_plain(cuda_device, wb, aligned, b, m, e):
     assert nbmm.gf_matmul_batched.launches == before + 1
     torch.testing.assert_close(got, nbmm.gf_matmul_batched_reference(rhs, mats), rtol=0, atol=0)
     torch.testing.assert_close(got, nbmm.gf_matmul_tiles_reference(rhs, mats), rtol=0, atol=0)
+
+
+def test_battery_quick_on_the_card(cuda_device):
+    """The quick battery at JAX's chip widths (w 128, wb 512): every tier
+    PASSED, through the kernels (the peel's launches rise)."""
+    before = peel_decode.launches
+    records = verify.run_battery(device=cuda_device, quick=True)
+    assert [r["tier"] for r in records] == list(verify.TIERS)
+    for r in records:
+        assert r["status"] == "PASSED", r
+    assert peel_decode.launches > before
+
+
+@pytest.mark.parametrize("kind", ["binary", "nb", "rs"])
+def test_golden_on_the_card(cuda_device, tmp_path, kind):
+    """Golden sets the port's oracle side writes, verified by the port's
+    encoders and decoders on the card, 8 words (32 bytes) per symbol."""
+    if kind == "binary":
+        code = get_code("n2000_k1000")
+        golden.generate_golden(code, tmp_path, frames=2, per=0.25, seed=1)
+        passed, report = golden.verify_golden(code, tmp_path, device=cuda_device)
+    elif kind == "nb":
+        code = get_code("n2040_k1530_gf256")
+        golden.generate_golden_nb(code, tmp_path, frames=2, seed=1)
+        passed, report = golden.verify_golden_nb(code, tmp_path, device=cuda_device)
+    else:
+        golden.generate_golden_rs(255, 192, tmp_path, frames=2, seed=1)
+        passed, report = golden.verify_golden_rs(255, 192, tmp_path, device=cuda_device)
+    assert passed, report
+    assert report.endswith("frames=2 encode=PASSED decode=PASSED")
