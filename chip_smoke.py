@@ -144,7 +144,37 @@ Phases, each fatal on failure:
    tier holding GE-solved frames (``ge_frames > failed_frames``); then, as
    four subprocesses started together (120 s each at most), ``cli verify
    --quick`` and the ``golden`` commands of (2000,1000), its GF(256) lift
-   (2040,1530) and RS(255,192), each PASSED; the native I/O library loaded.
+   (2040,1530) and RS(255,192), each PASSED; the native I/O library loaded;
+13. the UDP stream datapath in this process (``utils/udp.py::loopback_demo``)
+   at the reference's packet: (2040,1530), W=256 (1032-byte datagrams), 512
+   blocks, loss .1875 with the whole stream shuffled, the native assembler,
+   ``hybrid_decode`` with emax 512 (the peel's stuck blocks reach the
+   whole-batch GE); counted; every datagram sent arrives, every block is
+   recovered or failed, each recovered block bit-exact (inside the demo);
+   packets/s, payload Gbps, the decode's ms, the peak memory and the host
+   paths logged; then, on inputs rebuilt from the stream's seeds (the
+   source generator, ``send_order``'s NumPy draw), the encode at the
+   stream's shape and ``ge_solve_packed``'s three kernels on the whole
+   peeled batch held to their plain versions; 13b ``cli stream --vita`` as a subprocess at the same
+   width with 256 blocks at loss .1406 (120 s at most): rc 0, no VITA
+   count gap or bad packet;
+14. the chunked RS stream (``rs/stream.py::run_stream``): RS(255,192),
+   B=2048, 1 KB payloads, e=32, at least four times the card's memory,
+   every chunk's digest held on the card to its expected value and four
+   frames a chunk byte for byte (0 mismatches, 0 failed or residual);
+   ``run_stream`` reads its sizes from the environment, which must leave
+   them at these defaults; the three GF(256) GE kernels held to their
+   plain versions on one chunk's operands (B=2048, e=32); single-shot and sustained ms/chunk
+   and Gbps_info, their ratio, the host syncs of one chunk, the host-io
+   leg (pinned memory, a side stream, double-buffered, checked too), and a
+   ``torch.profiler`` trace of one chunk that must name the three GF(256)
+   kernels; counted;
+15. ``cli plot`` with its defaults cut to 262144 frames a point, as a
+   subprocess that reports its launches (the rank kernel): rc 2 with one
+   stderr line where matplotlib is missing, else rc 0 and a PNG, both
+   reports printed either way; the ``gf`` device functions on the card
+   against NumPy (the products over all 65536 pairs, the matrix products
+   on RS(255,192)'s bit image); ``hbm_bytes``, ``smem_bytes``, ``l2_bytes``.
 
 ``python3 chip_smoke.py --ge-kernels`` builds the kernels and only times
 the topology syndrome, ``gf256_eliminate``, ``gf_matmul_batched`` and
@@ -193,7 +223,9 @@ from ldpc_erasure_codes_tpu_torch.ops.channel import (
     channel_apply_per64_reference,
 )
 from ldpc_erasure_codes_tpu_torch.ops.compact import residual_order
+from ldpc_erasure_codes_tpu_torch.gf import ops as gfops
 from ldpc_erasure_codes_tpu_torch.gf.ops import gf_inv, gf_mul_packed
+from ldpc_erasure_codes_tpu_torch.gf.tables import bit_image, gf_matmul_np, gf_mul_np
 from ldpc_erasure_codes_tpu_torch.ops.elim import (
     f2_eliminate,
     f2_eliminate_reference,
@@ -228,6 +260,7 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
 )
 from ldpc_erasure_codes_tpu_torch.ops.peel import SCHEDULES, peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
+    peel_decode_jacobi,
     peel_decode_jacobi_reference,
     peel_decode_mask,
 )
@@ -235,10 +268,19 @@ from ldpc_erasure_codes_tpu_torch.ops.rank import erased_columns, f2_rank_check
 from ldpc_erasure_codes_tpu_torch.parallel import default_mesh, multihost, shard_sim_step
 from ldpc_erasure_codes_tpu_torch.parallel.dryrun import dryrun_multichip
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
-from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode
+from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode, rs_systematic_generator
+from ldpc_erasure_codes_tpu_torch.rs import stream as rs_stream
+from ldpc_erasure_codes_tpu_torch.rs.stream import RSStream, chunk_scalar, run_stream
 from ldpc_erasure_codes_tpu_torch.utils import cli
 from ldpc_erasure_codes_tpu_torch.utils import native
-from ldpc_erasure_codes_tpu_torch.utils.device import card_info, cuda_device
+from ldpc_erasure_codes_tpu_torch.utils.device import (
+    card_info,
+    cuda_device,
+    hbm_bytes,
+    l2_bytes,
+    smem_bytes,
+)
+from ldpc_erasure_codes_tpu_torch.utils.udp import loopback_demo, send_order
 from ldpc_erasure_codes_tpu_torch.utils.verify import (
     TIERS,
     check_hybrid,
@@ -2265,6 +2307,279 @@ def verify_phase(device, card: str, launches: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 13's stream: the reference's packet ((2040,1530), W = 256 words: 1 KB
+# payloads in 1032-byte datagrams), 512 blocks (1,044,480 symbols), Table
+# I's loss .1875 with the whole stream shuffled, emax 512 so the blocks the
+# peel leaves stuck reach the whole-batch GE.
+STREAM = dict(blocks=512, symbol_words=256, loss=0.1875, shuffle=True, seed=0, emax=512)
+# 13b: ``cli stream --vita`` at the same width, 256 blocks, the CLI's emax
+# of 128 at loss .1406.
+STREAM_VITA = ["stream", "--code", "n2040_k1530", "--blocks", "256", "--symbol-words", "256",
+               "--loss", "0.1406", "--vita"]
+STREAM_VITA_TIMEOUT_S = 120
+# The kernels phase 13 must launch: the encode, and the whole-batch GE's
+# elimination, dense syndrome and apply (ops/ge.py::ge_solve_packed).
+STREAM_KERNELS = ("encode_packed", "f2_eliminate", "f2_matvec_wide", "f2_apply_scatter")
+# Phase 14: RS(255,192), B = 2048, 1 KB payloads, e = 32, four times the
+# card's memory (``rs.stream.settings``' defaults); the three GF(256) GE
+# kernels, whose names the trace of one chunk must show.
+RS_STREAM = dict(b=2048, wb=1024, e=32, stream_x=4.0)
+RS_STREAM_KERNELS = ("gf256_eliminate", "gf_matvec_wide", "gf_apply_scatter")
+RS_TRACE_NAMES = ("gf256_elim_kernel", "gf_matvec_tiled_kernel", "gf_apply_tiled_kernel")
+# Phase 15: ``cli plot`` with its defaults ((2040,1530), five PERs, B =
+# 4096), cut in depth only: at most 262144 frames a point.
+PLOT = ["plot", "--max-frames", "262144"]
+PLOT_TIMEOUT_S = 300
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def hold(kernels: dict, names, errs: dict, where: str) -> None:
+    """Each named (kernel call, plain call) of ``kernels`` bit-exact, its
+    error folded into ``errs``."""
+    for name in names:
+        kern, plain = kernels[name]
+        e = outputs_err(as_tuple(kern()), as_tuple(plain()))
+        errs[name] = max(errs[name], e)
+        require(e == 0, f"{where}: {name} kernel != plain (max abs err {e})")
+
+
+def stream_kernels(r, device, errs: dict) -> str:
+    """Phase 13's kernels against their plain versions at the stream's
+    shapes, on inputs rebuilt from its seeds: the source words from the
+    generator ``loopback_demo`` seeds, the erasures from ``send_order``'s
+    NumPy draw (every datagram arrives on loopback), the Jacobi peel of
+    ``hybrid_decode``'s default ``impl``, and ``ge_solve_packed``'s
+    operands on the whole peeled batch."""
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, device)
+    b, n, w = STREAM["blocks"], code.n, STREAM["symbol_words"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(STREAM["seed"])
+    src = bench.random_words((b, code.k, w), gen, device)
+    cw = encode_packed(arrays, src)
+    e = max_abs_err(cw, encode_packed_reference(arrays, src))
+    errs["encode_packed"] = max(errs["encode_packed"], e)
+    require(e == 0, f"13: encode kernel != plain at B={b} W={w} ({e})")
+    del src
+    order = send_order(b * n, loss=STREAM["loss"], shuffle=STREAM["shuffle"],
+                       seed=STREAM["seed"] + 1)
+    require(len(order) == r.packets_sent,
+            f"13: the rebuilt draw sends {len(order)} datagrams, the stream {r.packets_sent}")
+    lost = np.ones(b * n, dtype=bool)
+    lost[order] = False
+    mask = torch.from_numpy(lost.reshape(b, n)).to(device)
+    values, erased, _ = peel_decode_jacobi(arrays, cw.masked_fill(mask[:, :, None], 0), mask,
+                                           max_iters=50)
+    del cw
+    stuck = int(erased.any(dim=1).sum())
+    require(stuck > 0, "13: the peel left no block for the whole-batch GE")
+    ge = GEInputs(arrays, values, erased, STREAM["emax"])
+    hold(ge.kernels(), ("f2_eliminate", "f2_matvec_wide", "f2_apply_scatter"), errs, "13")
+    return (f"encode_packed at B={b} W={w} and f2_eliminate, f2_matvec_wide, "
+            f"f2_apply_scatter on the whole peeled batch ({stuck} of {b} blocks stuck, max "
+            f"residual {int(ge.nreal.max())}, emax {ge.emax}) bit-exact against their plain "
+            "versions")
+
+
+def stream_phase(device, card: str, launches: dict, errs: dict) -> None:
+    """Phase 13: the UDP stream in process at full width, counted, and its
+    kernels held to their plain versions at its shapes; then 13b, ``cli
+    stream --vita`` as a subprocess."""
+    require(native.have_native(), "13: the native I/O library did not build or load")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    r = loopback_demo("n2040_k1530", device=device, **STREAM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(r.blocks_recovered + r.blocks_failed == r.blocks,
+            f"13: {r.blocks_recovered} recovered + {r.blocks_failed} failed != {r.blocks}")
+    require(r.transfer_complete and r.packets_received == r.packets_sent,
+            f"13: {r.packets_received} of {r.packets_sent} datagrams arrived")
+    require(r.paths["assembler"] == "native", f"13: assembler {r.paths}")
+    for name in STREAM_KERNELS:
+        require(counts[name] > 0, f"13: the stream never launched the {name} kernel")
+    add_counts(launches, counts)
+    log(f"phase 13: stream (2040,1530) {STREAM['blocks']} blocks, W={STREAM['symbol_words']} "
+        f"({4 * STREAM['symbol_words']}-byte payloads), loss {STREAM['loss']} shuffled, emax "
+        f"{STREAM['emax']}: {r.packets_sent} datagrams sent, {r.packets_received} received, "
+        f"{r.packets_per_sec:.1f} packets/s, {r.payload_gbps:.3f} payload Gbps over "
+        f"{r.send_seconds:.3f} s; blocks recovered {r.blocks_recovered}, failed "
+        f"{r.blocks_failed} (each recovered block bit-exact); hybrid_decode "
+        f"{r.decode_ms:.3f} ms (CUDA events); peak memory {peak_gb:.2f} GB; paths {r.paths}; "
+        f"assembler {r.stats}; whole call {wall:.2f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} } on {card}")
+    log(f"phase 13: {stream_kernels(r, device, errs)} on {card}")
+    cmd = [sys.executable, "-m", "ldpc_erasure_codes_tpu_torch.utils.cli", *STREAM_VITA]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=STREAM_VITA_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    require(res.returncode == 0, f"13b: `{' '.join(STREAM_VITA)}` returned {res.returncode}: "
+            f"{res.stderr[-3000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    require(out["vita"]["count_gaps"] == 0 and out["vita"]["bad"] == 0,
+            f"13b: VITA ingest {out['vita']}")
+    require(out["blocks_recovered"] + out["blocks_failed"] == out["blocks"], f"13b: {out}")
+    log(f"phase 13b: `{' '.join(STREAM_VITA)}` rc 0 in {secs:.2f} s: {json.dumps(out)} on {card}")
+
+
+def rs_stream_kernels(device, errs: dict) -> str:
+    """Phase 14's kernels against their plain versions on one chunk's GE
+    operands, made as ``rs_decode_wide`` makes them (emax n - k)."""
+    s = RSStream(RS_STREAM["b"], RS_STREAM["wb"], RS_STREAM["e"], device)
+    c = chunk_scalar(0, device)
+    recv = s.scaled(c).masked_fill(s.mask[:, :, None], 0)
+    ge = GEInputsNB(s.arrays, recv, s.mask, rs_stream.N - rs_stream.K)
+    hold(ge.kernels(), RS_STREAM_KERNELS, errs, "14")
+    return (f"gf256_eliminate, gf_matvec_wide and gf_apply_scatter on chunk 0's operands "
+            f"(B={s.b}, {s.wb}-byte payloads, e={s.e}, emax {ge.emax}) bit-exact against "
+            "their plain versions")
+
+
+def rs_stream_phase(device, card: str, launches: dict, errs: dict) -> None:
+    """Phase 14: the chunked RS stream over four times the card's memory,
+    with the host-io leg and a trace of one chunk, counted; then its
+    kernels held to their plain versions on one chunk's operands."""
+    require(rs_stream.settings(False) == RS_STREAM,
+            f"14: the RS_* environment sets {rs_stream.settings(False)}, not {RS_STREAM}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rs_trace_")
+    try:
+        zero_counts()
+        out = run_stream(device=device, host_io=True, trace_dir=tmp, log=log)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        (trace,) = [os.path.join(tmp, f) for f in os.listdir(tmp) if f.endswith(".json")]
+        with open(trace) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    h = out["host_io"]
+    counts_14 = {leg: {k: d[k] for k in rs_stream.COUNTS} for leg, d in (("stream", out),
+                                                                          ("host-io", h))}
+    require(all(v == 0 for d in counts_14.values() for v in d.values()),
+            f"14: digest / frame mismatches, failed+residual {counts_14}")
+    require(out["stream_bytes"] >= RS_STREAM["stream_x"] * out["hbm_bytes"],
+            f"14: the stream {out['stream_bytes']} bytes is under {RS_STREAM['stream_x']}x the "
+            f"card's {out['hbm_bytes']}")
+    for name in RS_STREAM_KERNELS:
+        require(counts[name] > 0, f"14: the RS stream never launched the {name} kernel")
+    for name in RS_TRACE_NAMES:
+        require(any(name in n for n in names), f"14: the trace names no {name}: {sorted(names)}")
+    add_counts(launches, counts)
+    log(f"phase 14: RS({out['n']},{out['k']}) stream B={out['b']} {out['wb']}-byte payloads "
+        f"e={out['e']}: {out['chunks']} chunks of {out['chunk_bytes'] / 1e6:.1f} MB = "
+        f"{out['stream_bytes'] / 1e9:.1f} GB ({out['stream_bytes'] / out['hbm_bytes']:.3f}x the "
+        f"card's {out['hbm_bytes'] / 1e9:.2f} GB); single-shot {out['single_ms']:.3f} ms/chunk "
+        f"{out['single_gbps']:.2f} Gbps_info; sustained {out['sustained_ms']:.3f} ms/chunk "
+        f"{out['sustained_gbps']:.2f} Gbps_info, {out['sustained_over_single']:.4f} of "
+        f"single-shot; {out['syncs_per_chunk']} host syncs a chunk; host-io {h['chunks']} chunks "
+        f"{h['ms']:.3f} ms/chunk {h['gbps_info']:.2f} Gbps_info; digest mismatches 0, "
+        f"frame mismatches 0 ({rs_stream.CHECK_FRAMES} frames a chunk), failed/residual 0; "
+        f"the trace of one chunk names "
+        f"{sorted(n for n in names if any(k in n for k in RS_TRACE_NAMES))}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } on {card}")
+    torch.cuda.empty_cache()
+    log(f"phase 14: {rs_stream_kernels(device, errs)} on {card}")
+
+
+def gf_device_functions(device) -> str:
+    """The ``gf`` device functions on the card against NumPy: the four
+    products and ``gf_add`` over all 65536 pairs, and the three matrix
+    products on RS(255,192)'s generator's bit image."""
+    a, b = (torch.from_numpy(x.reshape(-1).astype(np.uint8)).to(device)
+            for x in np.meshgrid(np.arange(256), np.arange(256)))
+    want = gf_mul_np(a.cpu().numpy(), b.cpu().numpy())
+    for name in ("gf_mul_table", "gf_mul_log", "gf_mul_arith", "gf_mul"):
+        got = getattr(gfops, name)(a, b)
+        require(got.device.type == "cuda" and np.array_equal(got.cpu().numpy(), want),
+                f"15: {name} != gf_mul_np over the 65536 pairs")
+    require(np.array_equal(gfops.gf_add(a, b).cpu().numpy(), (a ^ b).cpu().numpy()), "15: gf_add")
+    g = rs_systematic_generator(255, 192)
+    g_bits_np = bit_image(g)
+    g_bits = torch.from_numpy(g_bits_np).to(device)
+    u_np = np.random.default_rng(15).integers(0, 256, (64, 192), dtype=np.uint8)
+    u = torch.from_numpy(u_np).to(device)
+    got = gfops.gf_matmul_bitimage(u, g_bits)
+    require(np.array_equal(got.cpu().numpy(), gf_matmul_np(u_np, g)),
+            "15: gf_matmul_bitimage != gf_matmul_np on RS(255,192)")
+    bits = gfops.bytes_to_bits(u)
+    ints = bits.cpu().numpy().astype(np.int64) @ g_bits_np.astype(np.int64)
+    require(np.array_equal(gfops.int_matmul(bits, g_bits).cpu().numpy(), ints),
+            "15: int_matmul != NumPy on RS(255,192)'s bit image")
+    require(np.array_equal(gfops.mod2_matmul(bits, g_bits).cpu().numpy(), ints & 1),
+            "15: mod2_matmul != NumPy on RS(255,192)'s bit image")
+    return (f"gf_mul_table, gf_mul_log, gf_mul_arith, gf_mul and gf_add equal NumPy over the "
+            f"65536 pairs; gf_matmul_bitimage, int_matmul (sums up to {int(ints.max())}) and "
+            f"mod2_matmul on RS(255,192)'s {g_bits_np.shape} bit image at B=64 equal NumPy")
+
+
+# Runs ``cli plot`` in a subprocess and prints the launch counts it made
+# as a JSON line after the command's output; exits with the command's code.
+PLOT_SCRIPT = (
+    "import json, sys\n"
+    "import chip_smoke\n"
+    "rc = chip_smoke.cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'launches': chip_smoke.read_counts()}), flush=True)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def plot_phase(device, card: str, launches: dict) -> None:
+    """Phase 15: ``cli plot`` as a subprocess (its exit-code rule: rc 2 and
+    one stderr line without matplotlib, else rc 0 and a PNG), its launches
+    counted there; then the ``gf`` device functions on the card and the
+    card's memory sizes."""
+    import importlib.util
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plot_")
+    try:
+        png = os.path.join(tmp, "fer_curve.png")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", PLOT_SCRIPT, *PLOT, "--out", png], cwd=ROOT,
+                             capture_output=True, text=True, timeout=PLOT_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        require(bool(lines) and lines[-1].startswith('{"launches"'),
+                f"15: plot printed {res.stdout[-2000:]} {res.stderr[-3000:]}")
+        counts = json.loads(lines[-1])["launches"]
+        report = "\n".join(lines[:-1])
+        require("n2040_k1530 MPA" in report and "n2040_k1530 hybrid" in report,
+                f"15: plot's reports missing: {report}")
+        if importlib.util.find_spec("matplotlib") is None:
+            msg = f"plot: matplotlib is not installed, so {png} was not written"
+            require(res.returncode == 2 and res.stderr.strip().splitlines()[-1] == msg
+                    and not os.path.exists(png),
+                    f"15: without matplotlib plot returned {res.returncode}: {res.stderr[-2000:]}")
+            outcome = f"rc 2 without matplotlib: {msg!r}"
+        else:
+            require(res.returncode == 0, f"15: plot returned {res.returncode}: "
+                    f"{res.stderr[-3000:]}")
+            with open(png, "rb") as f:
+                require(f.read(8) == PNG_MAGIC, "15: plot wrote no PNG")
+            outcome = f"rc 0, {os.path.getsize(png)}-byte PNG"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(counts["ge_rank"] > 0, "15: plot's hybrid sweep never launched the rank kernel")
+    add_counts(launches, counts)
+    for line in report.splitlines():
+        log(f"phase 15: {line}")
+    log(f"phase 15: `{' '.join(PLOT)}` {outcome} in {secs:.2f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} } on {card}")
+    log(f"phase 15: {gf_device_functions(device)} on {card}")
+    mem = {"hbm_bytes": hbm_bytes(device), "smem_bytes": smem_bytes(device),
+           "l2_bytes": l2_bytes(device)}
+    require(all(v > 0 for v in mem.values()), f"15: memory sizes {mem}")
+    log(f"phase 15: {json.dumps(mem)} on {card}")
+
+
 def paired_kernels(device, card: str) -> None:
     """``python3 chip_smoke.py --ge-kernels``: the topology syndrome at
     phase 4b's GE bucket, ``gf256_eliminate``, ``gf_matmul_batched`` and
@@ -2426,6 +2741,9 @@ def main() -> None:
     decoder_top_phase(device, card, launches)
     parallel_phase(device, card, sim_9a)
     verify_phase(device, card, launches)
+    stream_phase(device, card, launches, errs)
+    rs_stream_phase(device, card, launches, errs)
+    plot_phase(device, card, launches)
 
     for name, count in launches.items():
         require(count > 0, f"no path launched the {name} kernel")

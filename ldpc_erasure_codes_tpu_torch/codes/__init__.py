@@ -10,6 +10,8 @@ from ldpc_erasure_codes_tpu_torch.codes.io import (
     get_code,
     list_codes,
     load_code,
+    load_mat_code,
+    parse_vlist_header,
     save_code,
 )
 from ldpc_erasure_codes_tpu_torch.codes.generate import (
@@ -37,6 +39,8 @@ __all__ = [
     "grid_code",
     "list_codes",
     "load_code",
+    "load_mat_code",
+    "parse_vlist_header",
     "save_code",
     "toy_code",
     "weight_histograms",

@@ -1,7 +1,9 @@
 """LDPC codes as data: the Vlist form, loaded from the shipped ``.npz`` files.
 
 Counterpart of ``ldpc_erasure_codes_tpu/codes/io.py`` (``save_code``,
-``load_code``, ``get_code``) and of ``codes/registry.py``: the fields of
+``load_code``, ``get_code``, the Vlist C-header reader
+``parse_vlist_header`` :75 and the MATLAB reader ``load_mat_code`` :124)
+and of ``codes/registry.py``: the fields of
 ``LDPCCode``, ``h_dense`` and ``h_dense_nb``, ``validate`` (:201-212), the
 seed-0 GF(256) lift (``lift_to_gf256``, :184-199) and ``from_h_dense``
 (:215-253), which the Reed-Solomon codes and the generators use. The JAX
@@ -20,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import re
 
 import numpy as np
 
@@ -175,6 +178,79 @@ def from_vlist(
         name=name, n=int(n), k=int(k), vlist_idx=idx, vlist_len=ln,
         vlist_val=val, gf_order=int(gf_order), rs_n=int(rs_n), rs_k=int(rs_k),
     )
+
+
+def _parse_int_table(text: str, name: str) -> np.ndarray:
+    """Extract a 2-D C integer array initializer ``name[..][..] = { {..}, .. }``."""
+    m = re.search(rf"{name}\s*\[\s*\d+\s*\]\s*\[\s*\d+\s*\]\s*=\s*\{{(.*?)\}}\s*;", text, re.S)
+    if not m:
+        raise ValueError(f"array {name} not found")
+    rows = []
+    for rm in re.finditer(r"\{([^{}]*)\}", m.group(1)):
+        rows.append([int(v) for v in rm.group(1).replace("\n", " ").split(",") if v.strip()])
+    width = max(len(r) for r in rows)
+    out = np.zeros((len(rows), width), dtype=np.int64)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+    return out
+
+
+def parse_vlist_header(path: str) -> list[LDPCCode]:
+    """Parse an OpenCL Vlist data header into LDPCCode objects.
+
+    Supports both the master multi-code layout (``ldpc_params[N][6]`` rows =
+    {n, k, first Vlist row, last Vlist row, RS_n, RS_k} +
+    ``parity_check_mat_Vlist_master`` rows = [degree, 1-based columns...,
+    0 padding], OpenCL/device/LDPC_Vlist_data.h:10-20) and the single-code
+    device layout (``ldpc_params[N][2]`` + ``parity_check_mat_Vlist``,
+    OpenCL/device/n2000_k1000_no6cycle_ldpc_Vlist_device.h:6-16).
+    """
+    with open(path) as f:
+        text = f.read()
+    params = _parse_int_table(text, "ldpc_params")
+    try:
+        vlist = _parse_int_table(text, "parity_check_mat_Vlist_master")
+    except ValueError:
+        vlist = _parse_int_table(text, "parity_check_mat_Vlist")
+    codes = []
+    for row in params:
+        if params.shape[1] >= 6:
+            n, k, first, last, rs_n, rs_k = (int(v) for v in row[:6])
+        else:
+            # Single-code device layout: the Vlist holds only the code whose
+            # row count matches; other params rows are informational.
+            n, k = int(row[0]), int(row[1])
+            if n - k != vlist.shape[0]:
+                continue
+            first, last, rs_n, rs_k = 0, n - k - 1, 0, 0
+        block = vlist[first : last + 1]
+        degs = block[:, 0].astype(np.int32)
+        dmax = int(degs.max())
+        idx = block[:, 1 : dmax + 1].astype(np.int32) - 1  # to 0-based
+        pad = np.arange(dmax)[None, :] >= degs[:, None]
+        idx[pad] = n
+        vals = np.where(pad, 0, 1).astype(np.uint8)
+        codes.append(LDPCCode(
+            name=f"n{n}_k{k}", n=n, k=k, vlist_idx=idx, vlist_len=degs, vlist_val=vals,
+            rs_n=rs_n, rs_k=rs_k, gf_order=2,
+        ))
+    return codes
+
+
+def load_mat_code(path: str, name: str | None = None, rs_n: int = 0, rs_k: int = 0) -> LDPCCode:
+    """Load a code from a MATLAB ``.mat`` file holding ``H_sparse``
+    (and optionally ``H_sparse_nb``), through ``scipy.io``."""
+    import scipy.io as sio
+
+    d = sio.loadmat(path)
+    key = "H_sparse_nb" if "H_sparse_nb" in d else "H_sparse"
+    h = d[key]
+    if hasattr(h, "toarray"):
+        h = h.toarray()
+    if name is None:
+        m, n = h.shape
+        name = f"n{n}_k{n - m}"
+    return from_h_dense(h, name=name, rs_n=rs_n, rs_k=rs_k)
 
 
 def save_code(code: LDPCCode, path: str) -> None:

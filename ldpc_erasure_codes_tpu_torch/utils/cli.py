@@ -6,6 +6,8 @@ Counterpart of ``ldpc_erasure_codes_tpu/utils/cli.py`` for the subcommands
   throughput  decoder throughput (main.cpp:652-658 formula)
   codes       list the shipped codes
   scaling     scaling-efficiency sweep over the ranks (north star BASELINE.md:28)
+  stream      UDP loopback streaming demo (encoder_VITA_in_UDP_out datapath)
+  plot        FER curve sweep -> semilogy PNG (MPA vs hybrid vs analytic RS)
   census      4/6/8-cycle census of a code (Hcyclefinder)
   gen         construct a girth-8 code and save it (.npz)
   golden      generate + verify golden vector files (the MATLAB<->OpenCL
@@ -19,10 +21,11 @@ it (``verify`` keeps JAX's ``--cpu`` flag instead; JAX's ``--fence-gate``
 tunes a TPU program the port does not have, and is refused). The JAX CLI
 falls back to its XLA path where its VMEM kernel cannot take a shape
 (:131-137, :172-180); the CUDA kernels take any width, so this CLI has no
-fallback. The JAX ``throughput`` flags ``--b-tile`` and
-``--tiled`` (the VMEM frame tile, the tile-major layout) have no
-counterpart: the port keeps the flat layout, and its kernels take any batch
-and fuse the masking.
+fallback. The JAX ``throughput`` flags ``--b-tile`` and ``--tiled`` (the
+VMEM frame tile, the tile-major layout) have no counterpart: the port keeps
+the flat layout, and its kernels take any batch and fuse the masking.
+``plot`` needs matplotlib for its PNG: without it the sweeps run and print,
+then the command says so on stderr and exits 2.
 
 Run as ``python -m ldpc_erasure_codes_tpu_torch.utils.cli <cmd> ...``; under
 ``torchrun --nproc-per-node N`` (one process per card) ``sim`` shards its
@@ -187,6 +190,87 @@ def cmd_scaling(args) -> int:
                 "frames_per_sec": round(p.frames_per_sec, 1),
                 "efficiency": round(p.efficiency, 4),
             }), flush=True)
+    return 0
+
+
+def cmd_stream(args) -> int:
+    """End-to-end UDP loopback streaming demo (cli.py:324-355): encode ->
+    lossy reordered datagrams -> reorder buffer -> batched decode on
+    ``--device`` -> bit-exact verification (reference datapath:
+    OpenCL/device/ldpc_erasure_encoder_VITA_in_UDP_out.cl:84-136). One JSON
+    line with JAX's keys; 0 when every block was recovered or failed."""
+    from ldpc_erasure_codes_tpu_torch.utils.udp import loopback_demo
+
+    r = loopback_demo(
+        args.code,
+        blocks=args.blocks,
+        symbol_words=args.symbol_words,
+        loss=args.loss,
+        shuffle=not args.in_order,
+        seed=args.seed,
+        assembler=args.assembler,
+        vita=args.vita,
+        device=resolve_device(args.device),
+    )
+    out = {
+        "blocks": r.blocks,
+        "packets_sent": r.packets_sent,
+        "packets_received": r.packets_received,
+        "blocks_recovered": r.blocks_recovered,
+        "blocks_failed": r.blocks_failed,
+        "packets_per_sec": round(r.packets_per_sec, 1),
+        "payload_gbps": round(r.payload_gbps, 3),
+        "transfer_complete": r.transfer_complete,
+        "assembler": r.stats,
+    }
+    if r.vita_stats is not None:
+        out["vita"] = r.vita_stats
+    print(json.dumps(out), flush=True)
+    return 0 if r.blocks_recovered + r.blocks_failed == r.blocks else 1
+
+
+def cmd_plot(args) -> int:
+    """FER curve sweep -> semilogy PNG (cli.py:233-281): the pattern-only
+    peel and hybrid sweeps on ``--device``, each report printed, then the
+    plot. Without matplotlib it prints why ``--out`` was not written to
+    stderr and returns 2; it returns 0 only with the PNG written."""
+    import importlib.util
+
+    from ldpc_erasure_codes_tpu_torch.sim import (
+        DecoderConfig,
+        SimConfig,
+        format_report,
+        run_fer_sweep,
+    )
+
+    device = resolve_device(args.device)
+    code = get_code(args.code)
+    pers = [float(p) for p in args.pers.split(",")]
+    common = dict(code=args.code, batch=args.batch, track_values=False,
+                  steps_per_call=args.steps_per_call)
+    sweep = dict(target_errors=args.target_errors, max_frames=args.max_frames, device=device)
+    peel_cfg = SimConfig(**common,
+                         decoder=DecoderConfig(kind="peel", max_iters=50, early_stop_k=True))
+    peel_pts = run_fer_sweep(code, peel_cfg, pers, **sweep)
+    print(format_report(f"{args.code} MPA", peel_cfg, peel_pts), flush=True)
+    hyb_cfg = SimConfig(**common, decoder=DecoderConfig(
+        kind="hybrid", max_iters=50, emax=args.emax, ge_subbatch=args.batch // 8))
+    hyb_pts = run_fer_sweep(code, hyb_cfg, pers, **sweep)
+    print(format_report(f"{args.code} hybrid", hyb_cfg, hyb_pts), flush=True)
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"plot: matplotlib is not installed, so {args.out} was not written",
+              file=sys.stderr, flush=True)
+        return 2
+    from ldpc_erasure_codes_tpu_torch.sim.plot import plot_fer_curves
+
+    plot_fer_curves(
+        peel_pts,
+        title=f"{args.code}: FER vs raw erasure rate",
+        rs_analytic=(code.rs_n, code.rs_k) if code.rs_n else None,
+        extra_series={"LDPC hybrid MPA+ML": hyb_pts},
+        out_path=args.out,
+    )
+    print(f"wrote {args.out}", flush=True)
     return 0
 
 
@@ -368,6 +452,32 @@ def parser() -> argparse.ArgumentParser:
     psc.add_argument("--device", default="cuda", help="cuda (a card per rank, NCCL) or cpu "
                      "(gloo)")
     psc.set_defaults(fn=cmd_scaling)
+
+    pst = sub.add_parser("stream", help="UDP loopback streaming demo")
+    pst.add_argument("--code", default="n2000_k1000")
+    pst.add_argument("--blocks", type=int, default=8)
+    pst.add_argument("--symbol-words", type=int, default=2)
+    pst.add_argument("--loss", type=float, default=0.1)
+    pst.add_argument("--in-order", action="store_true")
+    pst.add_argument("--assembler", default="auto", choices=["auto", "python"])
+    pst.add_argument("--vita", action="store_true",
+                     help="source symbols arrive as a VITA-49 stream over UDP first "
+                     "(the reference encoder's ingest)")
+    pst.add_argument("--seed", type=int, default=0)
+    pst.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    pst.set_defaults(fn=cmd_stream)
+
+    pp = sub.add_parser("plot", help="FER curve sweep -> PNG")
+    pp.add_argument("--code", default="n2040_k1530")
+    pp.add_argument("--pers", default="0.1406,0.1562,0.1719,0.1875,0.2031")
+    pp.add_argument("--batch", type=int, default=4096)
+    pp.add_argument("--steps-per-call", type=int, default=16)
+    pp.add_argument("--target-errors", type=int, default=100)
+    pp.add_argument("--max-frames", type=int, default=1_000_000)
+    pp.add_argument("--emax", type=int, default=256)
+    pp.add_argument("--out", default="fer_curve.png")
+    pp.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    pp.set_defaults(fn=cmd_plot)
 
     pn = sub.add_parser("census", help="cycle census")
     pn.add_argument("--code", default="n2000_k1000")

@@ -1256,3 +1256,106 @@ def test_golden_on_the_card(cuda_device, tmp_path, kind):
         passed, report = golden.verify_golden_rs(255, 192, tmp_path, device=cuda_device)
     assert passed, report
     assert report.endswith("frames=2 encode=PASSED decode=PASSED")
+
+
+STREAM_COUNTERS = ("blocks", "packets_sent", "packets_received", "blocks_recovered",
+                   "blocks_failed", "stats", "transfer_complete")
+
+
+@pytest.mark.parametrize("code_name,w,blocks,loss,vita", [
+    ("n2000_k1000", 2, 8, 0.1, False),  # the CLI's defaults
+    ("n2000_k1000", 2, 8, 0.1, True),
+    ("n2040_k1530", 256, 16, 0.1875, False),  # 1 KB payloads
+])
+def test_loopback_stream_on_the_card(cuda_device, code_name, w, blocks, loss, vita):
+    """The UDP stream decoded on the card: every datagram arrives, every
+    block recovered or failed (recovered ones bit-exact inside the demo),
+    and the counters equal the CPU run's on the same seed (the pattern is
+    NumPy's, failure depends on it alone)."""
+    from ldpc_erasure_codes_tpu_torch.utils.udp import loopback_demo
+
+    kw = dict(blocks=blocks, symbol_words=w, loss=loss, seed=7, vita=vita, emax=512)
+    before = encode_packed.launches
+    card = loopback_demo(code_name, device=cuda_device, **kw)
+    assert encode_packed.launches == before + 1
+    assert card.transfer_complete and card.packets_received == card.packets_sent
+    assert card.blocks_recovered + card.blocks_failed == blocks
+    assert card.paths["assembler"] == "native"
+    cpu = loopback_demo(code_name, device="cpu", **kw)
+    for f in STREAM_COUNTERS + ("vita_stats",):
+        assert getattr(card, f) == getattr(cpu, f), f
+
+
+def test_rs_stream_quick_host_io_on_the_card(cuda_device, monkeypatch):
+    """``rs.stream --quick --host-io`` at its quick defaults (B = 256):
+    every chunk's digest and checked frames and the host-io leg's equal
+    their expected values; the GF(256) kernels launch."""
+    from ldpc_erasure_codes_tpu_torch.rs.stream import run_stream
+
+    for name in ("RS_BATCH", "RS_WB", "RS_E", "STREAM_X"):
+        monkeypatch.delenv(name, raising=False)
+    before = elim.gf256_eliminate.launches
+    out = run_stream(quick=True, host_io=True, device=cuda_device, log=lambda _m: None)
+    assert (out["b"], out["mismatches"], out["frame_mismatches"], out["bad"]) == (256, 0, 0, 0)
+    h = out["host_io"]
+    assert (h["mismatches"], h["frame_mismatches"], h["bad"], h["chunks"]) == (
+        0, 0, 0, max(2, out["chunks"] // 8))
+    assert out["chunks"] * out["chunk_bytes"] >= 0.05 * out["hbm_bytes"]
+    assert isinstance(out["syncs_per_chunk"], int)
+    assert elim.gf256_eliminate.launches > before
+
+
+def test_plot_exit_code_rule_on_the_card(cuda_device, tmp_path, capsys):
+    """``cli plot`` on the card at a small sweep: rc 0 with a PNG where
+    matplotlib is installed, else rc 2, one stderr line and no file; both
+    reports printed either way."""
+    import importlib.util
+
+    from ldpc_erasure_codes_tpu_torch.utils import cli
+
+    out = tmp_path / "f.png"
+    rc = cli.main(["plot", "--batch", "1024", "--steps-per-call", "2", "--max-frames", "2048",
+                   "--pers", "0.1875,0.2031", "--out", str(out)])
+    cap = capsys.readouterr()
+    assert "n2040_k1530 MPA" in cap.out and "n2040_k1530 hybrid" in cap.out
+    if importlib.util.find_spec("matplotlib") is None:
+        assert rc == 2 and not out.exists()
+        assert cap.err.strip() == f"plot: matplotlib is not installed, so {out} was not written"
+    else:
+        assert rc == 0 and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_gf_device_functions_on_the_card(cuda_device):
+    """The ``gf`` products and ``gf_add`` over all 65536 pairs, and the
+    bit-image products on RS(255,192)'s generator, on the card against
+    NumPy."""
+    from ldpc_erasure_codes_tpu_torch import gf
+    from ldpc_erasure_codes_tpu_torch.rs import rs_systematic_generator
+
+    a_np, b_np = (x.reshape(-1).astype(np.uint8)
+                  for x in np.meshgrid(np.arange(256), np.arange(256)))
+    a, b = torch.from_numpy(a_np).to(cuda_device), torch.from_numpy(b_np).to(cuda_device)
+    for fn in (gf.gf_mul_table, gf.gf_mul_log, gf.gf_mul_arith, gf.gf_mul):
+        got = fn(a, b)
+        assert got.is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy(), gf.gf_mul_np(a_np, b_np))
+    np.testing.assert_array_equal(gf.gf_add(a, b).cpu().numpy(), a_np ^ b_np)
+    g = rs_systematic_generator(255, 192)
+    g_bits = gf.bit_image(g)
+    u_np = np.random.default_rng(1).integers(0, 256, (16, 192), dtype=np.uint8)
+    u, gb = torch.from_numpy(u_np).to(cuda_device), torch.from_numpy(g_bits).to(cuda_device)
+    got = gf.gf_matmul_bitimage(u, gb)
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), gf.gf_matmul_np(u_np, g))
+    ints = gf.bytes_to_bits(torch.from_numpy(u_np)).numpy().astype(np.int64) @ g_bits
+    np.testing.assert_array_equal(gf.int_matmul(gf.bytes_to_bits(u), gb).cpu().numpy(), ints)
+    np.testing.assert_array_equal(gf.mod2_matmul(gf.bytes_to_bits(u), gb).cpu().numpy(), ints & 1)
+
+
+def test_memory_sizes_on_the_card(cuda_device):
+    from ldpc_erasure_codes_tpu_torch.utils.device import hbm_bytes, l2_bytes, smem_bytes
+
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert hbm_bytes(cuda_device) == props.total_memory == hbm_bytes()
+    assert 48 * 1024 <= smem_bytes(cuda_device) <= 256 * 1024
+    assert l2_bytes(cuda_device) >= 1 << 20

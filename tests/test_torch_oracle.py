@@ -198,9 +198,10 @@ def test_check_peel_consults_the_oracle(gf_order, early):
 
 
 def test_new_modules_import_no_jax():
-    """The oracle, the generators, the G-matrix tools, ``save_code`` and
-    ``gf_matvec_np`` import and run with ``jax`` and the JAX package
-    unimportable."""
+    """The oracle, the generators, the G-matrix tools, ``save_code``,
+    ``gf_matvec_np``, and the stream datapath, plot, profiling, device,
+    GF(256) and code-reader modules import and run with ``jax`` and the JAX
+    package unimportable."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -215,6 +216,21 @@ def test_new_modules_import_no_jax():
         "assert oracle.peel_decode(c, cw)[1] == 1 and gf2_rank(c.h_dense) == c.m\n"
         "gen_column_wise([(51, 4)], [(102, 2)], seed=9, max_tries=120)\n"
         "assert gf_matvec_np(np.eye(3, dtype=int), np.arange(3)).tolist() == [0, 1, 2]\n"
+        "import torch\n"
+        "from ldpc_erasure_codes_tpu_torch.codes import load_mat_code, parse_vlist_header\n"
+        "from ldpc_erasure_codes_tpu_torch.gf import (gf_add, gf_matmul_bitimage, gf_mul_arith,\n"
+        "    gf_mul_log, gf_mul_table, int_matmul, mod2_matmul)\n"
+        "from ldpc_erasure_codes_tpu_torch.rs import stream\n"
+        "from ldpc_erasure_codes_tpu_torch.sim import plot\n"
+        "from ldpc_erasure_codes_tpu_torch.utils import cli, device, profiling, streaming, udp, vita\n"
+        "from ldpc_erasure_codes_tpu_torch.utils.device import hbm_bytes, l2_bytes, smem_bytes\n"
+        "a = torch.arange(256, dtype=torch.uint8)\n"
+        "assert torch.equal(gf_mul_table(a, a), gf_mul_log(a, a))\n"
+        "asm = streaming.BlockAssembler(4, 2, 4, decode_at_k=False)\n"
+        "asm.push(streaming.make_packet(0, 1, 0, vita.VitaEmitter(1).emit(b'abcd')[0][1][8:]))\n"
+        "assert asm.stats['packets'] == 1 and udp.flow_window(1 << 20, 1032) > 16\n"
+        "assert stream.xor_digest(torch.zeros((2, 3, 4), dtype=torch.uint8)).tolist() == [0] * 4\n"
+        "assert profiling.time_fn(lambda: None, reps=1).reps == 1\n"
         "assert not [m for m, mod in sys.modules.items() if mod is not None and (\n"
         "    m == 'jax' or m.startswith(('jax.', 'ldpc_erasure_codes_tpu.')))]\n"
         "print('ok')\n"
