@@ -174,12 +174,30 @@ Phases, each fatal on failure:
    stderr line where matplotlib is missing, else rc 0 and a PNG, both
    reports printed either way; the ``gf`` device functions on the card
    against NumPy (the products over all 65536 pairs, the matrix products
-   on RS(255,192)'s bit image); ``hbm_bytes``, ``smem_bytes``, ``l2_bytes``.
+   on RS(255,192)'s bit image); ``hbm_bytes``, ``smem_bytes``, ``l2_bytes``;
+16. the decode API's variants (``ops/peel_jacobi.py``, ``ops/encode.py``),
+   counted, each timed with CUDA events: the codewords by
+   ``make_packed_encoder`` at the main path's shape ((2040,1530), B=2048,
+   W=256; the encode kernel), equal to ``encode_packed``; at PER .1406,
+   ``impl="worklist"`` (128), ``seq_blocks=2`` and ``peel_decode_wide``
+   with split 2 and 4 reach the fixed point of ``impl="gather"`` (the same
+   residual and the same resolved values, with and without first-k stop);
+   ``seq_blocks=m`` without early stop equals the seq peel kernel bit for
+   bit (values, mask, sweeps) and 8 frames' masks and sweeps equal the
+   oracle's; ``peel_decode_with_history`` at 50 sweeps is non-increasing
+   and ends at the gather decode's residual; at B=64, scalar,
+   ``encode_scan`` and ``encode_wide`` equal ``encode`` and
+   ``peel_step_matmul`` equals ``peel_step_gather`` on random frames; at
+   B=64, W=256, PER .2031, emax 512, ``hybrid_decode(ge_impl="bytes")``
+   equals "auto" on the failed flags, the masks and the decoded frames; the
+   sim's and the hybrid's peel refuse the ``impl`` JAX refuses and run
+   "worklist" as JAX does.
 
-``python3 chip_smoke.py --ge-kernels`` builds the kernels and only times
-the topology syndrome, ``gf256_eliminate``, ``gf_matmul_batched`` and
-``gf_apply_scatter`` on the operands of phases 5, 6c and 6d through the
-public wrappers; copied to the root of an earlier checkout of the port, it
+``python3 chip_smoke.py --api-variants`` builds the kernels and runs phase
+16 alone. ``python3 chip_smoke.py --ge-kernels`` builds the kernels and
+only times the topology syndrome, ``gf256_eliminate``,
+``gf_matmul_batched`` and ``gf_apply_scatter`` on the operands of phases
+5, 6c and 6d through the public wrappers; copied to the root of an earlier checkout of the port, it
 times that checkout's kernels on the same operands.
 
 Every kernel's entry carries its bound: the larger of the bytes it must
@@ -196,6 +214,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import io
 import json
 import os
@@ -216,8 +235,7 @@ from ldpc_erasure_codes_tpu_torch.channel.erasure import (
 )
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import _build, elim, nbmm, peel, rank, synd
-from ldpc_erasure_codes_tpu_torch.ops import encode as enc
-from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
+from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, device_arrays
 from ldpc_erasure_codes_tpu_torch.ops.channel import (
     channel_apply_per64,
     channel_apply_per64_reference,
@@ -232,7 +250,11 @@ from ldpc_erasure_codes_tpu_torch.ops.elim import (
     gf256_eliminate,
     gf256_eliminate_reference,
 )
-from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
+from ldpc_erasure_codes_tpu_torch.ops.encode import (
+    encode_packed,
+    encode_packed_reference,
+    make_packed_encoder,
+)
 from ldpc_erasure_codes_tpu_torch.ops.ge import (
     _unpack_words_bytes,
     coefficient_cube,
@@ -263,6 +285,10 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_jacobi,
     peel_decode_jacobi_reference,
     peel_decode_mask,
+    peel_decode_wide,
+    peel_decode_with_history,
+    peel_step_gather,
+    peel_step_matmul,
 )
 from ldpc_erasure_codes_tpu_torch.ops.rank import erased_columns, f2_rank_check
 from ldpc_erasure_codes_tpu_torch.parallel import default_mesh, multihost, shard_sim_step
@@ -272,7 +298,7 @@ from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode, rs_systematic_ge
 from ldpc_erasure_codes_tpu_torch.rs import stream as rs_stream
 from ldpc_erasure_codes_tpu_torch.rs.stream import RSStream, chunk_scalar, run_stream
 from ldpc_erasure_codes_tpu_torch.utils import cli
-from ldpc_erasure_codes_tpu_torch.utils import native
+from ldpc_erasure_codes_tpu_torch.utils import native, verify
 from ldpc_erasure_codes_tpu_torch.utils.device import (
     card_info,
     cuda_device,
@@ -290,6 +316,9 @@ from ldpc_erasure_codes_tpu_torch.utils.verify import (
     check_schedule,
     run_battery,
 )
+
+# The module: the package exports its function ``encode`` under the same name.
+enc = importlib.import_module("ldpc_erasure_codes_tpu_torch.ops.encode")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2580,6 +2609,232 @@ def plot_phase(device, card: str, launches: dict) -> None:
     log(f"phase 15: {json.dumps(mem)} on {card}")
 
 
+# Phase 16's shapes: the main path's frames for the decode variants, and
+# the small batches of the scalar checks and of the ge_impl comparison (the
+# hybrid's GE-hot PER and bucket width).
+API = dict(b=bench.B, w=bench.W, per=bench.PER, small_b=64, ge_per=0.2031, ge_emax=512)
+
+
+def once_ms(fn):
+    """(result, milliseconds) of one call of ``fn``, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def same_resolved(got, want, k_stop: int) -> bool:
+    """Two peels of the same frames reached one fixed point: the same
+    residual on the first ``k_stop`` symbols (all n without early stop:
+    then the whole mask), and the same value at every symbol both
+    resolved."""
+    (v, e), (v2, e2) = got[:2], want[:2]
+    n = e.shape[1]
+    if not torch.equal(e[:, :k_stop], e2[:, :k_stop]) or (k_stop == n and not torch.equal(e, e2)):
+        return False
+    both = (e | e2)[..., None]
+    return torch.equal(v.masked_fill(both, 0), v2.masked_fill(both, 0))
+
+
+def refused(fn) -> str:
+    """"raises" where ``fn`` raises ValueError, else "runs"."""
+    try:
+        fn()
+    except ValueError:
+        return "raises"
+    torch.cuda.synchronize()
+    return "runs"
+
+
+def api_fixed_point(code, arrays, cw, mask) -> tuple[list[str], tuple]:
+    """Phase 16's fixed-point checks at the main path's shape: worklist 128,
+    seq_blocks 2 and peel_decode_wide's splits 2 and 4 against
+    impl="gather", with and without first-k stop; returns the log lines and
+    the no-stop gather decode."""
+    lines, ref_full = [], None
+    peel_decode_jacobi(arrays, cw, mask, max_iters=50, early_stop_k=code.k)  # warm-up
+    variants = {"worklist 128": dict(impl="worklist", worklist_size=128),
+                "seq_blocks 2": dict(seq_blocks=2)}
+    for early in (code.k, None):
+        kw = dict(max_iters=50, early_stop_k=early)
+        k_stop = early or code.n
+        ref, ms = once_ms(lambda: peel_decode_jacobi(arrays, cw, mask, **kw))
+        times = [f"gather {ms:.1f} ms ({int(ref[2].max())} sweeps)"]
+        for name, extra in variants.items():
+            got, ms = once_ms(lambda: peel_decode_jacobi(arrays, cw, mask, **kw, **extra))
+            require(same_resolved(got, ref, k_stop), f"16: {name} (early_stop_k={early}) "
+                    "reached another fixed point than impl='gather'")
+            times.append(f"{name} {ms:.1f} ms ({int(got[2].max())} sweeps)")
+            del got
+        for split in (2, 4):
+            got, ms = once_ms(lambda: peel_decode_wide(arrays, cw, mask, split=split, **kw))
+            require(same_resolved(got, ref, k_stop), f"16: peel_decode_wide split {split} "
+                    f"(early_stop_k={early}) reached another fixed point than impl='gather'")
+            times.append(f"split {split} {ms:.1f} ms ({int(got[2].max())} sweeps)")
+            del got
+        stop = "first-k stop" if early else "no stop"
+        lines.append(f"{stop}: same residual and values as gather: " + ", ".join(times))
+        if early is None:
+            ref_full = ref
+        del ref
+    return lines, ref_full
+
+
+def api_matlab_schedule(code, arrays, cw, mask) -> str:
+    """seq_blocks = m without early stop equals the peel kernel's seq
+    schedule bit for bit; 8 frames' masks and sweeps equal the oracle's."""
+    kw = dict(max_iters=50, early_stop_k=None)
+    got, ms = once_ms(lambda: peel_decode_jacobi(arrays, cw, mask, seq_blocks=arrays.m, **kw))
+    kern, kms = once_ms(lambda: peel_decode(arrays, cw, mask, schedule="seq", **kw))
+    e = outputs_err(got, kern)
+    require(e == 0, f"16: seq_blocks=m != the seq peel kernel ({e})")
+    mism = verify._oracle_check(arrays, cw[:8], mask[:8], got[1][:8], got[2][:8], max_iters=50,
+                                early_stop_k=None)
+    require(mism == (0, 0), f"16: seq_blocks=m against the oracle: (mask, sweeps) mismatches "
+            f"{mism}")
+    return (f"seq_blocks=m ({arrays.m} blocks a sweep, {int(got[2].max())} sweeps) {ms:.1f} ms "
+            f"equals the seq kernel ({kms:.3f} ms) bit for bit, values, mask and sweeps; 8 "
+            "frames' masks and sweeps equal the oracle's")
+
+
+def api_history(arrays, cw, mask, ref_full) -> str:
+    """hist at max_iters 50: non-increasing, its last column the residual,
+    which is the no-stop gather decode's."""
+    (v, e, hist), ms = once_ms(lambda: peel_decode_with_history(arrays, cw, mask, max_iters=50))
+    require(hist.shape == (mask.shape[0], 50) and bool((hist[:, 1:] <= hist[:, :-1]).all()),
+            f"16: hist {tuple(hist.shape)} is not non-increasing")
+    require(torch.equal(hist[:, -1], e.sum(dim=1, dtype=torch.int32)),
+            "16: hist's last column is not the residual")
+    require(torch.equal(e, ref_full[1]) and torch.equal(v, ref_full[0]),
+            "16: the history's residual or values differ from the gather decode's")
+    return (f"peel_decode_with_history 50 sweeps {ms:.1f} ms: hist non-increasing, last column "
+            f"the residual ({int(hist[:, -1].sum())} erasures), equal to gather's")
+
+
+def api_small(code, arrays, device, gen) -> list[str]:
+    """The encoders, the single sweeps and ge_impl on small batches."""
+    b = API["small_b"]
+    bits = torch.randint(0, 2, (b, code.k), dtype=torch.uint8, generator=gen, device=device)
+    want, ms = once_ms(lambda: enc.encode(arrays, bits))
+    scan, ms_scan = once_ms(lambda: enc.encode_scan(arrays, bits, code.n, code.k))
+    wide, ms_wide = once_ms(lambda: enc.encode_wide(arrays, bits[:, None]))
+    require(torch.equal(scan, want) and torch.equal(wide[:, 0], want),
+            "16: encode_scan or encode_wide != encode")
+    lines = [f"B={b} scalar: encode_scan {ms_scan:.2f} ms and encode_wide {ms_wide:.2f} ms equal "
+             f"encode ({ms:.2f} ms)"]
+    noise = torch.randint(0, 2, (b, code.n), dtype=torch.uint8, generator=gen, device=device)
+    er = torch.rand((b, code.n), generator=gen, device=device) < API["per"]
+    noise = noise.masked_fill(er, 0)
+    peel_step_matmul(arrays, noise, er)  # warm-up: the first float32 product
+    g, ms_g = once_ms(lambda: peel_step_gather(arrays, noise, er, 2))
+    mm, ms_m = once_ms(lambda: peel_step_matmul(arrays, noise, er))
+    require(torch.equal(g[0], mm[0]) and torch.equal(g[1], mm[1]),
+            "16: peel_step_matmul != peel_step_gather on random frames")
+    lines.append(f"B={b} scalar random frames: peel_step_matmul {ms_m:.2f} ms equals "
+                 f"peel_step_gather {ms_g:.2f} ms ({int((er & ~g[1]).sum())} symbols solved)")
+    src = bench.random_words((b, code.k, API["w"]), gen, device)
+    cw = encode_packed(arrays, src)
+    mask = iid_erasures((b, code.n), API["ge_per"], generator=gen, device=device)
+    kw = dict(emax=API["ge_emax"])
+    auto, ms_a = once_ms(lambda: hybrid_decode(arrays, cw, mask, ge_impl="auto", **kw))
+    byt, ms_b = once_ms(lambda: hybrid_decode(arrays, cw, mask, ge_impl="bytes", **kw))
+    ok = ~auto[3]
+    require(torch.equal(auto[3], byt[3]) and torch.equal(auto[1], byt[1])
+            and torch.equal(auto[0][ok], byt[0][ok]) and torch.equal(auto[0][ok], cw[ok]),
+            "16: ge_impl='bytes' != 'auto' (failed flags, masks or the values of decoded frames)")
+    resid = peel_decode_jacobi(arrays, cw, mask, max_iters=10)[1].any(dim=1)
+    lines.append(f"B={b} W={API['w']} PER {API['ge_per']} emax {API['ge_emax']}: "
+                 f"ge_impl='bytes' {ms_b:.1f} ms equals 'auto' {ms_a:.1f} ms ({int(resid.sum())} "
+                 f"frames reach the GE, {int(auto[3].sum())} failed)")
+    return lines
+
+
+def api_refusals(code, device) -> str:
+    """The impl cases where the port once decoded what JAX refuses, on the
+    card at B=8, W=4: JAX raises for the first four and decodes the last
+    two; the hybrid's worklist decode is verified."""
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(16)
+    src = bench.random_words((8, code.k, 4), gen, device)
+    cw = encode_packed(arrays, src)
+    mask = iid_erasures((8, code.n), 0.2, generator=gen, device=device)
+    nb = code.lift_to_gf256(seed=0)
+    nb_arrays = code_arrays(nb, device)
+    sym = torch.randint(0, 256, (8, nb.k), dtype=torch.uint8, generator=gen, device=device)
+    nb_cw = enc.encode_nb(nb_arrays, sym)
+
+    def sim_step(impl: str, gf_order: int):
+        cfg = sim.SimConfig(batch=8, gf_order=gf_order, seed=16,
+                            decoder=sim.DecoderConfig(kind="peel", impl=impl))
+        return sim.make_sim_step(code, cfg, device=device)(0, 0.2)
+
+    cases = {
+        "sim peel impl='bogus'": lambda: sim_step("bogus", 2),
+        "sim peel impl='matmul' GF(256)": lambda: sim_step("matmul", 256),
+        "hybrid impl='matmul' wide binary": lambda: hybrid_decode(arrays, cw, mask,
+                                                                  impl="matmul"),
+        "hybrid impl='matmul' scalar GF(256)": lambda: hybrid_decode(
+            nb_arrays, nb_cw, mask, gf_order=256, impl="matmul"),
+        "hybrid impl='worklist' wide binary": lambda: hybrid_decode(arrays, cw, mask,
+                                                                    impl="worklist"),
+        "sim peel impl='worklist'": lambda: sim_step("worklist", 2),
+    }
+    want = ["raises"] * 4 + ["runs"] * 2
+    got = {name: refused(fn) for name, fn in cases.items()}
+    require(list(got.values()) == want, f"16: refusals {got}, JAX's {want}")
+    v, e, _, f = hybrid_decode(arrays, cw, mask, impl="worklist")
+    require(torch.equal(v[~f], cw[~f]) and not bool(e[~f].any()),
+            "16: hybrid impl='worklist' decoded a frame wrongly")
+    return "; ".join(f"{k} {v}" for k, v in got.items()) + " (as JAX's)"
+
+
+def api_phase(device, card: str, launches: dict) -> None:
+    """Phase 16: the decode API's variants on the card at the main path's
+    shape, counted: each fixed point against impl="gather", the MATLAB
+    schedule against the seq peel kernel and the oracle, the history, the
+    encoders (the closure through the encode kernel), the single sweeps,
+    ge_impl and the impl refusals; each timed with CUDA events."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    code = get_code("n2040_k1530")
+    zero_counts()
+    arrays = device_arrays(code)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1616)
+    src = bench.random_words((API["b"], code.k, API["w"]), gen, device)
+    encoder = make_packed_encoder(code)
+    cw, ms_first = once_ms(lambda: encoder(src))
+    cw, ms = once_ms(lambda: encoder(src))
+    require(torch.equal(cw, encode_packed(arrays, src)), "16: make_packed_encoder != encode_packed")
+    log(f"phase 16: make_packed_encoder at B={API['b']} W={API['w']} {ms:.3f} ms ({ms_first:.3f} "
+        f"ms the first call, its level tables built) equals encode_packed on {card}")
+    del src
+    mask = iid_erasures((API["b"], code.n), API["per"], generator=gen, device=device)
+    lines, ref_full = api_fixed_point(code, arrays, cw, mask)
+    for line in lines:
+        log(f"phase 16: B={API['b']} W={API['w']} PER {API['per']}, {line} on {card}")
+    log(f"phase 16: {api_matlab_schedule(code, arrays, cw, mask)} on {card}")
+    log(f"phase 16: {api_history(arrays, cw, mask, ref_full)} on {card}")
+    del cw, mask, ref_full
+    torch.cuda.empty_cache()
+    for line in api_small(code, arrays, device, gen):
+        log(f"phase 16: {line} on {card}")
+    log(f"phase 16: {api_refusals(code, device)} on {card}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name in ("peel_decode", "encode_packed"):
+        require(counts[name] > 0, f"16: the phase never launched the {name} kernel")
+    add_counts(launches, counts)
+    log(f"phase 16: decode API variants in {time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} } on {card}")
+
+
 def paired_kernels(device, card: str) -> None:
     """``python3 chip_smoke.py --ge-kernels``: the topology syndrome at
     phase 4b's GE bucket, ``gf256_eliminate``, ``gf_matmul_batched`` and
@@ -2630,6 +2885,9 @@ def main() -> None:
         print(f.read(), file=sys.stderr, flush=True)
     if sys.argv[1:] == ["--ge-kernels"]:
         paired_kernels(device, card)
+        return
+    if sys.argv[1:] == ["--api-variants"]:
+        api_phase(device, card, {})
         return
 
     errs = {name: 0 for name in KERNELS}
@@ -2744,6 +3002,7 @@ def main() -> None:
     stream_phase(device, card, launches, errs)
     rs_stream_phase(device, card, launches, errs)
     plot_phase(device, card, launches)
+    api_phase(device, card, launches)
 
     for name, count in launches.items():
         require(count > 0, f"no path launched the {name} kernel")

@@ -130,10 +130,12 @@ class LDPCCode:
         )
 
 
-def from_h_dense(h, name: str, rs_n: int = 0, rs_k: int = 0) -> LDPCCode:
+def from_h_dense(h, name: str, rs_n: int = 0, rs_k: int = 0, dmax: int | None = None) -> LDPCCode:
     """A code from a dense (m, n) parity-check matrix, which may carry
     GF(256) coefficients (gf_order 256 when any entry exceeds 1), as
-    ``registry.py::from_h_dense``."""
+    ``registry.py::from_h_dense`` (:215-236). The Vlist is padded to
+    ``dmax`` slots, or to the largest check degree when ``dmax`` is None
+    or 0."""
     if hasattr(h, "toarray"):
         h = h.toarray()
     h = np.asarray(h)
@@ -142,7 +144,9 @@ def from_h_dense(h, name: str, rs_n: int = 0, rs_k: int = 0) -> LDPCCode:
     h = h.astype(np.int64)
     m, n = h.shape
     degs = (h != 0).sum(axis=1)
-    dm = int(degs.max())
+    dm = dmax or int(degs.max())
+    if dm < degs.max():
+        raise ValueError(f"dmax={dmax} is below the largest check degree {int(degs.max())}")
     vlist_idx = np.full((m, dm), n, dtype=np.int32)
     vlist_val = np.zeros((m, dm), dtype=np.uint8)
     for r in range(m):

@@ -11,8 +11,9 @@ LSB-first bit (un)packing, and the binary-image products
 CUDA kernels repeat it per word. In JAX they are XLA code, not Pallas, so
 plain torch is their port.
 
-The field polynomial is the reference's 0x171 throughout. Packed words
-are ``torch.int32`` holding four GF(256) bytes, byte ``j`` in
+The field polynomial is the reference's 0x171 wherever a function takes
+no ``prim_poly`` (``gf_mul_arith``, ``gf_mul`` and ``gf_mul_packed`` do).
+Packed words are ``torch.int32`` holding four GF(256) bytes, byte ``j`` in
 bits ``8j..8j+7`` (the little-endian view of a uint8 tensor). torch's int32
 ``>>`` is arithmetic, so every right shift of a packed word is masked; the
 masks above bit 30 are written as negative int32 literals.
@@ -84,20 +85,21 @@ def gf_mul(a, b, prim_poly: int = DEFAULT_PRIM_POLY) -> torch.Tensor:
     return gf_mul_arith(a, b, prim_poly)
 
 
-def _xtime_packed(v: torch.Tensor) -> torch.Tensor:
+def _xtime_packed(v: torch.Tensor, prim_poly: int = DEFAULT_PRIM_POLY) -> torch.Tensor:
     """Multiply-by-x of the four bytes of each int32 word: a byte that
     overflows its top bit wraps modulo the polynomial's low byte."""
     hi = (v >> 7) & _LOW_BIT
-    return ((v << 1) & _HIGH_BITS) ^ (hi * (DEFAULT_PRIM_POLY & 0xFF))
+    return ((v << 1) & _HIGH_BITS) ^ (hi * (prim_poly & 0xFF))
 
 
-def gf_mul_packed(words: torch.Tensor, coef) -> torch.Tensor:
+def gf_mul_packed(words: torch.Tensor, coef, prim_poly: int = DEFAULT_PRIM_POLY) -> torch.Tensor:
     """Each byte of the int32 ``words`` times the byte ``coef`` (a tensor
-    broadcastable against ``words``, values 0..255): double-and-add over
-    the coefficient's bits. A Python int coefficient takes the product
-    table's row instead (one gather over the bytes; the plain loops call
-    this once per check and neighbour). Returns int32 words."""
-    if isinstance(coef, int) and words.stride(-1) == 1:
+    broadcastable against ``words``, values 0..255) in the field of
+    ``prim_poly``: double-and-add over the coefficient's bits. A Python int
+    coefficient in the default field takes the product table's row instead
+    (one gather over the bytes; the plain loops call this once per check
+    and neighbour). Returns int32 words."""
+    if isinstance(coef, int) and prim_poly == DEFAULT_PRIM_POLY and words.stride(-1) == 1:
         row = table("mul", words.device)[coef]
         return row[words.view(torch.uint8).long()].view(torch.int32)
     c = torch.as_tensor(coef, device=words.device).to(torch.int32)
@@ -107,7 +109,7 @@ def gf_mul_packed(words: torch.Tensor, coef) -> torch.Tensor:
     for i in range(8):
         acc = acc ^ (cur * ((c >> i) & 1))
         if i < 7:
-            cur = _xtime_packed(cur)
+            cur = _xtime_packed(cur, prim_poly)
     return acc
 
 

@@ -1,11 +1,16 @@
 """Code tables, the encode and peel operations, the Gauss-Jordan solvers
 over GF(2) and GF(256), the rank check and the fused channel (kernel
-wrappers and their plain PyTorch versions)."""
+wrappers and their plain PyTorch versions).
+
+Two names differ from the JAX package's ``ops``: ``peel_decode`` here is
+the peel kernel, JAX's ``peel_decode_vmem``, and JAX's XLA ``peel_decode``
+is ``peel_decode_jacobi``."""
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     CodeArrays,
     code_arrays,
     code_arrays_from_numpy,
+    device_arrays,
     host_arrays,
 )
 from ldpc_erasure_codes_tpu_torch.ops.channel import (
@@ -23,7 +28,15 @@ from ldpc_erasure_codes_tpu_torch.ops.elim import (
     gf256_eliminate,
     gf256_eliminate_reference,
 )
-from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, encode_packed_reference
+from ldpc_erasure_codes_tpu_torch.ops.encode import (
+    encode,
+    encode_nb,
+    encode_packed,
+    encode_packed_reference,
+    encode_scan,
+    encode_wide,
+    make_packed_encoder,
+)
 from ldpc_erasure_codes_tpu_torch.ops.ge import (
     erased_indices,
     ge_rank_check,
@@ -49,6 +62,16 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
     matrix_rows,
 )
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
+    peel_decode_jacobi,
+    peel_decode_mask,
+    peel_decode_wide,
+    peel_decode_with_history,
+    peel_step_gather,
+    peel_step_matmul,
+    peel_step_seq_blocks,
+    peel_step_worklist,
+)
 from ldpc_erasure_codes_tpu_torch.ops.rank import f2_rank_check, f2_rank_check_reference
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 
@@ -60,8 +83,13 @@ __all__ = [
     "code_arrays_from_numpy",
     "compact_ge_rank",
     "compact_ge_solve",
+    "device_arrays",
+    "encode",
+    "encode_nb",
     "encode_packed",
     "encode_packed_reference",
+    "encode_scan",
+    "encode_wide",
     "erased_indices",
     "f2_apply_scatter",
     "f2_apply_scatter_reference",
@@ -89,9 +117,18 @@ __all__ = [
     "host_arrays",
     "hybrid_decode",
     "hybrid_decode_escalated",
+    "make_packed_encoder",
     "matrix_rows",
     "peel_decode",
+    "peel_decode_jacobi",
+    "peel_decode_mask",
     "peel_decode_reference",
+    "peel_decode_wide",
+    "peel_decode_with_history",
+    "peel_step_gather",
+    "peel_step_matmul",
+    "peel_step_seq_blocks",
+    "peel_step_worklist",
     "residual_order",
     "syndrome_from_topo",
     "syndrome_from_topo_reference",

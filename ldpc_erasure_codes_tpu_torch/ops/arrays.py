@@ -299,3 +299,12 @@ def code_arrays_from_numpy(host: dict, device: torch.device | str) -> CodeArrays
 
 def code_arrays(code: LDPCCode, device: torch.device | str) -> CodeArrays:
     return code_arrays_from_numpy(host_arrays(code), device)
+
+
+def device_arrays(code: LDPCCode, device: torch.device | str | None = None) -> CodeArrays:
+    """``ops/arrays.py::device_arrays``: :func:`code_arrays` on the CUDA
+    card, or on ``device`` where the caller names one (raises where there
+    is no card and none is named)."""
+    from ldpc_erasure_codes_tpu_torch.utils.device import cuda_device
+
+    return code_arrays(code, cuda_device() if device is None else device)

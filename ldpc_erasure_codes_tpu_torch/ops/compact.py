@@ -45,6 +45,20 @@ def compact_ge_rank(
     return failed | overflow
 
 
+def ge_packed(ge_impl: str, gf_order: int, values: torch.Tensor) -> bool:
+    """Whether ``ge_impl`` picks the packed solver for these frames, as JAX
+    picks it (compact.py:77-86, hybrid.py:131-137): "packed", or "auto" on
+    wide binary words; "bytes" and "auto" elsewhere pick the byte solver.
+    Raises for an unknown ``ge_impl`` and for "packed" on GF(256) or scalar
+    frames, where JAX would run the binary solver on bytes."""
+    if ge_impl not in ("auto", "packed", "bytes"):
+        raise ValueError(f"unknown ge_impl {ge_impl!r}: expected auto | packed | bytes")
+    wide_binary = gf_order == 2 and values.dim() == 3
+    if ge_impl == "packed" and not wide_binary:
+        raise ValueError("ge_impl='packed' takes wide binary frames only")
+    return ge_impl == "packed" or (ge_impl == "auto" and wide_binary)
+
+
 def compact_ge_solve(
     arrays: CodeArrays,
     values: torch.Tensor,
@@ -53,24 +67,28 @@ def compact_ge_solve(
     emax: int,
     f_max: int,
     gf_order: int = 2,
+    ge_impl: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The GE on the residual sub-batch, scattered back.
 
-    Binary frames (int32 words) take :func:`.ge.ge_solve_packed`, with the
-    dense ``f2_matvec_wide`` syndrome and the ``f2_apply_scatter``
-    placement, as the JAX function calls the solver without a topology;
-    GF(256) frames (uint8 bytes) and scalar (B, n) symbols take
-    :func:`.ge.ge_solve`, as compact.py:77-93 routes them. Returns new (values, erased, failed). The
-    filler frames of the bucket have no erasures, so the solver returns
-    them unchanged and the whole sub-batch scatters back (compact.py:94-101).
+    ``ge_impl`` picks the solver (:func:`ge_packed`): "auto" sends binary
+    frames (int32 words) to :func:`.ge.ge_solve_packed`, with the dense
+    ``f2_matvec_wide`` syndrome and the ``f2_apply_scatter`` placement, as
+    the JAX function calls the solver without a topology, and GF(256)
+    frames (uint8 bytes) and scalar (B, n) symbols to :func:`.ge.ge_solve`,
+    as compact.py:77-93 routes them; "bytes" sends every frame to
+    ``ge_solve``. Returns new (values, erased, failed). The filler frames
+    of the bucket have no erasures, so the solver returns them unchanged
+    and the whole sub-batch scatters back (compact.py:94-101).
     """
     b = erased.shape[0]
+    packed = ge_packed(ge_impl, gf_order, values)
     sel, is_resid, overflow = residual_order(erased, f_max)
-    if gf_order == 256 or values.dim() == 2:
+    if packed:
+        v_sub, e_sub, failed_sub = ge_solve_packed(arrays, values[sel], erased[sel], emax=emax)
+    else:
         v_sub, e_sub, failed_sub = ge_solve(
             arrays, values[sel], erased[sel], emax=emax, gf_order=gf_order)
-    else:
-        v_sub, e_sub, failed_sub = ge_solve_packed(arrays, values[sel], erased[sel], emax=emax)
     values = values.index_copy(0, sel, v_sub)
     erased = erased.index_copy(0, sel, torch.where(is_resid[:, None], e_sub, erased[sel]))
     failed = torch.zeros((b,), dtype=torch.bool, device=erased.device)

@@ -28,7 +28,7 @@ from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.gf.tables import build_tables
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops._build import SMEM_LIMIT, round16 as _r16
-from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
+from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, device_arrays
 
 
 def _check(arrays: CodeArrays, source: torch.Tensor, gf_order: int) -> torch.Tensor:
@@ -364,3 +364,47 @@ def encode_nb(arrays: CodeArrays, source: torch.Tensor) -> torch.Tensor:
     rides through the triangular encoder as a zero-padded four-byte symbol
     (the GF(256) word mode, whose other three bytes stay zero)."""
     return _encode_scalar(arrays, source, 256)
+
+
+def encode_wide(arrays: CodeArrays, source_bits: torch.Tensor) -> torch.Tensor:
+    """Bit-plane binary encode: (..., S, k) uint8 bits -> (..., S, n), the
+    symbol-width axis S riding as batch (``ops/encode.py::encode_wide``
+    :46-54): :func:`encode`."""
+    return encode(arrays, source_bits)
+
+
+def make_packed_encoder(code, device: torch.device | str | None = None):
+    """The packed binary encoder of one code (``ops/encode.py::
+    make_packed_encoder`` :140-188): returns ``fn(source (B, k, W) int32)
+    -> (B, n, W)``, :func:`encode_packed` on the code's tables on
+    ``device`` (the CUDA card unless the caller names another). On the
+    card its slab route already works the parity rows level by level
+    (:func:`encode_levels`), the schedule JAX bakes into its closure.
+    Binary codes only, as JAX's closure sums without coefficients."""
+    if code.gf_order != 2:
+        raise ValueError(f"make_packed_encoder takes binary codes, got GF({code.gf_order})")
+    arrays = device_arrays(code, device)
+
+    def encode_fn(source: torch.Tensor) -> torch.Tensor:
+        return encode_packed(arrays, source)
+
+    return encode_fn
+
+
+def encode_scan(arrays: CodeArrays, source: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The reference's sequential binary encoder (``ops/encode.py::
+    encode_scan`` :191-219), a cross-check: (..., k) uint8 bits -> (..., n)
+    uint8. Parity row i's last Vlist neighbour is its diagonal symbol
+    k + i (rows are ascending and in triangle form); it takes the sum mod 2
+    of the row's other neighbours in the codeword built so far, one row at
+    a time."""
+    idx = arrays.vlist_idx.long()
+    last = arrays.vlist_len.long() - 1
+    # Drop the diagonal and the pad: column n reads zero.
+    nbrs = torch.where(torch.arange(arrays.dmax, device=idx.device) < last[:, None], idx, n)
+    diag = idx.gather(1, last[:, None])[:, 0].tolist()
+    cw = source.new_zeros((*source.shape[:-1], n + 1), dtype=torch.int32)
+    cw[..., :k] = source
+    for i, col in enumerate(diag):
+        cw[..., col] = cw[..., nbrs[i]].sum(dim=-1) & 1
+    return cw[..., :n].to(torch.uint8)

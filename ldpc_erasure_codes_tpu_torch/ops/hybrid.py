@@ -16,25 +16,27 @@ from __future__ import annotations
 import torch
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
-from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, residual_order
+from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, ge_packed, residual_order
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed, ge_solve_wide_nb
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
-from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi
-
-IMPLS = ("gather", "matmul", "vmem")
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi, peel_decode_wide
 
 
 def _peel(arrays, values, erased, *, gf_order, peel_iters, impl, tiled):
-    """The peel stage (hybrid.py:84-123): ``impl="vmem"`` on wide frames is
-    the sequential peel kernel (``peel_decode``); everything else is the
-    Jacobi decoder, as JAX's gather/matmul paths and its scalar fallback."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}: expected one of {IMPLS}")
+    """The peel stage, in JAX's three branches (hybrid.py:84-123):
+    ``impl="vmem"`` on wide frames is the sequential peel kernel
+    (``peel_decode``), ``"gather"`` on wide frames the wide Jacobi peel
+    (:func:`.peel_jacobi.peel_decode_wide`), and everything else
+    :func:`.peel_jacobi.peel_decode_jacobi` with ``impl`` ("vmem" read as
+    "gather"), which refuses what JAX's ``peel_decode`` refuses."""
     if tiled and impl != "vmem":
         raise ValueError("tiled=True requires impl='vmem'")
     if values.dim() == 3 and impl == "vmem":
         return peel_decode(arrays, values, erased, max_iters=peel_iters, gf_order=gf_order)
-    return peel_decode_jacobi(arrays, values, erased, max_iters=peel_iters, gf_order=gf_order)
+    if values.dim() == 3 and impl == "gather":
+        return peel_decode_wide(arrays, values, erased, max_iters=peel_iters, gf_order=gf_order)
+    return peel_decode_jacobi(arrays, values, erased, max_iters=peel_iters, gf_order=gf_order,
+                              impl="gather" if impl == "vmem" else impl)
 
 
 def _ge_rows(arrays, values, erased, *, emax, ge_subbatch, static_topo):
@@ -68,6 +70,7 @@ def hybrid_decode(
     impl: str = "gather",
     ge_subbatch: int = 0,
     tiled: bool = False,
+    ge_impl: str = "auto",
     static_topo: bool = False,
     return_overflow: bool = False,
 ) -> tuple[torch.Tensor, ...]:
@@ -76,24 +79,30 @@ def hybrid_decode(
     ``values`` (B, n, W) int32 words (binary), uint8 bytes (GF(256)) or
     scalar (B, n) uint8 symbols may be the un-erased channel output: the
     peel zeroes the erased slots. ``impl`` picks the peel as JAX does
-    (hybrid.py:84-123): ``"vmem"`` takes the sequential peel kernel for wide
-    frames (and ``tiled=True`` requires it); ``"gather"`` (JAX's default)
-    and ``"matmul"``, and every scalar frame, take the Jacobi decoder
-    :func:`.peel_jacobi.peel_decode_jacobi`, whose iteration counts are the
-    Jacobi schedule's. ``emax`` buckets the residual GE width; frames whose
-    residual exceeds it fail. ``ge_subbatch`` > 0 compacts the frames that
-    still hold erasures into a bucket of that many frames (overflow ->
-    failed). The knobs are the JAX function's; the port keeps the flat
-    layout, so:
+    (hybrid.py:84-123, :func:`_peel`): ``"vmem"`` takes the sequential peel
+    kernel for wide frames (and ``tiled=True`` requires it); ``"gather"``
+    (JAX's default) the wide Jacobi peel; ``"matmul"`` and ``"worklist"``,
+    and every scalar frame, :func:`.peel_jacobi.peel_decode_jacobi` with
+    that ``impl``. Iteration counts are those of the chosen schedule; an
+    ``impl`` JAX refuses raises ValueError. ``emax`` buckets the residual
+    GE width; frames whose residual exceeds it fail. ``ge_subbatch`` > 0
+    compacts the frames that still hold erasures into a bucket of that many
+    frames (overflow -> failed). ``ge_impl`` picks the solver as JAX's
+    ``ge_flat`` (hybrid.py:127-141, :func:`.compact.ge_packed`): "auto" the
+    packed solver ``ge_solve_packed`` on wide binary words and the byte
+    ``ge_solve`` otherwise, "packed" the packed one (wide binary words
+    only: JAX would run the binary solver on bytes, the port raises),
+    "bytes" the byte one. The knobs are the JAX function's; the port keeps
+    the flat layout, so:
 
-    * ``tiled=True`` with ``ge_subbatch`` > 0 on a binary code takes the
-      flat counterpart of JAX's tile-direct branch (the production one):
-      the solved rows (``ge_solve_packed(return_rows=True)``) are written
-      straight into the decoded frames. Otherwise, and for GF(256) always
-      (hybrid.py:158-162 gates that branch on ``gf_order == 2``), the
-      residual goes through :func:`.compact.compact_ge_solve`
-      (``ge_subbatch`` > 0) or the solver on the whole batch
-      (``ge_solve_packed``; ``ge_solve`` for GF(256)), as JAX's ``ge_flat``.
+    * ``tiled=True`` with ``ge_subbatch`` > 0 on a binary code with
+      ``ge_impl`` "auto" or "packed" takes the flat counterpart of JAX's
+      tile-direct branch (the production one, hybrid.py:158-162): the
+      solved rows (``ge_solve_packed(return_rows=True)``) are written
+      straight into the decoded frames. Otherwise, and for GF(256) always,
+      the residual goes through :func:`.compact.compact_ge_solve`
+      (``ge_subbatch`` > 0) or the chosen solver on the whole batch, as
+      JAX's ``ge_flat``.
     * ``static_topo=True`` takes the row branch's syndrome through the code's
       topology (``csrc/synd.cu``) instead of the dense product.
 
@@ -105,6 +114,7 @@ def hybrid_decode(
     (residual wider than ``emax``, or spilled past the ``ge_subbatch``
     bucket), the frames :func:`hybrid_decode_escalated` re-dispatches.
     """
+    packed = ge_packed(ge_impl, gf_order, values)
     values, erased, iters = _peel(arrays, values, erased, gf_order=gf_order,
                                   peel_iters=peel_iters, impl=impl, tiled=tiled)
     b, n = erased.shape
@@ -115,18 +125,19 @@ def hybrid_decode(
         overflow = erased.sum(dim=1) > min(emax, n)
         if ge_subbatch > 0:
             overflow |= residual_order(erased, ge_subbatch)[2]
-    if tiled and ge_subbatch > 0 and gf_order == 2:
+    if tiled and ge_subbatch > 0 and packed:
         values, erased, failed = _ge_rows(
             arrays, values, erased, emax=emax, ge_subbatch=ge_subbatch, static_topo=static_topo
         )
     elif ge_subbatch > 0:
         values, erased, failed = compact_ge_solve(
-            arrays, values, erased, emax=emax, f_max=ge_subbatch, gf_order=gf_order
+            arrays, values, erased, emax=emax, f_max=ge_subbatch, gf_order=gf_order,
+            ge_impl=ge_impl,
         )
-    elif gf_order == 256 or values.dim() == 2:
-        values, erased, failed = ge_solve(arrays, values, erased, emax=emax, gf_order=gf_order)
-    else:
+    elif packed:
         values, erased, failed = ge_solve_packed(arrays, values, erased, emax=emax)
+    else:
+        values, erased, failed = ge_solve(arrays, values, erased, emax=emax, gf_order=gf_order)
     if return_overflow:
         return values, erased, iters, failed, overflow
     return values, erased, iters, failed
@@ -142,6 +153,8 @@ def hybrid_decode_escalated(
     emax: int = 128,
     impl: str = "gather",
     ge_subbatch: int = 0,
+    ge_impl: str = "auto",
+    static_topo: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """:func:`hybrid_decode` (flat branch) with bucket-overflow escalation.
 
@@ -154,13 +167,14 @@ def hybrid_decode_escalated(
     with the first candidate; erased slots re-zeroed before the dispatch.
     The second dispatch is ``ge_solve_packed``, ``ge_solve_wide_nb`` for
     GF(256) and ``ge_solve`` for scalar symbols (hybrid.py:294-301).
+    ``ge_impl`` and ``static_topo`` pass to the first dispatch.
 
     Returns (values, erased, iters, failed, n_escalated), n_escalated the
     frames that entered the second dispatch. Syncs with the host.
     """
     values, erased, iters, failed = hybrid_decode(
         arrays, values, erased, gf_order=gf_order, peel_iters=peel_iters, emax=emax,
-        impl=impl, ge_subbatch=ge_subbatch,
+        impl=impl, ge_subbatch=ge_subbatch, ge_impl=ge_impl, static_topo=static_topo,
     )
     if not bool(failed.any()):
         return values, erased, iters, failed, 0

@@ -2,24 +2,31 @@
 sweep-start state, and all degree-1 checks solve at once.
 
 Counterpart of the JAX package's non-Pallas peel decoders, which XLA runs:
-``ops/peel.py::peel_decode`` with ``impl="gather"`` / ``"matmul"``
-(:145-239, one ``peel_step_gather`` sweep :65-113),
+``ops/peel.py::peel_decode`` (:139-239) with its ``impl``, ``worklist_size``
+and ``seq_blocks`` (:func:`peel_decode_jacobi`), its single sweeps
+``peel_step_gather`` (:65-113), ``peel_step_matmul`` (:116-136),
+``peel_step_seq_blocks`` (:242-306) and ``peel_step_worklist`` (:309-376),
+``peel_decode_mask`` (:382-433, the pattern-only decoder of the FER
+simulation) and ``peel_decode_with_history`` (:436-462), and
 ``ops/peel_wide.py::peel_decode_wide`` (:92-176, the decoder that
-``hybrid.py:109-115`` runs on wide frames) and ``peel_decode_mask``
-(:382-433, the pattern-only decoder of the FER simulation). They are plain
-tensor code here too, on the card as on the CPU.
+``hybrid.py:109-115`` runs on wide frames, with its ``split``). They are
+plain tensor code here too, on the card as on the CPU.
 
-The sweep (:func:`jacobi_sweep`) is shared by :func:`peel_decode_jacobi`,
-with the JAX functions' batch-wide stop, and :func:`peel_decode_jacobi_reference`,
-the plain version of the "jacobi" route of the CUDA peel (``csrc/peel.cu``,
-its schedule kernel in the Jacobi order, then the slab value kernel), with
-the kernel's per-frame stop. A degree-1 check's value is the sum of its
-other neighbours (GF(256): their coefficient-weighted sum times the
-inverse of the erased slot's coefficient). Where two degree-1 checks solve
-the same symbol in one sweep, the higher-numbered check's value is kept
-(the kernel's schedule makes it the symbol's one owner); on a codeword all
-such values are equal, so the outputs equal the JAX decoders' (which OR the
-candidates together, or scatter one of them).
+The Jacobi sweep (:func:`jacobi_sweep`) is shared by
+:func:`peel_decode_jacobi`, with the JAX functions' batch-wide stop, and
+:func:`peel_decode_jacobi_reference`, the plain version of the "jacobi"
+route of the CUDA peel (``csrc/peel.cu``, its schedule kernel in the Jacobi
+order, then the slab value kernel), with the kernel's per-frame stop. A
+degree-1 check's value is the sum of its other neighbours (GF(256): their
+coefficient-weighted sum times the inverse of the erased slot's
+coefficient), summed one neighbour slot at a time (:func:`check_values`).
+Where two degree-1 checks solve the same symbol in one sweep, the
+higher-numbered check's value is kept (the kernel's schedule makes it the
+symbol's one owner); the block and worklist sweeps keep the later check of
+their set the same way. On a codeword all such values are equal, so the
+outputs equal the JAX decoders' (which OR the candidates together, or
+scatter one of them). :func:`peel_step_gather` ORs them as JAX does, and
+equals JAX's step on any input.
 
 Stop and count rules of the JAX loop (peel.py:189-238; peel_wide.py and
 peel_decode_mask keep the same): sweeps run while some frame is not done
@@ -35,6 +42,7 @@ counts, the first-k mask and every resolved value.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import torch
@@ -88,6 +96,46 @@ def _check(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, max_it
     return k_stop
 
 
+def check_values(
+    vp: torch.Tensor, ep: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+    inv: torch.Tensor, gf_order: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The value each check of a set would give its erased neighbour, and
+    the erased flags of its neighbours: (acc (B, R, W), ev (B, R, dmax)).
+
+    ``vp`` (B, n + 1, W) and ``ep`` (B, n + 1) are the words and the mask
+    with a zero column n; ``idx`` / ``val`` / ``inv`` the checks' Vlist
+    rows, their coefficients and inverses, (R, dmax) for one set of checks
+    or (B, R, dmax) for one per frame. ``acc`` is the sum of all neighbours
+    (erased slots hold zero; GF(256): the coefficient-weighted sum times
+    the inverse of the erased slot's coefficient, meaningful where exactly
+    one neighbour is erased). The sum runs over the ``dmax`` slots one at
+    a time, so no (B, R, dmax, W) gather is made."""
+    b, _, w = vp.shape
+    if idx.dim() == 2:
+        ev = ep[:, idx]
+    else:
+        ev = ep.gather(1, idx.reshape(b, -1)).reshape(idx.shape)
+    acc = vp.new_zeros(b, idx.shape[-2], w)
+    for j in range(idx.shape[-1]):
+        if idx.dim() == 2:
+            term = vp[:, idx[:, j]]
+        else:
+            term = vp.gather(1, idx[:, :, j, None].expand(-1, -1, w))
+        if gf_order == 256:
+            term = gf_mul_packed(term, val[..., j, None])
+        acc ^= term
+    if gf_order == 256:
+        acc = gf_mul_packed(acc, (ev * inv).sum(dim=-1)[..., None])
+    return acc, ev
+
+
+def _padded(words: torch.Tensor, erased: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    b, _, w = words.shape
+    return (torch.cat([words, words.new_zeros(b, 1, w)], dim=1),
+            torch.cat([erased, erased.new_zeros(b, 1)], dim=1))
+
+
 def jacobi_sweep(
     arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, gf_order: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -96,19 +144,9 @@ def jacobi_sweep(
     b, n, w = words.shape
     m = arrays.m
     idx = arrays.vlist_idx.long()  # (m, dmax), pad = n
-    vp = torch.cat([words, words.new_zeros(b, 1, w)], dim=1)  # column n reads zero
-    ep = torch.cat([erased, erased.new_zeros(b, 1)], dim=1)
-    ev = ep[:, idx]  # (B, m, dmax)
+    vp, ep = _padded(words, erased)  # column n reads zero
+    acc, ev = check_values(vp, ep, idx, arrays.vlist_val, arrays.vlist_inv_val[None], gf_order)
     deg1 = ev.sum(dim=2) == 1
-    acc = words.new_zeros(b, m, w)
-    for j in range(arrays.dmax):
-        term = vp[:, idx[:, j]]  # (B, m, W)
-        if gf_order == 256:
-            term = gf_mul_packed(term, arrays.vlist_val[:, j, None])
-        acc ^= term
-    if gf_order == 256:
-        inv = (ev * arrays.vlist_inv_val[None]).sum(dim=2)  # the erased slot's (degree 1)
-        acc = gf_mul_packed(acc, inv[..., None])
     # The erased neighbour of each degree-1 check; its highest such check
     # owns the symbol (the others write the same value on a codeword).
     target = torch.where(deg1, (ev * idx[None]).sum(dim=2), n)
@@ -118,6 +156,119 @@ def jacobi_sweep(
     solved = owner >= 0
     got = acc.gather(1, owner.clamp(min=0)[..., None].expand(b, n, w))
     return torch.where(solved[..., None], got, words), erased & ~solved
+
+
+def gather_sweep(
+    arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, gf_order: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``peel_step_gather`` (peel.py:65-113) on (B, n, W) int32 words:
+    each erased symbol with a degree-1 check takes the OR of the values of
+    all its degree-1 checks, read through the Clist. Erased slots are read
+    as they are: JAX's contract is that they hold zero."""
+    b, n, w = words.shape
+    vp, ep = _padded(words, erased)
+    acc, ev = check_values(vp, ep, arrays.vlist_idx.long(), arrays.vlist_val,
+                           arrays.vlist_inv_val[None], gf_order)
+    deg1 = ev.sum(dim=2) == 1
+    valp = torch.cat([torch.where(deg1[..., None], acc, 0), acc.new_zeros(b, 1, w)], dim=1)
+    deg1p = torch.cat([deg1, deg1.new_zeros(b, 1)], dim=1)  # row m: the Clist's pad
+    cidx = arrays.clist_idx.long()  # (n, cmax), pad = m
+    newval = torch.zeros_like(words)
+    for j in range(cidx.shape[1]):
+        newval |= valp[:, cidx[:, j]]
+    solved = deg1p[:, cidx].any(dim=2) & erased
+    return torch.where(solved[..., None], newval, words), erased & ~solved
+
+
+def matmul_sweep(
+    arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``peel_step_matmul`` (peel.py:116-136) on one-word binary
+    symbols (B, n, 1): erased counts, parities and votes as three products
+    with H in float32, where counts up to the degrees are exact. A solved
+    symbol becomes the 0/1 vote of its degree-1 checks."""
+    h = arrays.h.to(torch.float32)  # (m, n)
+    cnt = erased.to(torch.float32) @ h.t()  # (B, m)
+    par = ((words[..., 0] & 1).to(torch.float32) @ h.t()) % 2
+    deg1 = cnt == 1
+    nsolv = deg1.to(torch.float32) @ h  # (B, n)
+    votes = (deg1 & (par == 1)).to(torch.float32) @ h
+    solved = (nsolv > 0) & erased
+    bit = (votes > 0).to(words.dtype)[..., None]
+    return torch.where(solved[..., None], bit, words), erased & ~solved
+
+
+def _write_solved(vp: torch.Tensor, ep: torch.Tensor, acc: torch.Tensor, ev: torch.Tensor,
+                  idx: torch.Tensor, deg1: torch.Tensor) -> None:
+    """Write each degree-1 check's value into its one erased neighbour, in
+    place in the padded ``vp`` / ``ep``. Where two checks of the set solve
+    one symbol, the later one in the set is written (on a codeword they
+    agree; JAX's scatter leaves the choice to XLA)."""
+    b, n1, w = vp.shape
+    rows = acc.shape[1]
+    target = torch.where(deg1, (ev * idx).sum(dim=-1), n1 - 1)
+    if rows > 1:  # one check cannot collide with itself
+        r = torch.arange(rows, device=vp.device).expand(b, rows)
+        owner = torch.full((b, n1), -1, dtype=torch.long, device=vp.device)
+        owner = owner.scatter_reduce(1, target, r, reduce="amax")
+        deg1 = deg1 & (owner.gather(1, target) == r)
+        target = torch.where(deg1, target, n1 - 1)
+    # Every other check writes zero into the pad column n.
+    vp.scatter_(1, target[..., None].expand(b, rows, w), torch.where(deg1[..., None], acc, 0))
+    ep.scatter_(1, target, False)
+
+
+def block_sweep(
+    arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, gf_order: int,
+    bounds: list[int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sweep as sequential check blocks ``bounds[i]:bounds[i + 1]``:
+    each block is Jacobi on the state at its start and writes each
+    degree-1 check's value to its erased neighbour (peel.py:242-306,
+    peel_wide.py:36-89)."""
+    n = words.shape[1]
+    vp, ep = _padded(words, erased)
+    idx = arrays.vlist_idx.long()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if hi <= lo:
+            continue
+        acc, ev = check_values(vp, ep, idx[lo:hi], arrays.vlist_val[lo:hi],
+                               arrays.vlist_inv_val[None, lo:hi], gf_order)
+        _write_solved(vp, ep, acc, ev, idx[lo:hi], ev.sum(dim=2) == 1)
+    return vp[:, :n], ep[:, :n]
+
+
+def worklist_sweep(
+    arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor, gf_order: int,
+    worklist: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``peel_step_worklist`` (peel.py:309-376): per frame, the first
+    ``worklist`` degree-1 checks in ascending check order (a stable sort of
+    ``~deg1``, cut) solve their erased neighbours; the rest wait for the
+    next sweep."""
+    n = words.shape[1]
+    vp, ep = _padded(words, erased)
+    idx = arrays.vlist_idx.long()
+    deg1 = ep[:, idx].sum(dim=2) == 1  # (B, m)
+    order = torch.argsort((~deg1).to(torch.uint8), dim=1, stable=True)[:, :worklist]
+    rows = idx[order]  # (B, A, dmax)
+    acc, ev = check_values(vp, ep, rows, arrays.vlist_val[order],
+                           arrays.vlist_inv_val[order], gf_order)
+    _write_solved(vp, ep, acc, ev, rows, deg1.gather(1, order))
+    return vp[:, :n], ep[:, :n]
+
+
+def seq_block_bounds(m: int, seq_blocks: int) -> list[int]:
+    """``peel_step_seq_blocks``' blocks: ``ceil(m / seq_blocks)`` checks
+    each, the last padded (its pad rows solve nothing)."""
+    mb = -(-m // seq_blocks)
+    return [min(i * mb, m) for i in range(seq_blocks + 1)]
+
+
+def split_bounds(m: int, split: int) -> list[int]:
+    """``peel_decode_wide``'s blocks: checks ``round(i * m / split)``, with
+    Python's round (half to even)."""
+    return [round(i * m / split) for i in range(split + 1)]
 
 
 def batch_loop(
@@ -144,6 +295,15 @@ def batch_loop(
     return words, erased, iters
 
 
+def _check_impl(impl: str, gf_order: int, values: torch.Tensor) -> None:
+    """JAX's two refusals, in its order (peel.py:179-187): an unknown
+    ``impl``, then ``"matmul"`` on anything but binary scalar symbols."""
+    if impl not in ("gather", "matmul", "worklist"):
+        raise ValueError(f"unknown impl {impl!r}: expected gather | matmul | worklist")
+    if impl == "matmul" and (gf_order != 2 or values.dim() == 3):
+        raise ValueError("matmul impl supports binary scalar symbols only")
+
+
 def peel_decode_jacobi(
     arrays: CodeArrays,
     values: torch.Tensor,
@@ -152,23 +312,155 @@ def peel_decode_jacobi(
     gf_order: int = 2,
     max_iters: int = 50,
     early_stop_k: int | None = None,
+    impl: str = "gather",
+    worklist_size: int = 128,
+    seq_blocks: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The Jacobi peeling decode of ``peel_decode(impl="gather")`` and
-    ``peel_decode_wide``: scalar (B, n) uint8 symbols or wide (B, n, W)
-    frames (int32 words for ``gf_order=2``, uint8 bytes for 256).
+    """JAX's XLA ``peel_decode`` (peel.py:139-239): scalar (B, n) uint8
+    symbols or wide (B, n, W) frames (int32 words for ``gf_order=2``, uint8
+    bytes for 256).
+
+    The sweep, as JAX picks it (peel.py:204-215): ``seq_blocks`` > 1 runs
+    that many sequential check blocks (:func:`peel_step_seq_blocks`;
+    ``seq_blocks == m`` is the MATLAB schedule, whatever ``impl`` says);
+    otherwise ``impl="gather"`` runs the Jacobi sweep (:func:`jacobi_sweep`,
+    which keeps the highest check's value where JAX's ORs them: the two
+    agree on codewords), ``"matmul"`` the three products with H (binary
+    scalar symbols only) and ``"worklist"`` at most ``worklist_size``
+    degree-1 checks per frame and sweep. An unknown ``impl``, and
+    ``"matmul"`` on other symbols, raise ValueError before any sweep.
 
     ``values`` may be the un-erased channel output: erased slots are zeroed
     first. Returns (values, erased, iters) in the input's form; erased slots
     left unsolved hold zero.
     """
+    _check_impl(impl, gf_order, values)
     words, back = as_frames(values, gf_order)
     k_stop = _check(arrays, words, erased, max_iters, early_stop_k)
     words = words.masked_fill(erased[..., None], 0)
-    out, er, iters = batch_loop(
-        lambda v, e: jacobi_sweep(arrays, v, e, gf_order), words, erased,
-        max_iters=max_iters, k_stop=k_stop,
-    )
-    return back(out), er, iters
+    if seq_blocks > 1:
+        sweep = partial(block_sweep, arrays, gf_order=gf_order,
+                        bounds=seq_block_bounds(arrays.m, seq_blocks))
+    elif impl == "matmul":
+        sweep = partial(matmul_sweep, arrays)
+    elif impl == "worklist":
+        sweep = partial(worklist_sweep, arrays, gf_order=gf_order, worklist=worklist_size)
+    else:
+        sweep = partial(jacobi_sweep, arrays, gf_order=gf_order)
+    out, er, iters = batch_loop(sweep, words, erased, max_iters=max_iters, k_stop=k_stop)
+    return back(out.contiguous()), er.contiguous(), iters
+
+
+def peel_decode_wide(
+    arrays: CodeArrays,
+    values: torch.Tensor,
+    erased: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+    split: int = 1,
+    gf_order: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """JAX's ``peel_decode_wide`` (peel_wide.py:92-176) on wide (B, n, W)
+    frames: ``split`` > 1 runs each sweep as that many sequential check
+    blocks, cut at ``round(i * m / split)`` (not ``seq_blocks``' ceil
+    partition). ``split=1`` is :func:`peel_decode_jacobi`, iteration counts
+    included. Returns (values, erased, iters)."""
+    if values.dim() != 3:
+        raise ValueError(f"values must be wide (B, n, W) frames, got {tuple(values.shape)}")
+    if split < 1:
+        raise ValueError(f"split={split} must be >= 1")
+    if split == 1:
+        return peel_decode_jacobi(arrays, values, erased, gf_order=gf_order,
+                                  max_iters=max_iters, early_stop_k=early_stop_k)
+    words, back = as_frames(values, gf_order)
+    k_stop = _check(arrays, words, erased, max_iters, early_stop_k)
+    words = words.masked_fill(erased[..., None], 0)
+    sweep = partial(block_sweep, arrays, gf_order=gf_order, bounds=split_bounds(arrays.m, split))
+    out, er, iters = batch_loop(sweep, words, erased, max_iters=max_iters, k_stop=k_stop)
+    return back(out.contiguous()), er.contiguous(), iters
+
+
+def peel_decode_with_history(
+    arrays: CodeArrays,
+    values: torch.Tensor,
+    erased: torch.Tensor,
+    *,
+    gf_order: int = 2,
+    max_iters: int = 50,
+    impl: str = "gather",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exactly ``max_iters`` sweeps, no stop (peel.py:436-462): returns
+    (values, erased, hist), ``hist`` (B, max_iters) int32 each frame's
+    erased count after each sweep, the reference's ``erasure_hist``
+    (My_LDPC_Erasure_Decoder.m:16,45). ``impl="matmul"`` runs
+    :func:`peel_step_matmul` (binary scalar symbols only, else ValueError);
+    any other ``impl`` runs :func:`peel_step_gather`, as JAX does. Erased
+    slots are zeroed first."""
+    if impl == "matmul":
+        _check_impl(impl, gf_order, values)
+    words, back = as_frames(values, gf_order)
+    _check(arrays, words, erased, max_iters, None)
+    words = words.masked_fill(erased[..., None], 0)
+    hist = []
+    for _ in range(max_iters):
+        if impl == "matmul":
+            words, erased = matmul_sweep(arrays, words, erased)
+        else:
+            words, erased = gather_sweep(arrays, words, erased, gf_order)
+        hist.append(erased.sum(dim=1, dtype=torch.int32))
+    hist = (torch.stack(hist, dim=1) if hist else
+            torch.zeros((erased.shape[0], 0), dtype=torch.int32, device=erased.device))
+    return back(words.contiguous()), erased.contiguous(), hist
+
+
+def _step(values: torch.Tensor, erased: torch.Tensor, gf_order: int, sweep: Sweep):
+    words, back = as_frames(values, gf_order)
+    if erased.dtype != torch.bool or erased.shape != words.shape[:2]:
+        raise ValueError(f"erased must be {tuple(words.shape[:2])} bool, got "
+                         f"{tuple(erased.shape)} {erased.dtype}")
+    out, er = sweep(words, erased)
+    return back(out.contiguous()), er.contiguous()
+
+
+def peel_step_gather(
+    arrays: CodeArrays, values: torch.Tensor, erased: torch.Tensor, gf_order: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Jacobi sweep as JAX's ``peel_step_gather`` (peel.py:65-113), on
+    any input: an erased symbol takes the OR of its degree-1 checks'
+    values. Erased slots are read as given (JAX's contract: zero)."""
+    return _step(values, erased, gf_order, partial(gather_sweep, arrays, gf_order=gf_order))
+
+
+def peel_step_matmul(
+    arrays: CodeArrays, values: torch.Tensor, erased: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sweep as JAX's ``peel_step_matmul`` (peel.py:116-136): binary
+    scalar (B, n) uint8 symbols, three products with H."""
+    _check_impl("matmul", 2, values)
+    return _step(values, erased, 2, partial(matmul_sweep, arrays))
+
+
+def peel_step_seq_blocks(
+    arrays: CodeArrays, values: torch.Tensor, erased: torch.Tensor, gf_order: int,
+    seq_blocks: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sweep as ``seq_blocks`` sequential check blocks of
+    ``ceil(m / seq_blocks)`` checks (peel.py:242-306): Jacobi within a
+    block, Gauss-Seidel between blocks."""
+    bounds = seq_block_bounds(arrays.m, seq_blocks)
+    return _step(values, erased, gf_order,
+                 partial(block_sweep, arrays, gf_order=gf_order, bounds=bounds))
+
+
+def peel_step_worklist(
+    arrays: CodeArrays, values: torch.Tensor, erased: torch.Tensor, gf_order: int,
+    worklist: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sweep over at most ``worklist`` degree-1 checks per frame, the
+    first in check order (peel.py:309-376)."""
+    return _step(values, erased, gf_order,
+                 partial(worklist_sweep, arrays, gf_order=gf_order, worklist=worklist))
 
 
 def peel_decode_jacobi_reference(

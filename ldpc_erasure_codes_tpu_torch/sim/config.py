@@ -45,18 +45,23 @@ class DecoderConfig:
 
     kind: ``peel`` (MPA only), ``hybrid`` (MPA then Gauss-Jordan on the
     residual), or ``ml`` (Gauss-Jordan from scratch, no peeling).
-    impl: the peel, as the JAX package's: ``"gather"`` (default) and
-    ``"matmul"`` run the Jacobi decoder; ``"vmem"`` runs the sequential
+    impl: the peel, as the JAX package's: ``"vmem"`` runs the sequential
     peel kernel on wide symbols, in the "unrolled" schedule when
     ``schedule`` is "unrolled" and in "seq" for every other schedule, as
-    the JAX driver does.
+    the JAX driver does; every other value (and "vmem" on scalar symbols,
+    read as "gather") is the ``impl`` of ``peel_decode_jacobi``:
+    ``"gather"`` (default) the Jacobi sweep, ``"matmul"`` its three
+    products with H (binary scalar symbols only), ``"worklist"`` at most
+    128 degree-1 checks per frame and sweep. The hybrid reads it as
+    ``hybrid_decode`` does. An ``impl`` JAX refuses raises when the step
+    decodes.
     """
 
     kind: str = "hybrid"
     max_iters: int = 50  # peel-only cap (My_LDPC_Erasure_Decoder.m:10)
     peel_iters: int = 10  # hybrid peel budget (My_LDPC_HybridML_Erasure_Decoder.m:9)
     emax: int = 128  # residual-GE column bucket
-    impl: str = "gather"  # "gather" | "matmul" | "vmem" peeling step
+    impl: str = "gather"  # "gather" | "matmul" | "worklist" | "vmem" peeling step
     # Peel kernel schedule for impl="vmem": "unrolled" runs that schedule,
     # any other value "seq" (the JAX driver's mapping; both are one function).
     schedule: str = "seq"

@@ -11,8 +11,10 @@ is kept:
 * ``impl="vmem"`` on wide symbols runs the sequential peel kernel
   (``peel_decode``): schedule "unrolled" when ``DecoderConfig.schedule``
   is "unrolled", else "seq", whatever other schedule the config names, as
-  the JAX driver maps them (:101-112, :235-239); every other peel runs the
-  Jacobi decoder ``peel_decode_jacobi`` (:113-125);
+  the JAX driver maps them (:101-112, :235-239); every other peel runs
+  ``peel_decode_jacobi`` with the config's ``impl`` ("vmem" on scalar
+  symbols read as "gather"), so "worklist" runs the worklist sweep and an
+  ``impl`` that JAX's ``peel_decode`` refuses raises (:113-124);
 * the pattern-only hybrid peels to convergence, then rank-checks the
   residual (:158-191);
 * ``steps_per_call`` batches per call of the step, their statistics summed
@@ -128,7 +130,8 @@ def _decode(arrays: CodeArrays, cfg: SimConfig, values: torch.Tensor, erased: to
             schedule = "unrolled" if d.schedule == "unrolled" else "seq"
             v, e, iters = peel_decode(arrays, values, erased, schedule=schedule, **kw)
         else:
-            v, e, iters = peel_decode_jacobi(arrays, values, erased, **kw)
+            impl = "gather" if d.impl == "vmem" else d.impl
+            v, e, iters = peel_decode_jacobi(arrays, values, erased, impl=impl, **kw)
         return v, e, iters, None, None
     if d.kind == "hybrid":
         return hybrid_decode(

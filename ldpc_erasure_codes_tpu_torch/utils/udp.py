@@ -108,6 +108,7 @@ def send_blocks(
     seed: int = 0,
     window: int = 0,
     wait=None,
+    feedback=None,
 ) -> int:
     """Packetize and transmit encoded blocks (B, n, symbol_bytes) uint8.
 
@@ -129,12 +130,17 @@ def send_blocks(
     receiver has drained. ``wait(n, timeout)`` blocks until the receiver
     has drained ``n`` datagrams of this stream (:meth:`UdpReceiver.wait_for`
     on a fresh receiver), woken by the drain rather than polling a count
-    with a sleep as JAX's ``feedback`` does. Without flow control the
+    with a sleep as JAX's ``feedback`` does. ``feedback()``, the
+    receiver's drained-datagram count, is JAX's form and polls that count
+    every 0.2 ms (udp.py:121-129); pass ``wait`` or ``feedback``, not both.
+    Without flow control the
     sendmmsg burst outruns the RX drain and the kernel drops at the socket
     queue once the stream exceeds the receive buffer (loss injection
     happens *before* transmission, so every transmitted datagram is
     expected to arrive on a loopback).
     """
+    if wait is not None and feedback is not None:
+        raise ValueError("pass wait or feedback, not both")
     blocks = np.ascontiguousarray(blocks, dtype=np.uint8)
     b, n, _sb = blocks.shape
     order = send_order(b * n, loss=loss, shuffle=shuffle, seed=seed)
@@ -158,12 +164,18 @@ def send_blocks(
             cnt = len(pkts)
         return cnt
 
-    if not window or wait is None:
+    if not window or (wait is None and feedback is None):
         return send_slice(order)
+    base = feedback() if feedback is not None else 0
     sent = 0
     for lo in range(0, len(order), window):
         sent += send_slice(order[lo : lo + window])
-        wait(sent - window, 5.0)
+        if wait is not None:
+            wait(sent - window, 5.0)
+            continue
+        deadline = time.monotonic() + 5.0
+        while sent - (feedback() - base) > window and time.monotonic() < deadline:
+            time.sleep(0.0002)
     return sent
 
 

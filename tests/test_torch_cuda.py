@@ -9,13 +9,14 @@ Kernels and plain versions are compared bit for bit (tolerance 0: the
 operations are XORs and flag updates, with no rounding).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, peel, rank, synd
-from ldpc_erasure_codes_tpu_torch.ops import encode as enc
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, pack_bits
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_rank_check_reference, ge_solve_packed
@@ -34,6 +35,9 @@ from torch_port_cases import (  # noqa: F401 (fixture)
     rank_edge_masks,
     to_torch,
 )
+
+# The module: the package exports its function ``encode`` under the same name.
+enc = importlib.import_module("ldpc_erasure_codes_tpu_torch.ops.encode")
 
 pytestmark = pytest.mark.cuda
 
