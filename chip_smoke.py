@@ -6,7 +6,8 @@ card and ``nvcc``; it fails (exit code != 0, no result line) without them.
 
 Phases, each fatal on failure:
 
-1. the card: name and power limit, as ``nvidia-smi`` prints them;
+1. the card: name and power limit, as ``nvidia-smi`` prints them; the
+   port's shipped codes (``codes.io.DATA_DIR``) lie inside its own package;
 2. build the CUDA kernels from ``ldpc_erasure_codes_tpu_torch/csrc``;
 3. the encode and peel kernels against their plain PyTorch versions on
    the card, bit-exact: (2040,1530) at B=64 and (2000,1000) at B=16,
@@ -165,7 +166,8 @@ Phases, each fatal on failure:
    ``run_stream`` reads its sizes from the environment, which must leave
    them at these defaults; the three GF(256) GE kernels held to their
    plain versions on one chunk's operands (B=2048, e=32); single-shot and sustained ms/chunk
-   and Gbps_info, their ratio, the host syncs of one chunk, the host-io
+   and Gbps_info, their ratio, the host syncs of one chunk with the
+   ``file:line`` of the port that makes each (``rs/stream.py::sync_sites``), the host-io
    leg (pinned memory, a side stream, double-buffered, checked too), and a
    ``torch.profiler`` trace of one chunk that must name the three GF(256)
    kernels; counted;
@@ -200,6 +202,9 @@ only times the topology syndrome, ``gf256_eliminate``,
 5, 6c and 6d through the public wrappers; copied to the root of an earlier checkout of the port, it
 times that checkout's kernels on the same operands.
 
+Before the kernels line the script requires that no module of ``jax``,
+``jaxlib`` or ``ldpc_erasure_codes_tpu`` was imported: the port stands alone.
+
 Every kernel's entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and the
 integer operations its inputs need over the card's INT32 rate (``bound``).
@@ -233,6 +238,8 @@ from ldpc_erasure_codes_tpu_torch.channel.erasure import (
     iid_erasures,
     iid_erasures_per64,
 )
+import ldpc_erasure_codes_tpu_torch
+from ldpc_erasure_codes_tpu_torch.codes import io as codes_io
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import _build, elim, nbmm, peel, rank, synd
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, device_arrays
@@ -2495,6 +2502,10 @@ def rs_stream_phase(device, card: str, launches: dict, errs: dict) -> None:
                                                                           ("host-io", h))}
     require(all(v == 0 for d in counts_14.values() for v in d.values()),
             f"14: digest / frame mismatches, failed+residual {counts_14}")
+    sites = out["sync_sites"]
+    require(len(sites) == out["syncs_per_chunk"]
+            and all(site.startswith("ldpc_erasure_codes_tpu_torch/") for site in sites),
+            f"14: {out['syncs_per_chunk']} host syncs a chunk, placed at {sites}")
     require(out["stream_bytes"] >= RS_STREAM["stream_x"] * out["hbm_bytes"],
             f"14: the stream {out['stream_bytes']} bytes is under {RS_STREAM['stream_x']}x the "
             f"card's {out['hbm_bytes']}")
@@ -2515,6 +2526,8 @@ def rs_stream_phase(device, card: str, launches: dict, errs: dict) -> None:
         f"the trace of one chunk names "
         f"{sorted(n for n in names if any(k in n for k in RS_TRACE_NAMES))}; launches "
         f"{ {k: v for k, v in counts.items() if v} } on {card}")
+    log(f"phase 14: the {len(sites)} host syncs of a chunk, in order, at {', '.join(sites)} "
+        f"on {card}")
     torch.cuda.empty_cache()
     log(f"phase 14: {rs_stream_kernels(device, errs)} on {card}")
 
@@ -2875,6 +2888,10 @@ def main() -> None:
     device = cuda_device()
     card = card_info()
     log(f"phase 1: card: {card}")
+    pkg = os.path.dirname(os.path.abspath(ldpc_erasure_codes_tpu_torch.__file__))
+    require(os.path.commonpath([os.path.abspath(codes_io.DATA_DIR), pkg]) == pkg,
+            f"1: the shipped codes are read from {codes_io.DATA_DIR}, outside the port's {pkg}")
+    log(f"phase 1: shipped codes {codes_io.list_codes()} from {codes_io.DATA_DIR}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -3006,6 +3023,10 @@ def main() -> None:
 
     for name, count in launches.items():
         require(count > 0, f"no path launched the {name} kernel")
+    foreign = sorted(m for m in sys.modules
+                     if m.partition(".")[0] in ("jax", "jaxlib", "ldpc_erasure_codes_tpu"))
+    require(not foreign, f"the run imported JAX or the JAX package: {foreign}")
+    log("standalone: no module of jax, jaxlib or ldpc_erasure_codes_tpu was imported")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **meta, "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name], "plain_ms": plain[name],

@@ -7,8 +7,9 @@ first use and loaded with ``ctypes`` (:mod:`.ops._build`). Each kernel has a
 plain PyTorch version beside it, which a wrapper runs only for tensors that
 lie on the CPU.
 
-This package imports ``torch`` and ``numpy`` and never ``jax``: the shipped
-codes are read as data from ``ldpc_erasure_codes_tpu/data/codes/*.npz``.
+This package imports ``torch`` and ``numpy`` and never ``jax``, nor anything
+of the JAX package: it keeps its own copy of the shipped codes in
+``ldpc_erasure_codes_tpu_torch/data/codes/*.npz`` and reads them as data.
 
 Public contract (the JAX package's): values are ``(B, n, W)`` 32-bit words
 (held as ``torch.int32``) for binary codes and ``(B, n, Wbytes)`` uint8

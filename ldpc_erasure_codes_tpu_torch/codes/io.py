@@ -8,8 +8,9 @@ and of ``codes/registry.py``: the fields of
 seed-0 GF(256) lift (``lift_to_gf256``, :184-199) and ``from_h_dense``
 (:215-253), which the Reed-Solomon codes and the generators use. The JAX
 package's host modules import ``jax`` (through ``gf/__init__.py``), so this
-package does not import them: it reads the same archives with ``np.load``
-instead.
+package does not import them: it keeps its own byte-identical copy of the
+shipped archives in ``ldpc_erasure_codes_tpu_torch/data/codes/`` and reads
+them with ``np.load``.
 
 Archive format (``codes/io.py::save_code``): ``name``, ``n``, ``k``,
 ``vlist_idx`` (m, dmax) int32 0-based neighbour columns padded with ``n``,
@@ -26,12 +27,7 @@ import re
 
 import numpy as np
 
-DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "ldpc_erasure_codes_tpu",
-    "data",
-    "codes",
-)
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "codes")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -35,20 +35,22 @@ The driver reports the rate of a few chunks timed together (JAX's
 "single-shot") and the sustained rate over the whole stream with one sync
 at the end, in ms a chunk and information Gbps (B · k · 8 · WB bits a
 chunk), their ratio, and the host syncs one chunk makes
-(``torch.cuda.set_sync_debug_mode``). ``--host-io`` adds a leg that stages
-two host chunks from pinned memory with ``non_blocking`` copies on a side
-stream, double-buffered; they are real codewords (scalar multiples made on
+(``torch.cuda.set_sync_debug_mode``), each with the line of this package
+that makes it. ``--host-io`` adds a leg that stages two host chunks from
+pinned memory with ``non_blocking`` copies on a side stream, double-buffered; they are real codewords (scalar multiples made on
 the host with ``gf_mul_np``), so that leg checks its digests too.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -183,19 +185,56 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def syncs_per_chunk(s: RSStream, i: int) -> int:
-    """Host syncs chunk ``i`` makes (its scalar's draw included), as
-    ``torch.cuda.set_sync_debug_mode`` warns of them."""
-    _sync(s.device)
-    with warnings.catch_warnings(record=True) as caught:
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# What torch warns for each sync in "warn" mode. Its one-time notice on the
+# first switch to that mode ("... does not yet detect all synchronizing
+# operations") is not a sync, and is not counted.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def port_site(stack: list[traceback.FrameSummary], filename: str, lineno: int) -> str:
+    """``file:line`` (from the package's parent directory) of the innermost
+    frame of ``stack`` that lies in this package; the warning's own
+    ``filename:lineno`` where none does."""
+    for f in reversed(stack):
+        path = os.path.abspath(f.filename)
+        if path.startswith(_PKG + os.sep):
+            return f"{os.path.relpath(path, os.path.dirname(_PKG))}:{f.lineno}"
+    return f"{filename}:{lineno}"
+
+
+@contextlib.contextmanager
+def sync_sites():
+    """While open, collect the :func:`port_site` of each host sync that
+    ``torch.cuda.set_sync_debug_mode("warn")`` warns of (:data:`SYNC_WARNING`).
+    Such a warning names a file of torch's C++ sources, so the site is read
+    from the Python stack in a ``showwarning`` hook."""
+    sites: list[str] = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING in str(message):
+            sites.append(port_site(traceback.extract_stack()[:-1], filename, lineno))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = hook
+        yield sites
+
+
+def syncs_per_chunk(s: RSStream, i: int) -> tuple[int, list[str]]:
+    """Host syncs chunk ``i`` makes (its scalar's draw included), as
+    ``torch.cuda.set_sync_debug_mode`` warns of them, and the
+    :func:`port_site` of each, in order."""
+    _sync(s.device)
+    with sync_sites() as sites:
         torch.cuda.set_sync_debug_mode("warn")
         try:
             s.chunk(chunk_scalar(i, s.device))
         finally:
             torch.cuda.set_sync_debug_mode("default")
     _sync(s.device)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return len(sites), sites
 
 
 def _host_chunk(cw0: np.ndarray, c: int) -> torch.Tensor:
@@ -284,7 +323,8 @@ def run_stream(*, quick: bool = False, host_io: bool = False, device=None,
     warm = s.read()
     if warm != (0, 0, 0):
         raise RuntimeError(f"warm-up chunk: {dict(zip(COUNTS, warm))}")
-    out["syncs_per_chunk"] = syncs_per_chunk(s, 998) if device.type == "cuda" else None
+    out["syncs_per_chunk"], out["sync_sites"] = (
+        syncs_per_chunk(s, 998) if device.type == "cuda" else (None, None))
 
     reps = 3 if quick else 10
     scal = [chunk_scalar(10_000 + i, device) for i in range(reps)]
@@ -314,7 +354,8 @@ def run_stream(*, quick: bool = False, host_io: bool = False, device=None,
         f"info over {out['stream_bytes'] / 1e9:.1f} GB  (digest mismatches {out['mismatches']}, "
         f"frame mismatches {out['frame_mismatches']}, failed/resid {out['bad']}; "
         f"{100 * out['sustained_over_single']:.1f}% of single-shot; "
-        f"{out['syncs_per_chunk']} host syncs a chunk)")
+        f"{out['syncs_per_chunk']} host syncs a chunk"
+        + (f" at {', '.join(out['sync_sites'])})" if out["sync_sites"] else ")"))
     if trace_dir is not None:
         with profiling.trace(trace_dir):
             s.chunk(chunk_scalar(chunks, device))

@@ -1,9 +1,12 @@
 """The port's code loading and tables against the JAX package's.
 
-Both sides read the same shipped ``.npz`` codes; the port derives its
+Each side reads its own copy of the shipped ``.npz`` codes (byte-identical,
+``tests/test_torch_standalone.py``); the port derives its
 encoder tables in NumPy on its own, and they must equal the JAX package's
 ``ops.arrays._host_arrays`` field by field.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -11,7 +14,8 @@ import torch
 
 from ldpc_erasure_codes_tpu.codes import get_code as jax_get_code
 from ldpc_erasure_codes_tpu.ops.arrays import _host_arrays
-from ldpc_erasure_codes_tpu_torch.codes.io import from_vlist, get_code, list_codes
+import ldpc_erasure_codes_tpu_torch
+from ldpc_erasure_codes_tpu_torch.codes.io import DATA_DIR, from_vlist, get_code, list_codes
 from ldpc_erasure_codes_tpu_torch.ops.arrays import (
     FIELDS,
     code_arrays,
@@ -24,6 +28,8 @@ SHIPPED = ["n2000_k1000", "n2040_k1530", "n4000_k2000", "n4080_k3060"]
 
 def test_list_codes():
     assert list_codes() == SHIPPED
+    pkg = os.path.dirname(os.path.abspath(ldpc_erasure_codes_tpu_torch.__file__))
+    assert os.path.commonpath([os.path.abspath(DATA_DIR), pkg]) == pkg, DATA_DIR
 
 
 @pytest.mark.parametrize("name", SHIPPED)

@@ -1306,6 +1306,8 @@ def test_rs_stream_quick_host_io_on_the_card(cuda_device, monkeypatch):
         0, 0, 0, max(2, out["chunks"] // 8))
     assert out["chunks"] * out["chunk_bytes"] >= 0.05 * out["hbm_bytes"]
     assert isinstance(out["syncs_per_chunk"], int)
+    assert len(out["sync_sites"]) == out["syncs_per_chunk"]
+    assert all(site.startswith("ldpc_erasure_codes_tpu_torch/") for site in out["sync_sites"])
     assert elim.gf256_eliminate.launches > before
 
 

@@ -9,10 +9,15 @@ byte, and the frame check catches a decode fault that repeats an even
 number of times at one byte position, which the digest cancels. The
 driver reads its sizes from JAX's environment names. The host-io leg
 needs pinned memory and a CUDA stream, so here it must raise
-(``tests/test_torch_cuda.py`` runs it on the card).
+(``tests/test_torch_cuda.py`` runs it on the card). The host syncs' sites
+are read from the Python stack: the innermost frame of the port.
 """
 
 import json
+import linecache
+import os
+import traceback
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +49,8 @@ def test_run_stream_quick_on_cpu(tiny_env):
     out = run_stream(quick=True, device="cpu", chunks=3, log=lambda _m: None)
     assert (out["chunks"], out["mismatches"], out["frame_mismatches"], out["bad"]) == (3, 0, 0, 0)
     assert out["chunk_bytes"] == 8 * 255 * 16 and out["stream_bytes"] == 3 * out["chunk_bytes"]
-    assert out["syncs_per_chunk"] is None and out["host_io"] is None
+    assert out["syncs_per_chunk"] is None and out["sync_sites"] is None
+    assert out["host_io"] is None
     assert out["sustained_gbps"] > 0 and out["single_gbps"] > 0
 
 
@@ -159,3 +165,39 @@ def test_trace_of_one_chunk(tmp_path, tiny_env):
     (path,) = tmp_path.glob("trace_*.json")
     names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+
+
+def test_port_site_is_the_innermost_frame_of_the_port():
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(stream.__file__)))
+    frame = traceback.FrameSummary
+    stack = [frame("/x/runner.py", 3, "main"),
+             frame(os.path.join(pkg, "rs", "stream.py"), 40, "chunk"),
+             frame(os.path.join(pkg, "ops", "elim.py"), 330, "launch"),
+             frame("/x/torch/functional.py", 9, "unique")]
+    assert stream.port_site(stack, "Sync.cpp", 1) == "ldpc_erasure_codes_tpu_torch/ops/elim.py:330"
+    assert stream.port_site(stack[:1], "Sync.cpp", 1) == "Sync.cpp:1"
+
+
+def test_sync_sites_name_the_port_lines(tiny_env):
+    """Sync warnings raised from inside ``run_stream`` (through its ``log``)
+    are placed on the lines of ``rs/stream.py`` that call ``log``; other
+    warnings, torch's notice on switching the mode on among them, are not
+    counted, and the hook is gone afterwards."""
+    calls = []
+
+    def log(msg):
+        calls.append(msg)
+        warnings.warn("called a synchronizing CUDA operation")
+        warnings.warn("Synchronization debug mode is a prototype feature and does not yet "
+                      "detect all synchronizing operations")
+        warnings.warn("an unrelated warning")
+
+    shown = warnings.showwarning
+    with stream.sync_sites() as sites:
+        run_stream(quick=True, device="cpu", chunks=3, log=log)
+    assert warnings.showwarning is shown
+    assert len(sites) == len(calls) >= 3
+    for site in sites:
+        path, line = site.rsplit(":", 1)
+        assert path == "ldpc_erasure_codes_tpu_torch/rs/stream.py", site
+        assert "log(" in linecache.getline(stream.__file__, int(line)), site
