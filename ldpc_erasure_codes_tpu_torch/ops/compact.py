@@ -13,6 +13,7 @@ import torch
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_solve, ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 
 
 def residual_order(
@@ -83,14 +84,16 @@ def compact_ge_solve(
     """
     b = erased.shape[0]
     packed = ge_packed(ge_impl, gf_order, values)
-    sel, is_resid, overflow = residual_order(erased, f_max)
+    with profiling.span("ge.gather"):
+        sel, is_resid, overflow = residual_order(erased, f_max)
+        v_sub, e_sub = values[sel], erased[sel]
     if packed:
-        v_sub, e_sub, failed_sub = ge_solve_packed(arrays, values[sel], erased[sel], emax=emax)
+        v_sub, e_sub, failed_sub = ge_solve_packed(arrays, v_sub, e_sub, emax=emax)
     else:
-        v_sub, e_sub, failed_sub = ge_solve(
-            arrays, values[sel], erased[sel], emax=emax, gf_order=gf_order)
-    values = values.index_copy(0, sel, v_sub)
-    erased = erased.index_copy(0, sel, torch.where(is_resid[:, None], e_sub, erased[sel]))
-    failed = torch.zeros((b,), dtype=torch.bool, device=erased.device)
-    failed[sel] = failed_sub & is_resid
-    return values, erased, failed | overflow
+        v_sub, e_sub, failed_sub = ge_solve(arrays, v_sub, e_sub, emax=emax, gf_order=gf_order)
+    with profiling.span("ge.scatter"):
+        values = values.index_copy(0, sel, v_sub)
+        erased = erased.index_copy(0, sel, torch.where(is_resid[:, None], e_sub, erased[sel]))
+        failed = torch.zeros((b,), dtype=torch.bool, device=erased.device)
+        failed[sel] = failed_sub & is_resid
+        return values, erased, failed | overflow

@@ -29,6 +29,7 @@ from ldpc_erasure_codes_tpu_torch.gf.tables import build_tables
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops._build import SMEM_LIMIT, round16 as _r16
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, device_arrays
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 
 
 def _check(arrays: CodeArrays, source: torch.Tensor, gf_order: int) -> torch.Tensor:
@@ -251,22 +252,25 @@ def launch_slab(arrays: CodeArrays, words: torch.Tensor, gf_order: int, wc: int,
     loads and stores alone (its parity rows are then garbage), to time
     them apart. Counts one launch of ``encode_packed`` (``launches`` or
     ``launches_gf256``)."""
-    if (arrays.enc_levels is None or wc not in SLAB_WORDS
-            or slab_smem(arrays, wc, gf_order) > SMEM_LIMIT):
-        raise ValueError(f"encode slab of {wc} words: Wc must be one of {SLAB_WORDS} with the "
-                         f"block's shared memory within {SMEM_LIMIT} bytes (n={arrays.n})")
-    b, k, w = words.shape
-    m = arrays.m
-    lv = arrays.enc_levels
-    out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
-    rc = _build.library().ldpc_encode_slab_launch(
-        words.data_ptr(), lv.order.data_ptr(), lv.level_off.data_ptr(), lv.src.data_ptr(),
-        lv.src_coef.data_ptr(), lv.par.data_ptr(), lv.par_coef.data_ptr(),
-        lv.par_len.data_ptr(), out.data_ptr(), b, k, m, lv.src.shape[1], lv.par.shape[1],
-        lv.levels, w, wc, int(compute), int(gf_order == 256),
-        torch.cuda.current_stream(words.device).cuda_stream,
-    )
-    _build.check(rc, "ldpc_encode_slab_launch")
+    with profiling.span("encode.prep"):
+        if (arrays.enc_levels is None or wc not in SLAB_WORDS
+                or slab_smem(arrays, wc, gf_order) > SMEM_LIMIT):
+            raise ValueError(f"encode slab of {wc} words: Wc must be one of {SLAB_WORDS} with "
+                             f"the block's shared memory within {SMEM_LIMIT} bytes "
+                             f"(n={arrays.n})")
+        b, k, w = words.shape
+        m = arrays.m
+        lv = arrays.enc_levels
+        out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
+    with profiling.span("encode.launch"):
+        rc = _build.library().ldpc_encode_slab_launch(
+            words.data_ptr(), lv.order.data_ptr(), lv.level_off.data_ptr(), lv.src.data_ptr(),
+            lv.src_coef.data_ptr(), lv.par.data_ptr(), lv.par_coef.data_ptr(),
+            lv.par_len.data_ptr(), out.data_ptr(), b, k, m, lv.src.shape[1], lv.par.shape[1],
+            lv.levels, w, wc, int(compute), int(gf_order == 256),
+            torch.cuda.current_stream(words.device).cuda_stream,
+        )
+        _build.check(rc, "ldpc_encode_slab_launch")
     _count(gf_order)
     return out
 
@@ -274,17 +278,19 @@ def launch_slab(arrays: CodeArrays, words: torch.Tensor, gf_order: int, wc: int,
 def launch_warp(arrays: CodeArrays, words: torch.Tensor, gf_order: int) -> torch.Tensor:
     """The per-warp route's kernel on CUDA int32 words (B, k, W); int32
     codewords. Counts one launch of ``encode_packed``."""
-    b, k, w = words.shape
-    m, pmax = arrays.enc_par_idx.shape
-    out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
-    rc = _build.library().ldpc_encode_launch(
-        words.data_ptr(), arrays.enc_src_idx.data_ptr(), arrays.enc_par_idx.data_ptr(),
-        arrays.enc_src_val.data_ptr(), arrays.enc_par_val.data_ptr(),
-        arrays.enc_diag_inv.data_ptr(), out.data_ptr(), b, k, m, w,
-        arrays.enc_src_idx.shape[1], pmax, int(gf_order == 256),
-        torch.cuda.current_stream(words.device).cuda_stream,
-    )
-    _build.check(rc, "ldpc_encode_launch")
+    with profiling.span("encode.prep"):
+        b, k, w = words.shape
+        m, pmax = arrays.enc_par_idx.shape
+        out = torch.empty((b, k + m, w), dtype=torch.int32, device=words.device)
+    with profiling.span("encode.launch"):
+        rc = _build.library().ldpc_encode_launch(
+            words.data_ptr(), arrays.enc_src_idx.data_ptr(), arrays.enc_par_idx.data_ptr(),
+            arrays.enc_src_val.data_ptr(), arrays.enc_par_val.data_ptr(),
+            arrays.enc_diag_inv.data_ptr(), out.data_ptr(), b, k, m, w,
+            arrays.enc_src_idx.shape[1], pmax, int(gf_order == 256),
+            torch.cuda.current_stream(words.device).cuda_stream,
+        )
+        _build.check(rc, "ldpc_encode_launch")
     _count(gf_order)
     return out
 
@@ -302,17 +308,19 @@ def encode_packed(
     ``encode_packed.launches`` counts binary launches of either,
     ``encode_packed.launches_gf256`` GF(256) ones.
     """
-    words = _check(arrays, source, gf_order)
-    if words.device.type == "cpu":
-        return encode_packed_reference(arrays, source, gf_order=gf_order)
-    if words.device.type != "cuda":
-        raise ValueError(f"unsupported device {words.device}")
-    wc = slab_words(arrays, words.shape[2], gf_order)
-    if wc is None:
-        out = launch_warp(arrays, words, gf_order)
-    else:
-        out = launch_slab(arrays, words, gf_order, wc)
-    return _bytes_out(out, gf_order)
+    with profiling.span("encode.packed", device=source.device):
+        words = _check(arrays, source, gf_order)
+        if words.device.type == "cpu":
+            with profiling.span("encode.launch"):  # the plain version
+                return encode_packed_reference(arrays, source, gf_order=gf_order)
+        if words.device.type != "cuda":
+            raise ValueError(f"unsupported device {words.device}")
+        wc = slab_words(arrays, words.shape[2], gf_order)
+        if wc is None:
+            out = launch_warp(arrays, words, gf_order)
+        else:
+            out = launch_slab(arrays, words, gf_order, wc)
+        return _bytes_out(out, gf_order)
 
 
 encode_packed.launches = 0

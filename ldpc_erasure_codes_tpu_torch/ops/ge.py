@@ -54,6 +54,7 @@ from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
 )
 from ldpc_erasure_codes_tpu_torch.ops.rank import f2_rank_check
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 
 
 def erased_indices(
@@ -143,27 +144,32 @@ def ge_solve_packed(
     _check(arrays, values, erased)
     b, n = erased.shape
     emax = min(emax, n)
-    er_idx, real, nreal = erased_indices(erased, emax)
-    overflow = nreal > emax
     wa = -(-emax // 32)
-    cube = coefficient_cube(arrays, er_idx, real)
-    r, pivrow, failed_k = f2_eliminate(cube, nreal, emax=emax, a_words=wa)
-    failed = overflow | failed_k
-    t_rows = pivot_transforms(r, pivrow, wa)
-    if static_topo:
-        rhs = syndrome_from_topo(arrays, values)
-    else:
-        rhs = f2_matvec_wide(values, arrays.h_words, rows=arrays.h_rows)
-    writable = real & ~overflow[:, None]
-    safe_idx = torch.where(writable, er_idx, n).to(torch.int32)
-    erased = erased & failed[:, None]
-    if return_rows:
-        # Rows that are not written come back zero: their transform rows are
-        # cut before the product, so the kernel lists nothing for them.
-        x = f2_matmul_batched(rhs, torch.where(writable[:, :, None], t_rows, 0))
-        return x, safe_idx, erased, failed
-    values = f2_apply_scatter(values, rhs, t_rows, safe_idx)
-    return values, erased, failed
+    with profiling.span("ge.cube"):
+        er_idx, real, nreal = erased_indices(erased, emax)
+        overflow = nreal > emax
+        cube = coefficient_cube(arrays, er_idx, real)
+    with profiling.span("ge.elim"):
+        r, pivrow, failed_k = f2_eliminate(cube, nreal, emax=emax, a_words=wa)
+        failed = overflow | failed_k
+    with profiling.span("ge.transforms"):
+        t_rows = pivot_transforms(r, pivrow, wa)
+    with profiling.span("ge.syndrome"):
+        if static_topo:
+            rhs = syndrome_from_topo(arrays, values)
+        else:
+            rhs = f2_matvec_wide(values, arrays.h_words, rows=arrays.h_rows)
+    with profiling.span("ge.apply"):
+        writable = real & ~overflow[:, None]
+        safe_idx = torch.where(writable, er_idx, n).to(torch.int32)
+        erased = erased & failed[:, None]
+        if return_rows:
+            # Rows that are not written come back zero: their transform rows
+            # are cut before the product, so the kernel lists nothing for them.
+            x = f2_matmul_batched(rhs, torch.where(writable[:, :, None], t_rows, 0))
+            return x, safe_idx, erased, failed
+        values = f2_apply_scatter(values, rhs, t_rows, safe_idx)
+        return values, erased, failed
 
 
 def _pack_bytes_words(x: torch.Tensor) -> torch.Tensor:
@@ -390,15 +396,21 @@ def ge_solve_wide_nb(
     b, n = erased.shape
     emax = min(emax, n)
     m = arrays.m
-    er_idx, real, nreal = erased_indices(erased, emax)
-    overflow = nreal > emax
     wa = -(-emax // 4)
-    cube = coefficient_cube_nb(arrays, er_idx, real)
-    r, pivrow, failed_k = gf256_eliminate(cube, nreal, emax=emax, a_words=wa)
-    failed = overflow | failed_k
-    t_top = _unpack_words_bytes(pivot_transforms(r, pivrow, wa))[:, :, :m].contiguous()
-    rhs = gf_matvec_wide(values, arrays.vlist_idx, arrays.vlist_val, tiles=arrays.vlist_tiles)
-    writable = real & ~overflow[:, None]
-    safe_idx = torch.where(writable, er_idx, n).to(torch.int32)
-    values = gf_apply_scatter(values, rhs, t_top, safe_idx)
-    return values, erased & failed[:, None], failed
+    with profiling.span("ge.cube"):
+        er_idx, real, nreal = erased_indices(erased, emax)
+        overflow = nreal > emax
+        cube = coefficient_cube_nb(arrays, er_idx, real)
+    with profiling.span("ge.elim"):
+        r, pivrow, failed_k = gf256_eliminate(cube, nreal, emax=emax, a_words=wa)
+        failed = overflow | failed_k
+    with profiling.span("ge.transforms"):
+        t_top = _unpack_words_bytes(pivot_transforms(r, pivrow, wa))[:, :, :m].contiguous()
+    with profiling.span("ge.syndrome"):
+        rhs = gf_matvec_wide(values, arrays.vlist_idx, arrays.vlist_val,
+                             tiles=arrays.vlist_tiles)
+    with profiling.span("ge.apply"):
+        writable = real & ~overflow[:, None]
+        safe_idx = torch.where(writable, er_idx, n).to(torch.int32)
+        values = gf_apply_scatter(values, rhs, t_top, safe_idx)
+        return values, erased & failed[:, None], failed

@@ -20,6 +20,7 @@ from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, ge_packed
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed, ge_solve_wide_nb
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi, peel_decode_wide
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 
 
 def _peel(arrays, values, erased, *, gf_order, peel_iters, impl, tiled):
@@ -45,18 +46,20 @@ def _ge_rows(arrays, values, erased, *, emax, ge_subbatch, static_topo):
     straight into ``values`` and ``erased`` in place (both are the peel's
     fresh outputs). Discarded rows (target n) are skipped."""
     b, n = erased.shape
-    sel, is_resid, overflow = residual_order(erased, ge_subbatch)
+    with profiling.span("ge.gather"):
+        sel, is_resid, overflow = residual_order(erased, ge_subbatch)
+        v_sub, e_sub = values[sel], erased[sel]
     x, sidx, e_sub, failed_sub = ge_solve_packed(
-        arrays, values[sel], erased[sel], emax=emax, return_rows=True,
-        static_topo=static_topo,
+        arrays, v_sub, e_sub, emax=emax, return_rows=True, static_topo=static_topo,
     )
-    keep = sidx < n
-    frames = sel[:, None].expand_as(sidx)[keep]
-    values[frames, sidx[keep].long()] = x[keep]
-    erased[sel] = torch.where(is_resid[:, None], e_sub, erased[sel])
-    failed = torch.zeros((b,), dtype=torch.bool, device=erased.device)
-    failed[sel] = failed_sub & is_resid
-    return values, erased, failed | overflow
+    with profiling.span("ge.scatter"):
+        keep = sidx < n
+        frames = sel[:, None].expand_as(sidx)[keep]
+        values[frames, sidx[keep].long()] = x[keep]
+        erased[sel] = torch.where(is_resid[:, None], e_sub, erased[sel])
+        failed = torch.zeros((b,), dtype=torch.bool, device=erased.device)
+        failed[sel] = failed_sub & is_resid
+        return values, erased, failed | overflow
 
 
 def hybrid_decode(
@@ -114,11 +117,29 @@ def hybrid_decode(
     (residual wider than ``emax``, or spilled past the ``ge_subbatch``
     bucket), the frames :func:`hybrid_decode_escalated` re-dispatches.
     """
+    with profiling.span("hybrid.decode", device=values.device):
+        return _hybrid(arrays, values, erased, gf_order=gf_order, peel_iters=peel_iters,
+                       emax=emax, impl=impl, ge_subbatch=ge_subbatch, tiled=tiled,
+                       ge_impl=ge_impl, static_topo=static_topo,
+                       return_overflow=return_overflow)
+
+
+def _hybrid(arrays, values, erased, *, gf_order, peel_iters, emax, impl, ge_subbatch, tiled,
+            ge_impl, static_topo, return_overflow):
+    """:func:`hybrid_decode`'s body, inside the caller's ``hybrid.decode`` span."""
     packed = ge_packed(ge_impl, gf_order, values)
-    values, erased, iters = _peel(arrays, values, erased, gf_order=gf_order,
-                                  peel_iters=peel_iters, impl=impl, tiled=tiled)
+    with profiling.span("hybrid.peel"):
+        values, erased, iters = _peel(arrays, values, erased, gf_order=gf_order,
+                                      peel_iters=peel_iters, impl=impl, tiled=tiled)
     b, n = erased.shape
-    if not bool(erased.any()):
+    if profiling.enabled():  # enqueued before the sync, while the card peels
+        nres = erased.any(dim=1).sum()
+        profiling.count("hybrid.residual_frames", nres)
+        if ge_subbatch > 0:
+            profiling.count("hybrid.bucket_overflow_frames", (nres - ge_subbatch).clamp_(min=0))
+    with profiling.span("hybrid.sync.residual"):
+        residual = bool(erased.any())
+    if not residual:
         z = torch.zeros((b,), dtype=torch.bool, device=erased.device)
         return (values, erased, iters, z, z) if return_overflow else (values, erased, iters, z)
     if return_overflow:  # from the peel's mask, before the GE clears it
@@ -126,18 +147,24 @@ def hybrid_decode(
         if ge_subbatch > 0:
             overflow |= residual_order(erased, ge_subbatch)[2]
     if tiled and ge_subbatch > 0 and packed:
-        values, erased, failed = _ge_rows(
-            arrays, values, erased, emax=emax, ge_subbatch=ge_subbatch, static_topo=static_topo
-        )
+        with profiling.span("hybrid.ge.rows"):
+            values, erased, failed = _ge_rows(
+                arrays, values, erased, emax=emax, ge_subbatch=ge_subbatch,
+                static_topo=static_topo,
+            )
     elif ge_subbatch > 0:
-        values, erased, failed = compact_ge_solve(
-            arrays, values, erased, emax=emax, f_max=ge_subbatch, gf_order=gf_order,
-            ge_impl=ge_impl,
-        )
-    elif packed:
-        values, erased, failed = ge_solve_packed(arrays, values, erased, emax=emax)
+        with profiling.span("hybrid.ge.compact"):
+            values, erased, failed = compact_ge_solve(
+                arrays, values, erased, emax=emax, f_max=ge_subbatch, gf_order=gf_order,
+                ge_impl=ge_impl,
+            )
     else:
-        values, erased, failed = ge_solve(arrays, values, erased, emax=emax, gf_order=gf_order)
+        with profiling.span("hybrid.ge.whole"):
+            if packed:
+                values, erased, failed = ge_solve_packed(arrays, values, erased, emax=emax)
+            else:
+                values, erased, failed = ge_solve(
+                    arrays, values, erased, emax=emax, gf_order=gf_order)
     if return_overflow:
         return values, erased, iters, failed, overflow
     return values, erased, iters, failed
@@ -172,30 +199,48 @@ def hybrid_decode_escalated(
     Returns (values, erased, iters, failed, n_escalated), n_escalated the
     frames that entered the second dispatch. Syncs with the host.
     """
-    values, erased, iters, failed = hybrid_decode(
-        arrays, values, erased, gf_order=gf_order, peel_iters=peel_iters, emax=emax,
-        impl=impl, ge_subbatch=ge_subbatch, ge_impl=ge_impl, static_topo=static_topo,
-    )
-    if not bool(failed.any()):
-        return values, erased, iters, failed, 0
-    resid = erased.sum(dim=1)
-    cand = torch.nonzero(failed & (resid > 0)).squeeze(1)
+    with profiling.span("hybrid.decode", device=values.device):
+        values, erased, iters, failed = _hybrid(
+            arrays, values, erased, gf_order=gf_order, peel_iters=peel_iters, emax=emax,
+            impl=impl, ge_subbatch=ge_subbatch, tiled=False, ge_impl=ge_impl,
+            static_topo=static_topo, return_overflow=False,
+        )
+        with profiling.span("hybrid.sync.failed"):
+            any_failed = bool(failed.any())
+        if not any_failed:
+            return values, erased, iters, failed, 0
+        with profiling.span("hybrid.escalate"):
+            return _escalate(arrays, values, erased, iters, failed, gf_order=gf_order)
+
+
+def _escalate(arrays, values, erased, iters, failed, *, gf_order):
+    """:func:`hybrid_decode_escalated`'s second dispatch, inside its
+    ``hybrid.escalate`` span."""
+    with profiling.span("hybrid.sync.candidates"):
+        resid = erased.sum(dim=1)
+        cand = torch.nonzero(failed & (resid > 0)).squeeze(1)
     ncand = cand.numel()
     if ncand == 0:
         return values, erased, iters, failed, 0
     n = erased.shape[1]
-    emax2 = min(n, -(-int(resid[cand].max()) // 128) * 128)
+    with profiling.span("hybrid.sync.emax"):
+        emax2 = min(n, -(-int(resid[cand].max()) // 128) * 128)
     b2 = max(8, 1 << (ncand - 1).bit_length())
-    sel = torch.cat([cand, cand[:1].expand(b2 - ncand)])
-    e_sub = erased[sel]
-    v_sub = values[sel].masked_fill_(e_sub if values.dim() == 2 else e_sub[:, :, None], 0)
+    profiling.count("hybrid.escalated_frames", ncand)
+    profiling.count("hybrid.escalation_frames_padded", b2)
+    profiling.count("hybrid.escalation_emax", emax2)
+    with profiling.span("ge.gather"):
+        sel = torch.cat([cand, cand[:1].expand(b2 - ncand)])
+        e_sub = erased[sel]
+        v_sub = values[sel].masked_fill_(e_sub if values.dim() == 2 else e_sub[:, :, None], 0)
     if values.dim() == 2:
         v2, e2, f2 = ge_solve(arrays, v_sub, e_sub, emax=emax2, gf_order=gf_order)
     elif gf_order == 256:
         v2, e2, f2 = ge_solve_wide_nb(arrays, v_sub, e_sub, emax=emax2)
     else:
         v2, e2, f2 = ge_solve_packed(arrays, v_sub, e_sub, emax=emax2)
-    values[cand] = v2[:ncand]
-    erased[cand] = e2[:ncand]
-    failed[cand] = f2[:ncand]
+    with profiling.span("ge.scatter"):
+        values[cand] = v2[:ncand]
+        erased[cand] = e2[:ncand]
+        failed[cand] = f2[:ncand]
     return values, erased, iters, failed, ncand

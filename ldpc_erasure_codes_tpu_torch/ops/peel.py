@@ -47,6 +47,7 @@ from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi_reference
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 
 SCHEDULES = ("seq", "unrolled", "counted", "grouped", "jacobi")
 # The schedule kernel's visit order (csrc/peel.cu) per schedule.
@@ -513,28 +514,32 @@ def launch_kernel(arrays: CodeArrays, words: torch.Tensor, erased: torch.Tensor,
     seq/unrolled, ``launches_<schedule>`` otherwise; ``_gf256`` for
     GF(256)). Returns int32 words."""
     b, n, w = words.shape
-    if arrays.dmax > 256:
-        raise ValueError(f"the peel kernel keeps a check's slot in 8 bits: dmax={arrays.dmax}")
-    wc = slab_words(arrays, n, w, gf_order) if wc is None else wc
-    if wc not in SLAB_WORDS or apply_smem(n, arrays.m, arrays.dmax, wc, gf_order) > SMEM_LIMIT:
-        raise ValueError(f"slab of {wc} words: Wc must be one of {SLAB_WORDS} with the block's "
-                         f"shared memory within {SMEM_LIMIT} bytes (n={n})")
-    dev = words.device
-    out = torch.empty_like(words)
-    er_out = torch.empty((b, n), dtype=torch.bool, device=dev)
-    iters = torch.empty((b,), dtype=torch.int32, device=dev)
-    sched = _schedule_buffers(b, n, dev)
-    rc = _build.library().ldpc_peel_launch(
-        _ORDER[schedule], words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
-        arrays.vlist_len.data_ptr(), arrays.vlist_val.data_ptr(),
-        arrays.vlist_inv_val.data_ptr(), arrays.clist_idx.data_ptr(),
-        arrays.clist_len.data_ptr(), arrays.check_groups.data_ptr(),
-        arrays.check_groups.shape[0], out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
-        *(t.data_ptr() for t in sched), b, n, arrays.m, arrays.dmax, *arrays.clist_idx.shape,
-        w, k_stop, max_iters, wc, int(gf_order == 256),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "ldpc_peel_launch")
+    with profiling.span("peel.prep"):
+        if arrays.dmax > 256:
+            raise ValueError(
+                f"the peel kernel keeps a check's slot in 8 bits: dmax={arrays.dmax}")
+        wc = slab_words(arrays, n, w, gf_order) if wc is None else wc
+        if (wc not in SLAB_WORDS
+                or apply_smem(n, arrays.m, arrays.dmax, wc, gf_order) > SMEM_LIMIT):
+            raise ValueError(f"slab of {wc} words: Wc must be one of {SLAB_WORDS} with the "
+                             f"block's shared memory within {SMEM_LIMIT} bytes (n={n})")
+        dev = words.device
+        out = torch.empty_like(words)
+        er_out = torch.empty((b, n), dtype=torch.bool, device=dev)
+        iters = torch.empty((b,), dtype=torch.int32, device=dev)
+        sched = _schedule_buffers(b, n, dev)
+    with profiling.span("peel.launch"):
+        rc = _build.library().ldpc_peel_launch(
+            _ORDER[schedule], words.data_ptr(), erased.data_ptr(), arrays.vlist_idx.data_ptr(),
+            arrays.vlist_len.data_ptr(), arrays.vlist_val.data_ptr(),
+            arrays.vlist_inv_val.data_ptr(), arrays.clist_idx.data_ptr(),
+            arrays.clist_len.data_ptr(), arrays.check_groups.data_ptr(),
+            arrays.check_groups.shape[0], out.data_ptr(), er_out.data_ptr(), iters.data_ptr(),
+            *(t.data_ptr() for t in sched), b, n, arrays.m, arrays.dmax,
+            *arrays.clist_idx.shape, w, k_stop, max_iters, wc, int(gf_order == 256),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(rc, "ldpc_peel_launch")
     counter = _counter(schedule, gf_order)
     setattr(peel_decode, counter, getattr(peel_decode, counter) + 1)
     return out, er_out, iters
@@ -563,20 +568,22 @@ def peel_decode(
     ones, and ``launches_<schedule>`` / ``launches_<schedule>_gf256`` those
     of "counted", "grouped" and "jacobi".
     """
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
-    words = _words(values, gf_order)
-    k_stop = _check(arrays, words, erased, max_iters, early_stop_k)
-    kw = dict(max_iters=max_iters, early_stop_k=early_stop_k, gf_order=gf_order)
-    if words.device.type == "cpu":
-        if schedule == "jacobi":
-            return peel_decode_jacobi_reference(arrays, values, erased, **kw)
-        return peel_decode_reference(arrays, values, erased, **kw)
-    if words.device.type != "cuda":
-        raise ValueError(f"unsupported device {words.device}")
-    out, er_out, iters = launch_kernel(arrays, words, erased, k_stop, max_iters, gf_order,
-                                       schedule=schedule)
-    return (out.view(torch.uint8) if gf_order == 256 else out), er_out, iters
+    with profiling.span("peel.decode", device=values.device):
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        words = _words(values, gf_order)
+        k_stop = _check(arrays, words, erased, max_iters, early_stop_k)
+        kw = dict(max_iters=max_iters, early_stop_k=early_stop_k, gf_order=gf_order)
+        if words.device.type == "cpu":
+            with profiling.span("peel.launch"):  # the plain versions
+                if schedule == "jacobi":
+                    return peel_decode_jacobi_reference(arrays, values, erased, **kw)
+                return peel_decode_reference(arrays, values, erased, **kw)
+        if words.device.type != "cuda":
+            raise ValueError(f"unsupported device {words.device}")
+        out, er_out, iters = launch_kernel(arrays, words, erased, k_stop, max_iters, gf_order,
+                                           schedule=schedule)
+        return (out.view(torch.uint8) if gf_order == 256 else out), er_out, iters
 
 
 peel_decode.launches = 0

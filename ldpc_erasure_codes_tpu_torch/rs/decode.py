@@ -15,6 +15,7 @@ import torch
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_wide_nb
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 
 
 def _lanes(x: torch.Tensor) -> torch.Tensor:
@@ -52,4 +53,5 @@ def rs_decode_wide(
     (:func:`.ops.ge.ge_solve_wide_nb`, the three GF(256) GE kernels on the
     card). Returns (values, erased, failed) as :func:`rs_decode`."""
     emax = arrays.m if emax is None else emax
-    return ge_solve_wide_nb(arrays, values, erased, emax=emax)
+    with profiling.span("rs.decode", device=values.device):
+        return ge_solve_wide_nb(arrays, values, erased, emax=emax)

@@ -44,14 +44,11 @@ the host with ``gf_mul_np``), so that leg checks its digests too.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import os
 import sys
 import time
-import traceback
-import warnings
 
 import numpy as np
 import torch
@@ -63,6 +60,11 @@ from ldpc_erasure_codes_tpu_torch.rs.code import rs_code
 from ldpc_erasure_codes_tpu_torch.rs.decode import rs_decode_wide, rs_encode
 from ldpc_erasure_codes_tpu_torch.utils import profiling
 from ldpc_erasure_codes_tpu_torch.utils.device import cuda_device, hbm_bytes
+from ldpc_erasure_codes_tpu_torch.utils.profiling import (  # noqa: F401 (kept importable here)
+    SYNC_WARNING,
+    port_site,
+    sync_sites,
+)
 
 N, K = 255, 192
 # Decoded frames a chunk holds whole to its codewords, beside the digest.
@@ -183,43 +185,6 @@ COUNTS = ("mismatches", "frame_mismatches", "bad")
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# What torch warns for each sync in "warn" mode. Its one-time notice on the
-# first switch to that mode ("... does not yet detect all synchronizing
-# operations") is not a sync, and is not counted.
-SYNC_WARNING = "called a synchronizing CUDA operation"
-
-
-def port_site(stack: list[traceback.FrameSummary], filename: str, lineno: int) -> str:
-    """``file:line`` (from the package's parent directory) of the innermost
-    frame of ``stack`` that lies in this package; the warning's own
-    ``filename:lineno`` where none does."""
-    for f in reversed(stack):
-        path = os.path.abspath(f.filename)
-        if path.startswith(_PKG + os.sep):
-            return f"{os.path.relpath(path, os.path.dirname(_PKG))}:{f.lineno}"
-    return f"{filename}:{lineno}"
-
-
-@contextlib.contextmanager
-def sync_sites():
-    """While open, collect the :func:`port_site` of each host sync that
-    ``torch.cuda.set_sync_debug_mode("warn")`` warns of (:data:`SYNC_WARNING`).
-    Such a warning names a file of torch's C++ sources, so the site is read
-    from the Python stack in a ``showwarning`` hook."""
-    sites: list[str] = []
-
-    def hook(message, category, filename, lineno, file=None, line=None):
-        if SYNC_WARNING in str(message):
-            sites.append(port_site(traceback.extract_stack()[:-1], filename, lineno))
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = hook
-        yield sites
 
 
 def syncs_per_chunk(s: RSStream, i: int) -> tuple[int, list[str]]:

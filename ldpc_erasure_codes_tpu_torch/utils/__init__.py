@@ -13,7 +13,8 @@ Submodules (the JAX package's ``utils/__init__.py`` exports ``native``,
   the UDP burst calls).
 * ``streaming`` — FEC packet block assembly (reorder buffer -> decode
   batches); ``vita`` — VITA-49 framing; ``udp`` — the UDP datapath.
-* ``profiling`` — timing/throughput helpers + a ``torch.profiler`` wrapper.
+* ``profiling`` — timing/throughput helpers, a ``torch.profiler`` wrapper,
+  the decoders' spans and counters, and the host-sync locator.
 * ``cli`` — the command-line interface (``python -m
   ldpc_erasure_codes_tpu_torch.utils.cli``).
 """

@@ -10,6 +10,7 @@ operations are XORs and flag updates, with no rounding).
 """
 
 import importlib
+import time
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_mask,
 )
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
-from ldpc_erasure_codes_tpu_torch.utils import golden, verify
+from ldpc_erasure_codes_tpu_torch.utils import golden, profiling, verify
 from torch_port_cases import (  # noqa: F401 (fixture)
     cuda_device,
     random_words,
@@ -1365,3 +1366,81 @@ def test_memory_sizes_on_the_card(cuda_device):
     assert hbm_bytes(cuda_device) == props.total_memory == hbm_bytes()
     assert 48 * 1024 <= smem_bytes(cuda_device) <= 256 * 1024
     assert l2_bytes(cuda_device) >= 1 << 20
+
+
+# The program's spans and counters (utils/profiling.py) on the card.
+
+
+def _hybrid_case(dev):
+    """(arrays, received, mask, kw): (2040,1530), B=256, W=16, PER .2031,
+    the production settings with a 64-frame bucket, so that the compacted
+    GE runs and its overflow escalates."""
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, dev)
+    rng = np.random.default_rng(31)
+    cw = encode_packed(arrays, to_torch(random_words(rng, (256, code.k, 16))).to(dev))
+    mask = torch.from_numpy(rng.random((256, code.n)) < 0.2031).to(dev)
+    kw = dict(peel_iters=10, emax=512, ge_subbatch=64, impl="vmem", static_topo=True)
+    hybrid_decode_escalated(arrays, cw.masked_fill(mask[:, :, None], 0), mask, **kw)  # builds
+    torch.cuda.synchronize()
+    return arrays, cw.masked_fill(mask[:, :, None], 0), mask, kw
+
+
+def test_hybrid_sync_spans_count_the_syncs(cuda_device):
+    """One escalated hybrid call: its ``hybrid.sync.*`` spans are the host
+    syncs that torch's sync debug mode reports, and every span has stream
+    time."""
+    arrays, recv, mask, kw = _hybrid_case(cuda_device)
+    profiling.reset()
+    with profiling.recording(), profiling.sync_sites() as sites:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = hybrid_decode_escalated(arrays, recv, mask, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rec = profiling.snapshot()
+    profiling.reset()
+    assert out[4] > 0 and rec["counters"]["hybrid.escalated_frames"] == out[4]
+    syncs = sum(s["calls"] for path, s in rec["spans"].items()
+                if path.rsplit("/", 1)[-1].startswith("hybrid.sync."))
+    assert syncs == len(sites) == 4, sites
+    assert "hybrid.decode/hybrid.ge.compact" in rec["spans"]
+    assert all(s["stream_ms"] > 0 for s in rec["spans"].values()), rec["spans"]
+
+
+@pytest.mark.parametrize("entry", ["hybrid", "rs"])
+def test_top_span_lies_between_device_and_wall_time(cuda_device, entry):
+    """The top span's stream milliseconds lie between the device time the
+    profiler gives the call's kernels, copies and fills, and the call's
+    wall time to its end on the card."""
+    from torch.autograd import DeviceType
+
+    if entry == "hybrid":
+        arrays, recv, mask, kw = _hybrid_case(cuda_device)
+        call, top = (lambda: hybrid_decode_escalated(arrays, recv, mask, **kw)), "hybrid.decode"
+    else:
+        from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_decode_wide, rs_encode
+
+        code = rs_code(255, 192)
+        arrays = code_arrays(code, cuda_device)
+        rng = np.random.default_rng(32)
+        cw = rs_encode(arrays, _random_bytes(rng, (512, code.k, 1024), cuda_device))
+        mask = torch.from_numpy(rng.random((512, code.n)) < 0.1875).to(cuda_device)
+        recv = cw.masked_fill(mask[:, :, None], 0)
+        call, top = (lambda: rs_decode_wide(arrays, recv, mask)), "rs.decode"
+        call()
+        torch.cuda.synchronize()
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rec = profiling.snapshot()
+    profiling.reset()
+    device_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA) / 1e6
+    span = rec["spans"][top]
+    assert span["calls"] == 1 and rec["calls"] == 1
+    assert 0 < device_ms <= span["stream_ms"] <= wall_ms, (device_ms, span, wall_ms)
