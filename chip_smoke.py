@@ -59,6 +59,12 @@ Phases, each fatal on failure:
    ``syndrome_from_topo`` by route (the list route at each slab width Wc,
    asserted at the bucket, and the walk of ``csrc/synd.cu``), each held to
    the plain version, beside ``f2_matvec_wide`` on the same bucket;
+   ``f2_cube`` (``csrc/cube.cu``) at the bucket and at the escalation's
+   shapes (the batch's 128 and 256 widest residual frames, emax 384), held
+   to the plain path it replaces (``erased_indices`` +
+   ``coefficient_cube``) and timed beside it: the kernel's device time by
+   the profiler is the row's ``ms``, the plain path's by CUDA events its
+   ``plain_ms``;
 6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
    (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
    their plain versions at small shapes, bit-exact;
@@ -114,8 +120,8 @@ Phases, each fatal on failure:
    tracking at the FPGA shape (hybrid, W=256, B=2048, the flat handoff with
    the masking fused in the peel kernel), counted, its FER and escalations
    reported, and its stages timed one by one at its shape (channel,
-   source, encode, peel, GE and within it the index and cube build, the
-   elimination, the transform gather, the dense syndrome and the apply,
+   source, encode, peel, GE and within it the cube kernel's indices and
+   cube, the elimination, the transform gather, the dense syndrome and the apply,
    the decode, one sim step; the elimination and the apply held to their
    plain versions on that batch). 9b's rank check is the rank kernel (``csrc/rank.cu``),
    counted; every count of 9a-9c must equal the recorded counts of the
@@ -242,6 +248,7 @@ import ldpc_erasure_codes_tpu_torch
 from ldpc_erasure_codes_tpu_torch.codes import io as codes_io
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import _build, elim, nbmm, peel, rank, synd
+from ldpc_erasure_codes_tpu_torch.ops.cube import f2_cube
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, device_arrays
 from ldpc_erasure_codes_tpu_torch.ops.channel import (
     channel_apply_per64,
@@ -402,6 +409,11 @@ KERNELS = {
         source="ldpc_erasure_codes_tpu_torch/csrc/gfmm.cu",
         replaces="ldpc_erasure_codes_tpu/ops/pallas_nbmm.py:241",
     ),
+    # No Pallas kernel: JAX builds the cube in XLA.
+    "f2_cube": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/cube.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/ge.py:234 (XLA)",
+    ),
 }
 # Where each kernel's launches are counted: (wrapper, attribute). The
 # encode and peel wrappers count their GF(256) mode apart.
@@ -424,6 +436,7 @@ COUNTERS = {
     "ge_rank": (f2_rank_check, "launches"),
     "channel_apply_per64": (channel_apply_per64, "launches"),
     "gf_matmul_batched": (gf_matmul_batched, "launches"),
+    "f2_cube": (f2_cube, "launches"),
 }
 # The research schedules' kernel entries; their GF(256) modes are held to
 # the plain versions under the same entry.
@@ -475,7 +488,7 @@ HORNER_OPS = 7 * XTIME_OPS
 SHIPPED = ("n2040_k1530", "n2000_k1000", "n4000_k2000", "n4080_k3060")
 
 BINARY = ("encode_packed", "peel_decode", "f2_eliminate", "syndrome_from_topo",
-          "f2_matvec_wide", "f2_matmul_batched", "f2_apply_scatter")
+          "f2_matvec_wide", "f2_matmul_batched", "f2_apply_scatter", "f2_cube")
 
 
 def log(msg: str) -> None:
@@ -513,6 +526,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, match: str) -> float:
+    """Device milliseconds per call of the kernels whose name holds
+    ``match``, over ``reps`` calls (after a warm-up call), by the profiler:
+    a kernel far shorter than its wrapper's host time, which back-to-back
+    calls timed by CUDA events would measure instead."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and match in e.name())
+    require(ns > 0, f"the profiler saw no kernel named like {match!r}")
+    return ns / reps / 1e6
 
 
 def host_ms(fn):
@@ -863,6 +896,52 @@ def ge_bucket(path, device):
     return mask, values, erased, sel
 
 
+def cube_bound(arrays, erased, emax: int) -> dict:
+    """Bound of the cube kernel: the mask and the Vlist read once, er_idx,
+    nreal and the cube written once."""
+    b, n = erased.shape
+    m = arrays.m
+    c = -(-emax // 32) + -(-m // 32)
+    return bound(b * n + 4 * m * (arrays.dmax + 1) + 4 * b * (emax + 1 + m * c), 0)
+
+
+def cube_split(arrays, erased, bucket, emax: int, errs: dict) -> dict:
+    """Phase 5, the cube kernel (``csrc/cube.cu``) at the GE bucket and at
+    the escalation's shapes (the batch's widest residual frames, 128 and
+    256 of them, emax 384), held bit-exact to the plain path it replaces
+    on the card (``erased_indices`` + ``coefficient_cube``) and timed
+    beside it: {label: {b, emax, ms, call_ms, plain_ms, bound_ms,
+    bound_by}}, ``ms`` the kernel's device time (the profiler), ``call_ms``
+    and ``plain_ms`` back-to-back calls by CUDA events (the wrapper's host
+    time bounds the first)."""
+    widest = erased[erased.sum(dim=1).argsort(descending=True)]
+    out = {}
+    for label, e, ex in (("bucket", bucket, emax), ("escalation 128", widest[:128], 384),
+                         ("escalation 256", widest[:256], 384)):
+        def plain_path():
+            er_idx, real, nreal = erased_indices(e, ex)
+            return er_idx, nreal, coefficient_cube(arrays, er_idx, real)
+
+        err = outputs_err(f2_cube(arrays, e, emax=ex), plain_path())
+        errs["f2_cube"] = max(errs["f2_cube"], err)
+        require(err == 0, f"{label}: cube kernel != the plain path ({err})")
+        bnd = cube_bound(arrays, e, ex)
+        out[label] = dict(b=e.shape[0], emax=ex,
+                          ms=device_ms(lambda: f2_cube(arrays, e, emax=ex), 20, "cube_kernel"),
+                          call_ms=cuda_ms(lambda: f2_cube(arrays, e, emax=ex), 20),
+                          plain_ms=cuda_ms(plain_path, 5), bound_ms=bnd["bound_ms"],
+                          bound_by=bnd["bound_by"])
+    return out
+
+
+def cube_line(split: dict) -> str:
+    return "; ".join(
+        f"{k} (B={v['b']}, emax {v['emax']}) kernel {v['ms']:.4f} ms (a call "
+        f"{v['call_ms']:.4f} ms), plain path "
+        f"{v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+        for k, v in split.items())
+
+
 def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     """Phase 5 for the GE kernels at phase 4b's shapes (the bucket of the
     first ge_subbatch residual frames), and the hybrid step's stages."""
@@ -879,8 +958,11 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
         er_idx, real, _ = erased_indices(es, ge.emax)
         return coefficient_cube(path.arrays, er_idx, real)
 
-    stages["cube build"] = cuda_ms(build, 5)
-    times, plain = {}, {}
+    stages["cube build (plain path)"] = cuda_ms(build, 5)
+    split = cube_split(path.arrays, erased, es, ge.emax, errs)
+    stages["cube kernel"] = split["bucket"]["ms"]
+    log(f"phase 5: f2_cube: {cube_line(split)}")
+    times, plain = {"f2_cube": split["bucket"]["ms"]}, {"f2_cube": split["bucket"]["plain_ms"]}
     for name, (kern, ref) in ge.kernels().items():
         times[name] = cuda_ms(kern, 5)
         want, plain[name] = host_ms(ref)
@@ -922,7 +1004,7 @@ def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     resid = int(erased.any(dim=1).sum())
     log(f"phase 5: GE bucket {vs.shape[0]} frames ({resid} residual in the batch), max residual "
         f"{int(ge.nreal.max())}, cube {tuple(ge.cube.shape)}")
-    return times, plain, stages, ge.bounds()
+    return times, plain, stages, {**ge.bounds(), "f2_cube": cube_bound(path.arrays, es, ge.emax)}
 
 
 def encode_bound(arrays, b: int, wbytes: int, gf: bool) -> dict:
@@ -1886,7 +1968,7 @@ def sim_9c_stages(device, card: str, errs: dict) -> None:
     sweeps, emax 128, the whole batch in one GE, the masking fused in the
     peel kernel): the channel's mask, the source draw, the encode, the
     peel, the GE and, within it, its steps as ``ge_solve_packed`` runs them
-    (``erased_indices`` with the cube build, the elimination, the transform
+    (the cube kernel's indices and cube, the elimination, the transform
     gather, the dense syndrome, the apply); then the decode and one sim
     step whole. The elimination (both memory modes, with the cuts and
     without) and the apply are held to their plain versions on this
@@ -1914,8 +1996,8 @@ def sim_9c_stages(device, card: str, errs: dict) -> None:
     wa = -(-emax // 32)
 
     def build():
-        er_idx, real, nreal = erased_indices(e, emax)
-        return er_idx, real, nreal, coefficient_cube(arrays, er_idx, real)
+        er_idx, nreal, cube = f2_cube(arrays, e, emax=emax)
+        return er_idx, torch.arange(emax, device=device) < nreal[:, None], nreal, cube
 
     st["GE: indices and cube"] = cuda_ms(build, 5)
     er_idx, real, nreal, cube = build()

@@ -89,6 +89,9 @@ LAUNCHERS = {
     "ldpc_rank_fits": [_I, _I, _I, _I],
     # m, emax
     "ldpc_rank_scratch_words": [_I, _I],
+    # erased, vlist_idx, vlist_len, er_idx, nreal, cube, B, n, m, dmax, emax,
+    # stream
+    "ldpc_cube_launch": [*[_P] * 6, *[_I] * 5, _P],
     # values, out, mask, B, n, W, seed, num, stream
     "ldpc_channel_launch": [*[_P] * 3, *[_I] * 5, _P],
     # values, vlist_idx, vlist_len, out, B, n, m, dmax, W, stream

@@ -9,8 +9,11 @@ Counterpart of ``ldpc_erasure_codes_tpu/ops/ge.py``: ``erased_indices``
 
 1. the packed coefficient cube ``[A | T]``: A holds the erased columns of H
    (``emax`` bit columns, pad slots zero), T the identity that tracks the
-   row operations (m bit columns), built with plain tensor code as in XLA
-   (ge.py:234-251);
+   row operations (m bit columns). XLA builds it with plain tensor code
+   (ge.py:234-251), as :func:`erased_indices` and :func:`coefficient_cube`
+   do here for CPU tensors; for CUDA tensors one kernel writes the same
+   bits from the mask and the Vlist (:func:`.cube.f2_cube`,
+   ``csrc/cube.cu``);
 2. the swap-free elimination of the cube (:mod:`.elim`, ``csrc/elim.cu``),
    which records the pivot row of each column and the failed frames;
 3. the wide values touched once: the syndrome ``rhs = H . y``
@@ -43,6 +46,7 @@ import torch
 
 from ldpc_erasure_codes_tpu_torch.gf.ops import as_words, gf_inv, gf_mul, gf_mul_packed
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, pack_bits
+from ldpc_erasure_codes_tpu_torch.ops.cube import f2_cube
 from ldpc_erasure_codes_tpu_torch.ops.elim import f2_eliminate, gf256_eliminate
 from ldpc_erasure_codes_tpu_torch.ops.encode import from_scalar_words, scalar_words
 from ldpc_erasure_codes_tpu_torch.ops.nbmm import (
@@ -146,9 +150,13 @@ def ge_solve_packed(
     emax = min(emax, n)
     wa = -(-emax // 32)
     with profiling.span("ge.cube"):
-        er_idx, real, nreal = erased_indices(erased, emax)
+        if erased.device.type == "cuda":
+            er_idx, nreal, cube = f2_cube(arrays, erased, emax=emax)
+            real = torch.arange(emax, device=erased.device)[None, :] < nreal[:, None]
+        else:
+            er_idx, real, nreal = erased_indices(erased, emax)
+            cube = coefficient_cube(arrays, er_idx, real)
         overflow = nreal > emax
-        cube = coefficient_cube(arrays, er_idx, real)
     with profiling.span("ge.elim"):
         r, pivrow, failed_k = f2_eliminate(cube, nreal, emax=emax, a_words=wa)
         failed = overflow | failed_k

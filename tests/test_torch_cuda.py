@@ -17,10 +17,17 @@ import pytest
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
-from ldpc_erasure_codes_tpu_torch.ops import channel, elim, nbmm, peel, rank, synd
+from ldpc_erasure_codes_tpu_torch.ops import channel, cube, elim, nbmm, peel, rank, synd
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, pack_bits
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
-from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_rank_check_reference, ge_solve_packed
+from ldpc_erasure_codes_tpu_torch.ops.compact import residual_order
+from ldpc_erasure_codes_tpu_torch.ops.ge import (
+    coefficient_cube,
+    erased_indices,
+    ge_rank_check,
+    ge_rank_check_reference,
+    ge_solve_packed,
+)
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
@@ -31,6 +38,7 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from ldpc_erasure_codes_tpu_torch.utils import golden, profiling, verify
 from torch_port_cases import (  # noqa: F401 (fixture)
+    cube_edge_masks,
     cuda_device,
     random_words,
     rank_edge_masks,
@@ -651,11 +659,13 @@ def test_ge_solve_packed_cuda_matches_cpu(cuda_device, return_rows, static_topo)
     cw, mask = _peeled(code, arrays, 32, 8, 0.2031, 10, 11)
     v, e, _ = peel_decode(arrays, cw, mask, max_iters=10)
     assert e.any()
+    before = cube.f2_cube.launches
     got = ge_solve_packed(arrays, v, e, emax=512, return_rows=return_rows,
                           static_topo=static_topo)
     want = ge_solve_packed(code_arrays(code, "cpu"), v.cpu(), e.cpu(), emax=512,
                            return_rows=return_rows, static_topo=static_topo)
     torch.cuda.synchronize()
+    assert cube.f2_cube.launches == before + 1  # the card builds its cube in the kernel
     ok = ~want[-1]
     for g, w in zip(got, want):
         g = g.cpu()
@@ -682,6 +692,82 @@ def test_hybrid_cuda_matches_cpu(cuda_device, per, peel_iters, tiled):
     torch.testing.assert_close(got[0].cpu()[ok], want[0][ok], rtol=0, atol=0)
     torch.testing.assert_close(got[0].cpu()[ok], cw.cpu()[ok], rtol=0, atol=0)
     _equal([x.cpu() for x in got[1:]], want[1:])
+
+
+def _cube_masks(arrays, kind: str, b: int, emax: int, dev) -> torch.Tensor:
+    """Masks for the cube kernel: "bucket", the hybrid's GE bucket (the
+    first b residual frames of 1024 at PER .2031 after a 10-sweep peel);
+    "widest", the b widest residuals of 2048 such frames (the escalation's
+    frames, some past emax); "iid", b raw i.i.d. masks at PER .25; "edges",
+    :func:`cube_edge_masks`."""
+    rng = np.random.default_rng(b + emax)
+    if kind == "edges":
+        return cube_edge_masks(arrays.n, emax, b).to(dev)
+    if kind == "iid":
+        return torch.from_numpy(rng.random((b, arrays.n)) < 0.25).to(dev)
+    frames = 1024 if kind == "bucket" else 2048
+    mask = torch.from_numpy(rng.random((frames, arrays.n)) < 0.2031).to(dev)
+    e = peel_decode_mask(arrays, mask, max_iters=10)[0]
+    if kind == "bucket":
+        return e[residual_order(e, b)[0]].contiguous()
+    return e[e.sum(dim=1).argsort(descending=True)[:b]].contiguous()
+
+
+@pytest.mark.parametrize("name,kind,b,emax", [
+    ("n2040_k1530", "bucket", 448, 512),
+    ("n2040_k1530", "widest", 8, 384),
+    ("n2040_k1530", "widest", 128, 512),
+    ("n2040_k1530", "widest", 256, 384),
+    ("n2040_k1530", "widest", 256, 512),
+    ("n2040_k1530", "edges", 0, 512),
+    ("n2040_k1530", "edges", 0, 2040),
+    ("n2000_k1000", "iid", 16, 768),
+    ("n2000_k1000", "edges", 0, 1024),
+    ("n4000_k2000", "iid", 8, 1024),
+    ("n4000_k2000", "iid", 4, 4000),
+    ("n4000_k2000", "edges", 0, 128),
+    ("n4080_k3060", "iid", 8, 1024),
+])
+def test_cube_kernel_matches_plain(cuda_device, name, kind, b, emax):
+    """``csrc/cube.cu`` against ``erased_indices`` + ``coefficient_cube``,
+    bit for bit (the pad slots of er_idx and the cube words of overflow
+    frames too), at the hybrid's bucket, the escalation's shapes, the
+    elimination tests' codes and the edge masks (none erased, all erased,
+    word edges, nreal = emax - 1, emax, emax + 1); and its plain twin."""
+    arrays = code_arrays(get_code(name), cuda_device)
+    e = _cube_masks(arrays, kind, b, emax, cuda_device)
+    er_idx, real, nreal = erased_indices(e, emax)
+    want = (er_idx, nreal, coefficient_cube(arrays, er_idx, real))
+    before = cube.f2_cube.launches
+    got = cube.f2_cube(arrays, e, emax=emax)
+    torch.cuda.synchronize()
+    assert cube.f2_cube.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for g, w in zip(cube.f2_cube_reference(arrays, e, emax=emax), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if kind == "edges":  # the bucket one over, and all erased, overflow where emax < n
+        assert bool((nreal > emax).any()) == (emax < arrays.n)
+
+
+def test_cube_kernel_empty_batch_and_counter(cuda_device):
+    """B = 0 launches nothing and returns empty outputs; the wrapper counts
+    its frames under ``ge.cube_kernel_frames`` while recording."""
+    arrays = code_arrays(get_code("n2040_k1530"), cuda_device)
+    before = cube.f2_cube.launches
+    er_idx, nreal, c = cube.f2_cube(arrays, torch.zeros((0, arrays.n), dtype=torch.bool,
+                                                        device=cuda_device), emax=512)
+    assert cube.f2_cube.launches == before
+    assert er_idx.shape == (0, 512) and nreal.shape == (0,) and c.shape == (0, 510, 32)
+    e = cube_edge_masks(arrays.n, 512, 3).to(cuda_device)
+    profiling.reset()
+    with profiling.recording():
+        cube.f2_cube(arrays, e, emax=512)
+    rec = profiling.snapshot()
+    profiling.reset()
+    assert rec["counters"]["ge.cube_kernel_frames"] == e.shape[0]
+    assert cube.f2_cube.launches == before + 1
 
 
 # GF(256): byte frames, four bytes to a word in the kernels.
@@ -1401,6 +1487,8 @@ def test_hybrid_sync_spans_count_the_syncs(cuda_device):
     rec = profiling.snapshot()
     profiling.reset()
     assert out[4] > 0 and rec["counters"]["hybrid.escalated_frames"] == out[4]
+    assert rec["counters"]["ge.cube_kernel_frames"] == (
+        64 + rec["counters"]["hybrid.escalation_frames_padded"])
     syncs = sum(s["calls"] for path, s in rec["spans"].items()
                 if path.rsplit("/", 1)[-1].startswith("hybrid.sync."))
     assert syncs == len(sites) == 4, sites

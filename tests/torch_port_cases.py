@@ -137,3 +137,21 @@ def window_cascade(arrays, width: int = 16) -> tuple[int, int, int, int]:
                     if f != e and f not in nbs[c1] and min(checks[f]) == c2:
                         return e, f, c1, c2
     raise ValueError("no two checks of one window cascade")
+
+
+def cube_edge_masks(n: int, emax: int, seed: int) -> torch.Tensor:
+    """Erasure masks at the GE cube's edges, on the CPU, (B, n) bool: none
+    erased; all erased; 31, 32 and 33 erasures (a word of columns, one
+    short, one over); emax - 1, emax and emax + 1 (the bucket one short,
+    full, one over; counts past n dropped); and one frame at random at
+    20%. ``emax`` is clamped to n."""
+    rng = np.random.default_rng(seed)
+    emax = min(emax, n)
+    rows = [np.zeros(n, dtype=bool), np.ones(n, dtype=bool)]
+    for count in sorted({31, 32, 33, emax - 1, emax, emax + 1}):
+        if 0 <= count <= n:
+            row = np.zeros(n, dtype=bool)
+            row[rng.choice(n, count, replace=False)] = True
+            rows.append(row)
+    rows.append(rng.random(n) < 0.2)
+    return torch.from_numpy(np.stack(rows))
