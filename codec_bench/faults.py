@@ -17,6 +17,20 @@ check fails them.
   lost one where there is one) is flipped in every 64th frame, from an offset
   that moves with the call, as a race or a stale buffer would show: a frame's
   last call may be a sound one.
+
+A simulation mix (``POOL = "sim"``) returns counters, not frames; each kind
+has a meaning there, and every one applies:
+
+* ``half_width``, the control: the program's step with a decoder stopped
+  short, ``max_iters`` 5 (its histogram read in the cell's bins), which
+  breaks the guarantee that the peel recovers every frame outside the
+  erasures' stopping set;
+* ``unchanged``: the counters as they start, as if no batch ran;
+* ``half_batch``: half of the call's batches run, their counters doubled;
+* ``altered``: one more block error at every visit of call 0;
+* ``writes_input``: the counters of the next call index, as a stale buffer
+  would hand back;
+* ``flaky``: one more block error on every third call.
 """
 
 from __future__ import annotations
@@ -44,10 +58,39 @@ def _cat(a: Out, b: Out, dim: int) -> Out:
     return Out(cat(a.values, b.values), cat(a.erased, b.erased), cat(a.failed, b.failed))
 
 
+def _sim(kind: str, mix, state):
+    """The simulation step of ``mix`` broken as ``kind`` says."""
+    bins = state.cfg.decoder.max_iters + 1
+    other = {"half_width": lambda: mix.variant(state, max_iters=5),
+             "half_batch": lambda: mix.variant(state, steps_per_call=state.cfg.steps_per_call // 2)}
+    broken = other[kind]() if kind in other else state
+    calls = [0]
+
+    def call(j):
+        calls[0] += 1
+        if kind == "writes_input":
+            j = (j + 1) % state.pool_calls
+        s = mix.call(broken, j)
+        if kind == "half_width":
+            return s._replace(iters_hist=torch.nn.functional.pad(
+                s.iters_hist, (0, bins - s.iters_hist.shape[0])))
+        if kind == "half_batch":
+            return s._make(2 * t for t in s)
+        if kind == "unchanged":
+            return s._make(torch.zeros_like(t) for t in s)
+        if (kind == "altered" and j == 0) or (kind == "flaky" and calls[0] % 3 == 0):
+            return s._replace(block_errors=s.block_errors + 1)
+        return s
+
+    return call
+
+
 def wrap(kind: str, mix, state):
     """The entry of ``mix`` broken as ``kind`` says."""
     if kind not in KINDS:
         raise ValueError(f"unknown fault {kind!r}; one of {KINDS}")
+    if mix.POOL == "sim":
+        return _sim(kind, mix, state)
     calls = [0]
 
     def call(*inputs):

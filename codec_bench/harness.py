@@ -8,12 +8,16 @@ Set-up builds a pool of batches on the card from the seed: for a receive mix,
 source drawn and encoded by the program, then the lost symbols zeroed, with
 their masks (the program never sees a codeword before its loss); for a send
 mix, the source. It digests every pool frame, then warms up by one call on
-each pool batch.
+each pool batch. A simulation mix (``POOL = "sim"``) holds no values: its
+pool is the call indices 0..P-1 of the program's simulation step, seeded by
+the run's seed, each of which draws and decodes its own batches, the same
+work at every visit.
 
 The window is a closed loop with one batch in flight, for ``--seconds`` and at
 least once round the pool: a call of the entry on the next pool batch, then
-one host sync at which the per-frame failure flags reach the host. A batch's
-time runs from its call to that sync (CUDA events on the stream). Before
+one host sync at which the per-frame failure flags (a simulation's counters)
+reach the host. A batch's time runs from its call to that sync (CUDA events
+on the stream). Before
 waiting, the harness enqueues the check's share of the call, behind the
 batch's end: ``sample_frames`` of its frames, a digest of the symbols each
 delivers and its erasures, each held on the card against what the frame's
@@ -23,7 +27,10 @@ After the window: the peak memory, the pool's digests against set-up's, then
 the reference (:mod:`codec_bench.reference`) draws the inputs again from the
 seed, encodes them itself and decides which frames a decoder must recover. It
 compares every flag the window returned, and the digest and erasures of every
-frame sampled. The guard against JAX comes last, after the metric readers.
+frame sampled. For a simulation, the reference (:mod:`codec_bench.reference.sim`)
+draws each pool call's masks again and works out its counters; every visit's
+counters are compared with them. The guard against JAX comes last, after the
+metric readers.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 from codec_bench import digest, faults, port, trace, traffic
 from codec_bench.reference import codes as ref_codes
 from codec_bench.reference import recovery
+from codec_bench.reference import sim as ref_sim
 
 BENCH_ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(BENCH_ROOT)
@@ -55,6 +63,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "ldpc_erasure_codes_tpu")
 SYNC_WARNING = "called a synchronizing CUDA operation"
 CHECKS = ("flag_mismatch", "value_mismatch", "value_unstable", "erasure_mismatch",
           "input_mismatch", "pool_changed", "batches_unchecked")
+SIM_CHECKS = ("stats_mismatch", "batches_unchecked")
 REF_BLOCK_BYTES = 256 << 20
 
 
@@ -296,6 +305,30 @@ def reference_check(cell: Cell, root: str, seed: int, mult, sampler: Sampler, di
     return out
 
 
+def sim_check(cell: Cell, root: str, seed: int, visits: list, device) -> tuple[dict, np.ndarray]:
+    """The check's counts for a simulation mix, and the reference's counters
+    summed over the pool's calls."""
+    ref = ref_sim.Campaign(cell.traffic, cell.config, root, device)
+    out = dict.fromkeys(SIM_CHECKS, 0)
+    total = 0
+    for j, got in enumerate(visits):
+        want = ref.counters(seed, j)
+        total = total + want
+        out["stats_mismatch"] += sum(int(not np.array_equal(v, want)) for v in got)
+        out["batches_unchecked"] += int(not got)
+    return out, total
+
+
+def sim_summary(total: np.ndarray, pool_calls: int) -> str:
+    """FER, RS window FER and mean iterations over the pool's calls."""
+    c = dict(zip(ref_sim.FIELDS, total))
+    hist = total[len(ref_sim.FIELDS) - 1:]
+    return (f"over the pool's {pool_calls} calls ({c['frames']} frames): FER "
+            f"{c['block_errors'] / c['frames']:.6g} ({c['block_errors']} block errors), RS window "
+            f"FER {c['rs_block_errors'] / max(c['rs_blocks'], 1):.6g}, mean iterations "
+            f"{float(np.arange(len(hist)) @ hist) / max(hist.sum(), 1):.6g}")
+
+
 def device_info(device: torch.device, peak: int) -> dict:
     if device.type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
@@ -314,17 +347,26 @@ def run_cell(name: str, *, seed: int, seconds: float, traced: bool, device: torc
     t, code_cfg = cell.traffic, cell.config["code"]
     b, n, k = t["batch"], code_cfg["n"], code_cfg["k"]
     words = cell.config["symbol_bytes"] // 4
-    state = cell.mix.setup(cell.config, device)
-    marks.append(("program", time.perf_counter()))
-    mult = digest.multipliers(n, words, device)
-    pool, digests = build_pool(cell, state, seed, mult, device)
+    sim = cell.mix.POOL == "sim"
+    pinned = device.type == "cuda"
+    if sim:
+        state = cell.mix.setup(cell.config, device, t, seed)
+        marks.append(("program", time.perf_counter()))
+        pool, sampler = [(j,) for j in range(t["pool_calls"])], None
+        # The eight scalar counters, then the max_iters + 1 bins of the histogram.
+        host_flags = torch.empty((len(ref_sim.FIELDS) + t["decoder"]["max_iters"],),
+                                 dtype=torch.int64, pin_memory=pinned)
+    else:
+        state = cell.mix.setup(cell.config, device)
+        marks.append(("program", time.perf_counter()))
+        mult = digest.multipliers(n, words, device)
+        pool, digests = build_pool(cell, state, seed, mult, device)
+        sampler = Sampler(cell, seed, mult, device)
+        host_flags = torch.empty((b,), dtype=torch.bool, pin_memory=pinned)
     marks.append(("pool", time.perf_counter()))
     entry = faults.wrap(fault, cell.mix, state) if fault else (lambda *x: cell.mix.call(state, *x))
-    sampler = Sampler(cell, seed, mult, device)
     clock = Clock(device)
     syncs = SyncCounter() if traced and device.type == "cuda" else None
-    pinned = device.type == "cuda"
-    host_flags = torch.empty((b,), dtype=torch.bool, pin_memory=pinned)
     rf = torch.profiler.record_function
 
     def step(j: int, sample: bool = True) -> tuple[float, np.ndarray | None]:
@@ -337,7 +379,7 @@ def run_cell(name: str, *, seed: int, seconds: float, traced: bool, device: torc
             if fl is not None:
                 host_flags.copy_(fl, non_blocking=pinned)
             clock.mark()
-        if sample:  # enqueued behind the mark, while the card still works
+        if sample and sampler:  # enqueued behind the mark, while the card still works
             with rf("codec.check"):
                 sampler.take(j, out)
         with rf("codec.sync"):
@@ -348,7 +390,8 @@ def run_cell(name: str, *, seed: int, seconds: float, traced: bool, device: torc
         step(j)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    sampler.reset()
+    if sampler:
+        sampler.reset()
     if syncs:
         syncs.count = 0
     marks.append(("warm-up", time.perf_counter()))
@@ -376,24 +419,32 @@ def run_cell(name: str, *, seed: int, seconds: float, traced: bool, device: torc
     syncs_per_call = syncs.count / len(lat) if syncs else None
     if prof is not None and trace_dir:
         export_slice(step, len(pool), trace_dir, name, seed)
-    changed = pool_changed(pool, digests, mult)
+    changed = 0 if sim else pool_changed(pool, digests, mult)
     del pool, state, entry
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    checks = reference_check(cell, root, seed, mult, sampler, digests, flags, device)
-    checks["pool_changed"] = changed
-    checks["value_unstable"] = int(sampler.unstable)
+    if sim:
+        checks, total = sim_check(cell, root, seed, flags, device)
+    else:
+        checks = reference_check(cell, root, seed, mult, sampler, digests, flags, device)
+        checks["pool_changed"] = changed
+        checks["value_unstable"] = int(sampler.unstable)
     t_check = time.perf_counter() - t_check
 
     batches = len(lat)
     window_s = t1 - t0
-    frames = batches * b
-    flagged = sum(int(f.sum()) for fs in flags for f in fs if f is not None)
-    print(f"cell {name} seed {seed}: {batches} batches of {b} frames in {window_s:.3f} s; "
-          f"set-up {t0 - t_start:.3f} s; FER {flagged / frames:.6g} ({flagged} of {frames} "
-          f"frames flagged); frames compared {int(sampler.covered.sum())} of "
-          f"{sampler.covered.size} in the pool; the reference took {t_check:.3f} s", file=log)
+    frames = batches * b * t.get("steps_per_call", 1)
+    if sim:
+        print(f"cell {name} seed {seed}: {batches} calls of {frames // batches} frames in "
+              f"{window_s:.3f} s; set-up {t0 - t_start:.3f} s; {sim_summary(total, len(flags))}; "
+              f"the reference took {t_check:.3f} s", file=log)
+    else:
+        flagged = sum(int(f.sum()) for fs in flags for f in fs if f is not None)
+        print(f"cell {name} seed {seed}: {batches} batches of {b} frames in {window_s:.3f} s; "
+              f"set-up {t0 - t_start:.3f} s; FER {flagged / frames:.6g} ({flagged} of {frames} "
+              f"frames flagged); frames compared {int(sampler.covered.sum())} of "
+              f"{sampler.covered.size} in the pool; the reference took {t_check:.3f} s", file=log)
     q = np.percentile(lat, [5, 25, 50, 75, 95])
     print("batch ms: p5 {:.4f} p25 {:.4f} p50 {:.4f} p75 {:.4f} p95 {:.4f}; wall per batch {:.4f} ms"
           .format(*q, 1e3 * window_s / batches), file=log)
@@ -406,10 +457,11 @@ def run_cell(name: str, *, seed: int, seconds: float, traced: bool, device: torc
             "setup_s": {"value": t0 - t_start, "unit": "s"},
         }
     dev = device_info(device, peak)
+    failed = (checks["stats_mismatch"] if sim else checks["flag_mismatch"]
+              + checks["value_mismatch"] + checks["value_unstable"]
+              + checks.get("erasure_mismatch", 0))
     result = {"correct": all(v == 0 for v in checks.values()), "attempted": frames,
-              "failed": checks["flag_mismatch"] + checks["value_mismatch"]
-              + checks["value_unstable"] + checks.get("erasure_mismatch", 0),
-              "metrics": metrics, "device": dev}
+              "failed": failed, "metrics": metrics, "device": dev}
     readers = metric_readers(root)
     if summary is not None:
         view = RunView(cell.mix.LAYER, b, n, k, words, dev["kind"], summary, syncs_per_call)

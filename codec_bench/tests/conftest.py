@@ -2,7 +2,8 @@
 
 Every cell gets a twin ``<cell>_t`` at a size the CPU runs in seconds: its
 configuration with 16-byte symbols, its traffic with 8 frames a batch, 2 pool
-batches and every frame checked at each visit. The codes, the mixes, the
+batches and every frame checked at each visit (a simulation's: 16 frames a
+batch, 2 batches a call, 2 pool calls). The codes, the mixes, the
 metric readers and the reference are the benchmark's own.
 """
 
@@ -25,6 +26,16 @@ CELLS = sorted(os.path.basename(p)[: -len(".json")]
                for p in glob.glob(os.path.join(BENCH, "workloads", "*.json")))
 
 
+def _is_sim(cell: str) -> bool:
+    with open(os.path.join(BENCH, "workloads", f"{cell}.json")) as f:
+        traffic = json.load(f)["traffic"]
+    with open(os.path.join(BENCH, "traffic", f"{traffic}.json")) as f:
+        return json.load(f)["mix"].startswith("sim")
+
+
+SIM_CELLS = [c for c in CELLS if _is_sim(c)]
+
+
 def small_copy(dst: str) -> str:
     """Copy the benchmark's data into ``dst`` and add the ``_t`` twins."""
     for sub in ("configs", "traffic", "workloads", "mixes", "metrics"):
@@ -42,7 +53,8 @@ def small_copy(dst: str) -> str:
                 json.dump(obj, f)
 
     twin("configs", lambda c: c.update(symbol_bytes=16))
-    twin("traffic", lambda t: t.update(batch=8, pool_batches=2, sample_frames=8))
+    twin("traffic", lambda t: t.update(batch=16, steps_per_call=2, pool_calls=2)
+         if t["mix"].startswith("sim") else t.update(batch=8, pool_batches=2, sample_frames=8))
     twin("workloads", lambda w: w.update(config=w["config"] + "_t", traffic=w["traffic"] + "_t"))
     return dst
 

@@ -18,6 +18,7 @@ from conftest import BENCH, REPO
 
 from codec_bench import digest, harness, port, traffic
 from codec_bench.reference import codes, recovery
+from codec_bench.reference import sim as ref_sim
 
 LDPC = json.load(open(os.path.join(BENCH, "configs", "ldpc2040_k1530_s8192.json")))
 RS = json.load(open(os.path.join(BENCH, "configs", "rs255_k192_s8192.json")))
@@ -161,8 +162,8 @@ def test_digest_sees_one_bit():
 
 class _Trace:
     window_s, busy_s = 2.0, 1.5
-    range_device_s = {"peel": 0.5, "encode": 0.5}
-    range_calls = {"peel": 100, "encode": 100}
+    range_device_s = {"peel": 0.5, "encode": 0.5, "sim": 4.0}
+    range_calls = {"peel": 100, "encode": 100, "sim": 16}
 
 
 @pytest.mark.parametrize("metric, layer, expect", [
@@ -178,3 +179,83 @@ def test_roofline_byte_counts(metric, layer, expect):
     other = harness.RunView("rs", 2048, 2040, 1530, 256, "NVIDIA H100 80GB HBM3", _Trace(), None)
     if metric != "device.idle_pct":
         assert readers[metric].read(other) is None
+
+
+SIM = json.load(open(os.path.join(BENCH, "traffic", "sim_peel.per1875.json")))
+
+
+def sim_traffic(**changes) -> dict:
+    t = json.loads(json.dumps(SIM))
+    decoder = {k: changes.pop(k) for k in ("max_iters", "early_stop_k") if k in changes}
+    t["decoder"].update(decoder)
+    t["loss"]["per"] = changes.pop("per", t["loss"]["per"])
+    t.update(changes)
+    return t
+
+
+def program_sim_step(t: dict, seed: int):
+    from ldpc_erasure_codes_tpu_torch import sim
+
+    cfg = sim.SimConfig(code=LDPC["code"]["port_name"], batch=t["batch"], symbol_words=1,
+                        channel=sim.ChannelConfig(kind="iid", per=t["loss"]["per"]),
+                        decoder=sim.DecoderConfig(kind="peel", max_iters=t["decoder"]["max_iters"],
+                                                  early_stop_k=t["decoder"]["early_stop_k"]),
+                        seed=seed, track_values=False, steps_per_call=t["steps_per_call"])
+    return cfg, sim.make_sim_step(cfg.code, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("seed, call, j", [(0, 0, 0), (2**31 + 12345, 3, 1), (2**33 + 7, 0xFFFFFFF, 15)])
+def test_sim_draw_is_the_steps(seed, call, j):
+    """The reference's copy of the step's draw: the batch's generator seed
+    and its i.i.d. mask."""
+    from ldpc_erasure_codes_tpu_torch.sim import driver
+
+    t = sim_traffic(batch=16)
+    cfg, _ = program_sim_step(t, seed)
+    want = driver._erasure_mask(driver.batch_generator(seed, call, j, CPU), cfg, 2040, 0.1875, CPU)
+    assert torch.equal(ref_sim.losses(seed, call, j, (16, 2040), 0.1875, CPU), want)
+    assert ref_sim.batch_seed(seed, call, j) == driver.batch_generator(seed, call, j, CPU).initial_seed()
+
+
+@pytest.mark.parametrize("changes", [
+    {},  # the cell's point: most batches run every sweep
+    {"per": 0.05},  # every frame clears its first k: the batch stops early
+    {"per": 0.3},  # stalls: the batch stops when a sweep resolves nothing
+    {"max_iters": 5},  # the cap cuts the peel short
+    {"early_stop_k": False, "per": 0.15},  # the stop waits for all n
+], ids=["per1875", "per05", "per30", "cap5", "all_n"])
+def test_sim_counters_match_the_step(changes):
+    """Every counter of the program's step, the histogram included, equals
+    the reference's for the same seed and call."""
+    t = sim_traffic(batch=24, steps_per_call=2, **changes)
+    seed = 2**31 + 99
+    _, step = program_sim_step(t, seed)
+    ref = ref_sim.Campaign(t, LDPC, BENCH, CPU)
+    for call in (0, 1):
+        got = step(call, t["loss"]["per"])
+        flat = torch.cat([x.reshape(-1).to(torch.int64) for x in got]).numpy()
+        assert np.array_equal(ref.counters(seed, call), flat), call
+        assert len(got.iters_hist) == t["decoder"]["max_iters"] + 1
+
+
+def test_sim_check_counts_visits_and_unrun_calls():
+    cell = harness.Cell.load(BENCH, "sim.table1_peel")
+    cell.traffic.update(batch=8, steps_per_call=1, pool_calls=3)
+    ref = ref_sim.Campaign(cell.traffic, cell.config, BENCH, CPU)
+    good = [ref.counters(5, j) for j in range(3)]
+    bad = good[1].copy()
+    bad[-1] += 1
+    checks, total = harness.sim_check(cell, BENCH, 5, [[good[0]], [good[1], bad, good[1]], []], CPU)
+    assert checks == {"stats_mismatch": 1, "batches_unchecked": 1}
+    assert np.array_equal(total, sum(good))
+
+
+def test_sim_readers():
+    readers = harness.metric_readers(BENCH)
+    view = harness.RunView("sim", 4096, 2040, 1530, 256, "NVIDIA H100 80GB HBM3", _Trace(), 1617.25)
+    assert readers["sim.device_ms"].read(view) == pytest.approx(250.0)
+    assert readers["sim.syncs_per_call"].read(view) == 1617.25
+    other = harness.RunView("hybrid", 1024, 2040, 1530, 256, "NVIDIA H100 80GB HBM3", _Trace(), 4.0)
+    assert readers["sim.device_ms"].read(other) is None
+    assert readers["sim.syncs_per_call"].read(other) is None
+    assert readers["hybrid.syncs_per_batch"].read(view) is None

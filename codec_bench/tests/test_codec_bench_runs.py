@@ -11,7 +11,7 @@ import time
 
 import pytest
 import torch
-from conftest import CELLS
+from conftest import CELLS, SIM_CELLS
 
 from codec_bench import faults, harness, port
 
@@ -48,12 +48,23 @@ def test_writing_the_input_is_seen(small_root):
     assert not r["correct"] and r["checks"]["pool_changed"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", [c for c in CELLS if c not in SIM_CELLS])
 def test_a_fault_on_some_calls_is_seen(small_root, cell):
     """Frames altered on every third call: whatever their last call
     returned, the window's calls disagree."""
     r = rehearse(small_root, cell, "flaky")
     assert not r["correct"] and r["checks"]["value_unstable"]["value"] > 0, r["checks"]
+
+
+@pytest.mark.parametrize("cell", SIM_CELLS)
+@pytest.mark.parametrize("fault", ["flaky", "altered"])
+def test_a_simulation_wrong_on_some_visits_is_seen(small_root, cell, fault):
+    """Counters off by one block error on some visits only: each such visit
+    is a mismatch, and the others are not."""
+    r = rehearse(small_root, cell, fault)
+    visits = r["attempted"] // 32  # the twin's calls: 2 batches of 16 frames
+    assert 0 < r["checks"]["stats_mismatch"]["value"] < visits, r["checks"]
+    assert r["failed"] == r["checks"]["stats_mismatch"]["value"]
 
 
 def test_jax_loaded_after_the_window_is_refused(small_root, tmp_path):

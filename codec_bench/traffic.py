@@ -17,6 +17,14 @@ A traffic file, ``traffic/<name>.json``, holds
   source): for a decoder whose work depends on rare heavy patterns, so that
   every run does the same work.
 
+A simulation mix (``mixes/sim_peel.py``) draws nothing here: the program's
+simulation step draws its own batches from the run's seed, and the reference
+draws them again (:mod:`codec_bench.reference.sim`). Its file holds ``mix``,
+``batch``, ``steps_per_call`` (batches a call of the step runs and sums),
+``pool_calls`` (the call indices the window cycles through), ``loss`` (i.i.d.
+only), ``pattern_only`` and the ``decoder`` (``kind``, ``max_iters``,
+``early_stop_k``).
+
 Every draw comes from its own generator on the card, seeded from
 (``--seed``, pool batch, stream), so a seed gives the same inputs whatever
 the mix draws first, and the reference draws them again after the window.
@@ -36,7 +44,7 @@ STREAMS = {"source": 0, "loss": 1, "sample": 2, "order": 3}
 def load(root: str, name: str) -> dict:
     with open(os.path.join(root, "traffic", f"{name}.json")) as f:
         t = json.load(f)
-    if t["batch"] % t["sample_frames"]:
+    if "sample_frames" in t and t["batch"] % t["sample_frames"]:
         raise ValueError(f"traffic {name}: sample_frames must divide batch")
     return t
 
