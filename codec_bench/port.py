@@ -11,6 +11,7 @@ import hashlib
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,12 @@ class Out(NamedTuple):
     failed: torch.Tensor | None
 
 
+def gf256(config: dict) -> bool:
+    """Whether the configuration's code is a GF(256) LDPC lift, whose
+    entries take a frame's int32 words as bytes and ``gf_order=256``."""
+    return config["code"]["kind"] == "ldpc" and config["code"].get("gf_order", 2) == 256
+
+
 def sha256(path: str) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
@@ -31,7 +38,9 @@ def sha256(path: str) -> str:
 
 def check_code_files(config: dict, bench_root: str, repo_root: str) -> None:
     """The frozen code file and the program's copy must both have the
-    digest the configuration records."""
+    digest the configuration records. For a GF(256) lift, the frozen lift
+    file must have its recorded digest too, and the program's coefficients
+    for ``port_name`` must equal the file's."""
     code = config["code"]
     if code["kind"] != "ldpc":
         return
@@ -39,6 +48,21 @@ def check_code_files(config: dict, bench_root: str, repo_root: str) -> None:
         got = sha256(path)
         if got != code["sha256"]:
             raise ValueError(f"{path}: sha256 {got}, the configuration records {code['sha256']}")
+    lift = code.get("lift")
+    if lift is None:
+        return
+    path = os.path.join(bench_root, lift["file"])
+    got = sha256(path)
+    if got != lift["sha256"]:
+        raise ValueError(f"{path}: sha256 {got}, the configuration records {lift['sha256']}")
+    from ldpc_erasure_codes_tpu_torch.codes.io import get_code
+
+    program = get_code(code["port_name"])
+    with np.load(path) as z:
+        frozen = z["vlist_val"]
+    if program.gf_order != code["gf_order"] or not np.array_equal(program.vlist_val, frozen):
+        raise ValueError(f"{code['port_name']}: the program's GF({program.gf_order}) coefficients "
+                         f"differ from {path}")
 
 
 def code_arrays(config: dict, device: torch.device):
@@ -56,10 +80,13 @@ def code_arrays(config: dict, device: torch.device):
 
 
 def encode(config: dict, arrays, source: torch.Tensor) -> torch.Tensor:
-    """The program's systematic encode of (B, k, W) int32 source words."""
+    """The program's systematic encode of (B, k, W) int32 source words; a
+    GF(256) code encodes their bytes."""
     if config["code"]["kind"] == "ldpc":
         from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
 
+        if gf256(config):
+            return encode_packed(arrays, source.view(torch.uint8), gf_order=256).view(torch.int32)
         return encode_packed(arrays, source)
     from ldpc_erasure_codes_tpu_torch.rs.decode import rs_encode
 

@@ -1,4 +1,4 @@
-"""The two codes and their systematic encoders, worked out from first principles.
+"""The codes and their systematic encoders, worked out from first principles.
 
 A codeword is ``[source | parity]``: the k source symbols first, then the
 m = n - k parity symbols. Every symbol is ``W`` int32 words (``4W`` bytes).
@@ -6,15 +6,22 @@ m = n - k parity symbols. Every symbol is ``W`` int32 words (``4W`` bytes).
 * Binary LDPC: ``H = [Hs | Hp]`` from the frozen ``.npz`` (its Vlist: each
   check's neighbour columns). ``H c = 0`` gives ``parity = Hp^-1 Hs source``
   over GF(2), the same map on every bit of a symbol.
+* GF(256) LDPC, a lift of a binary one: the same Vlist, each 1 of H replaced
+  by the coefficient that the frozen lift file (``vlist_val``) holds in its
+  place. ``H c = 0`` gives ``parity = P^T source`` over GF(2^8) with
+  ``P = (Hp^-1 Hs)^T``, on every byte of a symbol.
 * RS(n, k) over GF(2^8): the Vandermonde generator ``G[r, c] = alpha^(r c)``,
   its systematic form ``inv(G[:, :k]) G = [I | P]``, ``parity = P^T source``
   on every byte of a symbol.
 
-Both parity maps become one dense 0/1 matrix ``A`` over the bits of an
-element (a bit for the binary code, a byte's 8 bits for RS), so one encoder
-serves both: unpack the source's bits, one matrix product, reduce mod 2, pack.
-The products are exact: every sum is an integer below 2048, which float16
-and float32 hold exactly.
+Every parity map becomes one dense 0/1 matrix ``A`` over the bits of an
+element (a bit for the binary code, a byte's 8 bits for the GF(2^8) codes), so
+one encoder serves all: unpack the source's bits, one matrix product, reduce
+mod 2, pack. The products are exact: the contraction is cut into pieces of at
+most ``EXACT_SUM`` = 2048 bits, so every sum is an integer of at most 2048,
+which float16 and float32 hold exactly, and the pieces' parities are added mod
+2. The binary code (1530 bits) and RS (8 · 192 = 1536) take one piece; the
+lifted (2040, 1530) code sums over 8 · 1530 = 12,240 bits and takes six.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# The longest sum float16 holds exactly: every integer up to 2^11 is a float16.
+EXACT_SUM = 2048
 
 
 def read_vlist(path: str) -> tuple[int, int, np.ndarray, np.ndarray]:
@@ -44,10 +53,24 @@ def read_vlist(path: str) -> tuple[int, int, np.ndarray, np.ndarray]:
     return n, k, idx, ln
 
 
-def parity_check(n: int, idx: np.ndarray) -> np.ndarray:
-    """(m, n) uint8 H from the padded Vlist."""
+def read_lift(path: str, idx: np.ndarray, n: int) -> np.ndarray:
+    """(m, dmax) GF(256) coefficients of a lift ``.npz`` (``vlist_val``) on
+    the padded Vlist ``idx``: nonzero on its support, 0 on its padding."""
+    with np.load(path) as z:
+        val = np.asarray(z["vlist_val"])
+    support = idx < n
+    if val.shape != idx.shape or val.dtype != np.uint8:
+        raise ValueError(f"{path}: vlist_val is {val.dtype} {val.shape}, not uint8 {idx.shape}")
+    if np.any(val[support] == 0) or np.any(val[~support] != 0):
+        raise ValueError(f"{path}: a zero coefficient on the Vlist's support, or padding not 0")
+    return val
+
+
+def parity_check(n: int, idx: np.ndarray, values: np.ndarray | int = 1) -> np.ndarray:
+    """(m, n) uint8 H from the padded Vlist: 1 on its support, or the
+    coefficients ``values`` (m, dmax) of a lift."""
     h = np.zeros((idx.shape[0], n + 1), dtype=np.uint8)
-    h[np.arange(idx.shape[0])[:, None], idx] = 1
+    h[np.arange(idx.shape[0])[:, None], idx] = values
     return h[:, :n]
 
 
@@ -111,10 +134,18 @@ class GF256:
             if rows[0] != c:
                 aug[[c, rows[0]]] = aug[[rows[0], c]]
             aug[c] = self.mul(self.inv(aug[c, c]), aug[c])
-            f = aug[:, c].copy()
-            f[c] = 0
-            aug ^= self.mul(f[:, None], aug[c][None, :])
+            hit = np.flatnonzero(aug[:, c])
+            hit = hit[hit != c]  # the rows that hold column c; the others stay
+            aug[hit] ^= self.mul(aug[hit, c][:, None], aug[c][None, :])
         return aug[:, m:]
+
+    def tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """(65536,) uint8 products, ``a * b`` at ``256 a + b``, and (256,)
+        uint8 inverses (0 at 0)."""
+        a = np.arange(256)
+        mul = self.mul(a[:, None], a[None, :]).astype(np.uint8).reshape(-1)
+        inv = np.where(a == 0, 0, self.inv(a)).astype(np.uint8)
+        return mul, inv
 
 
 def rs_parity(n: int, k: int, gf: GF256) -> np.ndarray:
@@ -126,20 +157,34 @@ def rs_parity(n: int, k: int, gf: GF256) -> np.ndarray:
     return gs[:, k:]
 
 
+def ldpc_parity_gf256(h: np.ndarray, k: int, gf: GF256) -> np.ndarray:
+    """(k, m) P = (Hp^-1 Hs)^T of a GF(256) H = [Hs | Hp], so that
+    ``parity = P^T source``. Column c of ``Hp^-1 Hs`` is the sum of
+    ``Hp^-1[:, i] * Hs[i, c]`` over the few nonzeros of Hs's column c: one
+    product a nonzero, never the (m, m, k) intermediate of a dense product."""
+    m = h.shape[0]
+    hp_inv = gf.inverse(h[:, k:].astype(np.int64))
+    r, c = np.nonzero(h[:, :k])
+    p = np.zeros((k, m), dtype=np.int64)
+    np.bitwise_xor.at(p, c, gf.mul(hp_inv[:, r], h[r, c][None, :]).T)
+    return p
+
+
 def binary_image(p: np.ndarray, gf: GF256) -> np.ndarray:
     """(8m, 8k) 0/1 matrix of ``parity = P^T source`` on bytes: entry
     ``(8j + o, 8i + b)`` is bit o of ``P[i, j] * 2^b``."""
     k, m = p.shape
-    prod = gf.mul(p[:, :, None], (1 << np.arange(8))[None, None, :])  # (i, j, b)
-    bits = (prod[..., None] >> np.arange(8)) & 1  # (i, j, b, o)
-    return bits.transpose(1, 3, 0, 2).reshape(8 * m, 8 * k).astype(np.uint8)
+    prod = gf.mul(p[:, :, None], (1 << np.arange(8))[None, None, :]).astype(np.uint8)  # (i, j, b)
+    bits = np.unpackbits(prod[..., None], axis=-1, bitorder="little")  # (i, j, b, o)
+    return bits.transpose(1, 3, 0, 2).reshape(8 * m, 8 * k)
 
 
 @dataclasses.dataclass
 class Code:
     """A systematic code as the reference sees it: ``n``, ``k``, the parity
     map ``a`` over element bits, ``element_bits`` (1: a bit, 8: a byte), and
-    for LDPC codes the padded Vlist (``vlist``, pad n) and ``h``."""
+    for LDPC codes the padded Vlist (``vlist``, pad n) and either ``h``
+    (binary) or ``h_nb``, the (m, n) GF(256) coefficients of a lift."""
 
     n: int
     k: int
@@ -147,6 +192,7 @@ class Code:
     element_bits: int
     vlist: np.ndarray | None = None
     h: np.ndarray | None = None
+    h_nb: np.ndarray | None = None
 
     @property
     def m(self) -> int:
@@ -174,7 +220,11 @@ class Code:
             x = bits.reshape(f, k, 32 * w)
         else:
             x = bits.permute(0, 1, 3, 2).reshape(f, 8 * k, 4 * w)
-        y = torch.matmul(a, x.to(a.dtype)).to(torch.int32) & 1
+        x = x.to(a.dtype)
+        y = None
+        for s in range(0, a.shape[1], EXACT_SUM):  # sums of at most EXACT_SUM, each exact
+            part = torch.matmul(a[:, s : s + EXACT_SUM], x[:, s : s + EXACT_SUM]).to(torch.int32) & 1
+            y = part if y is None else y ^ part
         if self.element_bits == 1:
             y = y.reshape(f, self.m, 4 * w, 8)
         else:
@@ -185,10 +235,16 @@ class Code:
 
 def load(code: dict, root: str) -> Code:
     """The reference :class:`Code` of a configuration's ``code`` block:
-    ``{"kind": "ldpc", "file": <frozen .npz under root>}`` or
-    ``{"kind": "rs", "n": .., "k": ..}``."""
+    ``{"kind": "ldpc", "file": <frozen .npz under root>}``, with
+    ``"gf_order": 256`` and ``"lift": {"file": <frozen lift .npz under root>}``
+    for a GF(256) lift, or ``{"kind": "rs", "n": .., "k": ..}``."""
     if code["kind"] == "ldpc":
         n, k, idx, _ = read_vlist(os.path.join(root, code["file"]))
+        if code.get("gf_order", 2) == 256:
+            gf = GF256.frozen()
+            h_nb = parity_check(n, idx, read_lift(os.path.join(root, code["lift"]["file"]), idx, n))
+            p = ldpc_parity_gf256(h_nb, k, gf)
+            return Code(n, k, binary_image(p, gf), 8, vlist=idx, h_nb=h_nb)
         h = parity_check(n, idx)
         a = gf2_solve(h[:, k:], h[:, :k])
         return Code(n, k, a, 1, vlist=idx, h=h)

@@ -6,7 +6,10 @@
   of the checks. A peel that stops once the first k symbols are known, or
   after a sweep that resolves nothing, leaves exactly that set's first k.
 * ``ml_rank``: maximum-likelihood decoding recovers a frame iff the erased
-  columns of H are independent over GF(2).
+  columns of H are independent over the code's field: GF(2), or GF(256) for
+  a lift. Over GF(256) the test runs on the peel's fixed point: a check with
+  one erased neighbour makes that column independent of the others, so the
+  erasures are independent iff what the peel leaves is.
 * ``mds``: RS(n, k) recovers a frame iff it lost at most n - k symbols.
 """
 
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from codec_bench.reference.codes import Code
+from codec_bench.reference.codes import GF256, Code
 
 
 def peel_closure(code: Code, mask: torch.Tensor) -> torch.Tensor:
@@ -35,6 +38,8 @@ def peel_closure(code: Code, mask: torch.Tensor) -> torch.Tensor:
 
 def ml_rank(code: Code, mask: torch.Tensor) -> torch.Tensor:
     """(F,) bool: True where the erased columns of H are independent."""
+    if code.h_nb is not None:
+        return gf256_rank(code, peel_closure(code, mask))
     f, n = mask.shape
     m = code.m
     dev = mask.device
@@ -63,6 +68,40 @@ def ml_rank(code: Code, mask: torch.Tensor) -> torch.Tensor:
         used[ar, piv] |= found
         rank += found
     return ok & (rank == count)
+
+
+def gf256_rank(code: Code, mask: torch.Tensor) -> torch.Tensor:
+    """(F,) bool: True where the erased columns of the GF(256) ``h_nb`` are
+    independent over GF(256). Forward elimination, frames side by side: the
+    erased columns in index order, the pivot of column c swapped into row c,
+    and column c cleared from the rows below it. A frame is independent iff
+    every one of its columns finds a pivot."""
+    count = mask.sum(dim=1)
+    ok = count <= code.m
+    live = torch.nonzero(ok & (count > 0)).squeeze(1)
+    if live.numel() == 0:
+        return ok
+    dev = mask.device
+    mul, inv = (torch.from_numpy(t).to(dev) for t in GF256.frozen().tables())
+    count = count[live]
+    rows = int(count.max())
+    order = torch.argsort((~mask[live]).to(torch.uint8), dim=1, stable=True)[:, :rows]
+    real = torch.arange(rows, device=dev)[None, :] < count[:, None]
+    h = torch.from_numpy(code.h_nb).to(dev)  # (m, n) uint8
+    a = (h[:, order] * real).permute(1, 0, 2).contiguous()  # (f, m, rows)
+    ar = torch.arange(live.numel(), device=dev)
+    full = torch.ones_like(count, dtype=torch.bool)
+    for c in range(rows):
+        nz = a[:, c:, c] != 0
+        full &= nz.any(dim=1) | (count <= c)  # past a frame's count: its padding
+        piv = c + nz.to(torch.uint8).argmax(dim=1)
+        prow = a[ar, piv, c:]
+        a[ar, piv, c:] = a[ar, c, c:]
+        prow = mul[(inv[prow[:, :1].long()].to(torch.int32) << 8) | prow]  # pivot 1; 0 where none
+        fac = a[:, c + 1:, c].to(torch.int32) << 8
+        a[:, c + 1:, c:] ^= mul[fac[:, :, None] | prow[:, None, :]]
+    ok[live] = full
+    return ok
 
 
 def mds(code: Code, mask: torch.Tensor) -> torch.Tensor:
