@@ -123,7 +123,12 @@ Phases, each fatal on failure:
    source, encode, peel, GE and within it the cube kernel's indices and
    cube, the elimination, the transform gather, the dense syndrome and the apply,
    the decode, one sim step; the elimination and the apply held to their
-   plain versions on that batch). 9b's rank check is the rank kernel (``csrc/rank.cu``),
+   plain versions on that batch). 9a's peel is the mask kernel
+   (``csrc/peel_mask.cu``), counted, one launch a batch, also held to the
+   plain route at 9a's batch (B=4096, 50 sweeps, first-k stop) and timed
+   beside it and its byte bound, and one call of 9a's step lists its host
+   syncs by site (none the peel's) and launches it once a batch.
+   9b's rank check is the rank kernel (``csrc/rank.cu``),
    counted; every count of 9a-9c must equal the recorded counts of the
    same seeds (``RECORDED_COUNTS``);
 10. the last three kernels against their plain versions, bit-exact: the
@@ -299,6 +304,7 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_jacobi,
     peel_decode_jacobi_reference,
     peel_decode_mask,
+    peel_decode_mask_reference,
     peel_decode_wide,
     peel_decode_with_history,
     peel_step_gather,
@@ -312,7 +318,7 @@ from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode, rs_systematic_ge
 from ldpc_erasure_codes_tpu_torch.rs import stream as rs_stream
 from ldpc_erasure_codes_tpu_torch.rs.stream import RSStream, chunk_scalar, run_stream
 from ldpc_erasure_codes_tpu_torch.utils import cli
-from ldpc_erasure_codes_tpu_torch.utils import native, verify
+from ldpc_erasure_codes_tpu_torch.utils import native, profiling, verify
 from ldpc_erasure_codes_tpu_torch.utils.device import (
     card_info,
     cuda_device,
@@ -414,6 +420,11 @@ KERNELS = {
         source="ldpc_erasure_codes_tpu_torch/csrc/cube.cu",
         replaces="ldpc_erasure_codes_tpu/ops/ge.py:234 (XLA)",
     ),
+    # No Pallas kernel: JAX runs the pattern-only peel's loop in XLA.
+    "peel_decode_mask": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel_mask.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/peel.py:382 (XLA)",
+    ),
 }
 # Where each kernel's launches are counted: (wrapper, attribute). The
 # encode and peel wrappers count their GF(256) mode apart.
@@ -437,6 +448,7 @@ COUNTERS = {
     "channel_apply_per64": (channel_apply_per64, "launches"),
     "gf_matmul_batched": (gf_matmul_batched, "launches"),
     "f2_cube": (f2_cube, "launches"),
+    "peel_decode_mask": (peel_decode_mask, "launches"),
 }
 # The research schedules' kernel entries; their GF(256) modes are held to
 # the plain versions under the same entry.
@@ -1884,16 +1896,97 @@ def hybrid_sim_config(code):
                                                    ge_subbatch=4096 // 8))
 
 
-def sim_phase(device, card: str, launches: dict, errs: dict) -> dict:
+def peel_mask_row(device, card: str, launches: dict, errs: dict, times: dict, plain: dict,
+                  bounds: dict) -> None:
+    """Phase 9a, the pattern-only peel kernel (``csrc/peel_mask.cu``) at the
+    simulation's batch (B=4096, PER .1875, 50 sweeps, first-k stop): held to
+    the plain route on the same masks, timed beside it (the kernels' device
+    time by the profiler, the call by CUDA events), its sweeps read from
+    ``peel.mask_sweeps``; then one call of 9a's simulation step under the
+    sync debug mode, whose host syncs are listed by site (none may be the
+    peel's)."""
+    code = get_code("n2040_k1530")
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1875)
+    b, n = 4096, code.n
+    mask = iid_erasures((b, n), SIM_PER, generator=gen, device=device)
+    kw = dict(max_iters=50, early_stop_k=code.k)
+    zero_counts()
+    profiling.reset()
+    with profiling.recording():
+        got = peel_decode_mask(arrays, mask, **kw)
+    rec = profiling.snapshot()["counters"]
+    profiling.reset()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["peel_decode_mask"] == 1, f"the mask peel launched {counts} times")
+    add_counts(launches, counts)
+    want, plain_ms = host_ms(lambda: peel_decode_mask_reference(arrays, mask, **kw))
+    err = outputs_err(got, want)
+    errs["peel_decode_mask"] = max(errs["peel_decode_mask"], err)
+    require(err == 0, f"9a shape: mask peel kernel != the plain route ({err})")
+    sweeps = rec["peel.mask_sweeps"]
+    ms = device_ms(lambda: peel_decode_mask(arrays, mask, **kw), 20, "peel_mask_kernel")
+    call_ms = cuda_ms(lambda: peel_decode_mask(arrays, mask, **kw), 20)
+    # Bytes: each mask byte read once, each residual byte and count written
+    # once. The sweeps are a serial chain of shared-memory loads a group, far
+    # from the INT32 rate: their latency is the gap to this bound.
+    bnd = bound(b * (2 * n + 4), 0)
+    times["peel_decode_mask"], plain["peel_decode_mask"] = ms, plain_ms
+    bounds["peel_decode_mask"] = bnd
+    log(f"phase 9a: peel_decode_mask at B={b}, PER {SIM_PER}, 50 sweeps, first-k stop: the "
+        f"batch ran {sweeps} sweeps; kernels {ms:.4f} ms (profiler), call {call_ms:.4f} ms "
+        f"(CUDA events), plain route {plain_ms:.1f} ms; bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}: {bnd['bytes']:.4g} bytes); bit-exact; on {card}")
+    step = sim.make_sim_step(code, cli.sim_config(cli.parser().parse_args(SIM_9A)),
+                             device=device)
+    zero_counts()
+    step(0, SIM_PER)
+    torch.cuda.synchronize()
+    add_counts(launches, read_counts())
+    zero_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with profiling.sync_sites() as sites:
+            step(1, SIM_PER)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["peel_decode_mask"] == 16,
+            f"one call of 9a's step launched the mask peel {counts['peel_decode_mask']} times, "
+            f"not once for each of its 16 batches")
+    add_counts(launches, counts)
+    by_site = {site: sites.count(site) for site in sorted(set(sites))}
+    log(f"phase 9a: host syncs in one call of the simulation step (16 batches, 16 mask peel "
+        f"launches): {len(sites)} {json.dumps(by_site)}")
+    require(not any("peel_jacobi" in site for site in sites), "the mask peel synced the host")
+
+
+def sim_phase(device, card: str, launches: dict, errs: dict, times: dict, plain: dict,
+              bounds: dict) -> dict:
     """Phase 9: the FER simulation at (2040,1530), PER .1875. Returns 9a's
     point."""
     argv = SIM_9A
     log(f"phase 9a: cli {' '.join(argv)}")
+    torch.cuda.synchronize()
+    zero_counts()
     (p,) = run_cli(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # One batch of 4096 a launch: the measured calls' batches and the warm-up
+    # call's 16.
+    batches = p["frames"] // 4096 + 16
+    require(counts["peel_decode_mask"] == batches,
+            f"9a's sim launched the mask peel {counts['peel_decode_mask']} times, not once for "
+            f"each of its {batches} batches")
+    add_counts(launches, counts)
     log(f"phase 9a: peel FER {p['fer']:.4e} (band {PEEL_FER}), RS FER {p['rs_fer']:.4e} "
         f"(band {RS_FER}), mean iterations {p['mean_iters']:.3f} (band {PEEL_ITERS}), "
         f"escalations {p['escalations']}, {p['frames']} frames, "
-        f"{p['frames_per_sec']:.1f} frames/s on {card}")
+        f"{p['frames_per_sec']:.1f} frames/s; mask peel launches {counts['peel_decode_mask']} "
+        f"({batches} batches with the warm-up call's) on {card}")
     require(in_band(p["fer"], PEEL_FER), f"9a peel FER {p['fer']} outside {PEEL_FER}")
     require(in_band(p["rs_fer"], RS_FER), f"9a RS FER {p['rs_fer']} outside {RS_FER}")
     require(in_band(p["mean_iters"], PEEL_ITERS),
@@ -1902,6 +1995,7 @@ def sim_phase(device, card: str, launches: dict, errs: dict) -> dict:
     require((p["frames"], p["block_errors"], p["rs_block_errors"]) == RECORDED_COUNTS["9a"],
             f"9a counts {p['frames']}, {p['block_errors']}, {p['rs_block_errors']} differ from "
             f"the recorded {RECORDED_COUNTS['9a']}")
+    peel_mask_row(device, card, launches, errs, times, plain, bounds)
 
     code = get_code("n2040_k1530")
     cfg = hybrid_sim_config(code)
@@ -3092,7 +3186,7 @@ def main() -> None:
     gf_matmul_phase(rs_ge, card, errs, times, plain, bounds, launches)
     del rs_ge
     schedule_phase(device, card, errs, times, plain, bounds, launches)
-    sim_9a = sim_phase(device, card, launches, errs)
+    sim_9a = sim_phase(device, card, launches, errs, times, plain, bounds)
     rank_phase(device, card, errs, times, plain, bounds)
     channel_phase(device, card, errs, times, plain, bounds)
     decoder_top_phase(device, card, launches)

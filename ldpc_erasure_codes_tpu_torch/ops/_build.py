@@ -92,6 +92,9 @@ LAUNCHERS = {
     # erased, vlist_idx, vlist_len, er_idx, nreal, cube, B, n, m, dmax, emax,
     # stream
     "ldpc_cube_launch": [*[_P] * 6, *[_I] * 5, _P],
+    # erased, vlist_idx, vlist_len, clist_idx, clist_len, scratch,
+    # erased_out, iters_out, B, n, m, dmax, cmax, k_stop, max_iters, stream
+    "ldpc_peel_mask_launch": [*[_P] * 8, *[_I] * 7, _P],
     # values, out, mask, B, n, W, seed, num, stream
     "ldpc_channel_launch": [*[_P] * 3, *[_I] * 5, _P],
     # values, vlist_idx, vlist_len, out, B, n, m, dmax, W, stream

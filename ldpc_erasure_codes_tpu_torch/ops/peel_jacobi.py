@@ -10,7 +10,9 @@ and ``seq_blocks`` (:func:`peel_decode_jacobi`), its single sweeps
 simulation) and ``peel_decode_with_history`` (:436-462), and
 ``ops/peel_wide.py::peel_decode_wide`` (:92-176, the decoder that
 ``hybrid.py:109-115`` runs on wide frames, with its ``split``). They are
-plain tensor code here too, on the card as on the CPU.
+plain tensor code here too, on the card as on the CPU, except
+:func:`peel_decode_mask`, which launches ``csrc/peel_mask.cu`` for CUDA
+tensors (:func:`peel_decode_mask_reference` is its plain version).
 
 The Jacobi sweep (:func:`jacobi_sweep`) is shared by
 :func:`peel_decode_jacobi`, with the JAX functions' batch-wide stop, and
@@ -48,8 +50,10 @@ from typing import Callable
 import torch
 
 from ldpc_erasure_codes_tpu_torch.gf.ops import gf_mul_packed
+from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import from_scalar_words, scalar_words
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 
 Sweep = Callable[[torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
 
@@ -509,6 +513,49 @@ def mask_sweep(arrays: CodeArrays, erased: torch.Tensor) -> torch.Tensor:
     return erased & ~(touched > 0)
 
 
+def _check_mask(arrays: CodeArrays, erased: torch.Tensor, max_iters: int,
+                early_stop_k: int | None) -> int:
+    n = erased.shape[-1]
+    if (erased.dtype != torch.bool or erased.dim() != 2 or n != arrays.n
+            or erased.device != arrays.device):
+        raise ValueError(f"erased must be (B, {arrays.n}) bool on {arrays.device}, got "
+                         f"{tuple(erased.shape)} {erased.dtype} on {erased.device}")
+    if max_iters < 0:
+        raise ValueError(f"max_iters={max_iters} must be >= 0")
+    k_stop = n if early_stop_k is None else int(early_stop_k)
+    if not 0 <= k_stop <= n:
+        raise ValueError(f"early_stop_k={early_stop_k} outside 0..{n}")
+    return k_stop
+
+
+def peel_decode_mask_reference(
+    arrays: CodeArrays,
+    erased: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`peel_decode_mask` (peel.py:382-433): sweeps
+    of :func:`mask_sweep` inside :func:`batch_loop`, two host reads a
+    sweep. Returns (residual mask, iters)."""
+    k_stop = _check_mask(arrays, erased, max_iters, early_stop_k)
+    _, er, iters = batch_loop(
+        lambda v, e: (v, mask_sweep(arrays, e)), erased, erased,
+        max_iters=max_iters, k_stop=k_stop,
+    )
+    return er, iters
+
+
+def _mask_smem(arrays: CodeArrays) -> int:
+    """Shared memory a block of ``csrc/peel_mask.cu`` takes: the group's
+    words and the checks' words, each with a zero pad, then the Vlist and
+    the Clist as uint16."""
+    n, m, dmax = arrays.n, arrays.m, arrays.dmax
+    cmax = arrays.clist_idx.shape[1]
+    r16 = _build.round16
+    return r16(4 * (n + 1)) + r16(4 * (m + 1)) + r16(2 * m * dmax) + r16(2 * n * cmax)
+
+
 def peel_decode_mask(
     arrays: CodeArrays,
     erased: torch.Tensor,
@@ -517,15 +564,48 @@ def peel_decode_mask(
     early_stop_k: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pattern-only peeling (peel.py:382-433): the mask evolves as in the
-    value decode, which it does not depend on. Returns (residual mask,
-    iters)."""
+    value decode, which it does not depend on. Returns (residual mask (B,
+    n) bool, iters (B,) int32), with the JAX loop's batch-wide stop.
+
+    CPU tensors take :func:`peel_decode_mask_reference`; CUDA tensors launch
+    ``csrc/peel_mask.cu`` (or raise), which decides the stop on the card:
+    no host read. ``peel_decode_mask.launches`` counts the calls that
+    launch it (its two kernels as one)."""
+    k_stop = _check_mask(arrays, erased, max_iters, early_stop_k)
+    if erased.device.type == "cpu":
+        return peel_decode_mask_reference(arrays, erased, max_iters=max_iters,
+                                          early_stop_k=early_stop_k)
+    if erased.device.type != "cuda":
+        raise ValueError(f"unsupported device {erased.device}")
     b, n = erased.shape
-    if erased.dtype != torch.bool or n != arrays.n or erased.device != arrays.device:
-        raise ValueError(f"erased must be (B, {arrays.n}) bool on {arrays.device}, got "
-                         f"{tuple(erased.shape)} {erased.dtype} on {erased.device}")
-    k_stop = n if early_stop_k is None else int(early_stop_k)
-    _, er, iters = batch_loop(
-        lambda v, e: (v, mask_sweep(arrays, e)), erased, erased,
-        max_iters=max_iters, k_stop=k_stop,
-    )
-    return er, iters
+    m, dev = arrays.m, erased.device
+    if n % 4 or n >= 65535 or m >= 65535 or _mask_smem(arrays) > _build.SMEM_LIMIT:
+        raise ValueError(f"the mask kernel reads rows as 32-bit words and stages the Vlist and "
+                         f"the Clist as uint16 in shared memory: n={n} (a multiple of 4), m={m} "
+                         f"(< 65535 each), {_mask_smem(arrays)} bytes (<= {_build.SMEM_LIMIT})")
+    erased = erased.contiguous()
+    if erased.data_ptr() % 4:
+        erased = erased.clone()
+    groups = -(-b // 32)
+    # Each group's words, then max d, max c and T.
+    scratch = torch.empty((groups * n + 3,), dtype=torch.int32, device=dev)
+    er_out = torch.empty((b, n), dtype=torch.bool, device=dev)
+    iters = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return er_out, iters
+    with torch.cuda.device(dev):
+        rc = _build.library().ldpc_peel_mask_launch(
+            erased.data_ptr(), arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
+            arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(), scratch.data_ptr(),
+            er_out.data_ptr(), iters.data_ptr(), b, n, m, arrays.dmax, arrays.clist_idx.shape[1],
+            k_stop, max_iters, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "ldpc_peel_mask_launch")
+    peel_decode_mask.launches += 1
+    if profiling.enabled():
+        profiling.count("peel.mask_kernel_frames", b)
+        profiling.count("peel.mask_sweeps", scratch[-1])
+    return er_out, iters
+
+
+peel_decode_mask.launches = 0

@@ -64,7 +64,10 @@ def batch_stats(
     by the MDS property a rate-matched RS(rs_n, rs_k) window fails iff it
     holds more than rs_n - rs_k channel erasures (paper tex:220), counted
     per window (MessagePassingAlgSim.m:199-205, :240). Iteration counts
-    outside 0..max_iters land in the end bins.
+    outside 0..max_iters land in the end bins. Nothing here reads the card:
+    the histogram is counted into ``max_iters + 1`` zeros (``torch.bincount``
+    reads the largest count on the host) and the constants are filled on the
+    device (``torch.tensor`` copies from the host and waits for the stream).
     """
     b, n = erased_in.shape
     dev = erased_in.device
@@ -74,12 +77,14 @@ def batch_stats(
         nwin = n // rs_n
         cnt = erased_in.reshape(b, nwin, rs_n).sum(dim=2)
         rs_errs = (cnt > rs_n - rs_k).sum()
-        rs_blocks = torch.tensor(b * nwin, dtype=torch.int64, device=dev)
+        rs_blocks = torch.full((), b * nwin, dtype=torch.int64, device=dev)
     else:
         rs_errs = rs_blocks = zero
-    hist = torch.bincount(iters.clamp(0, max_iters).long(), minlength=max_iters + 1)
+    bins = iters.clamp(0, max_iters).long()
+    hist = torch.zeros((max_iters + 1,), dtype=torch.int64, device=dev)
+    hist.index_add_(0, bins, torch.ones_like(bins))
     return SimStats(
-        frames=torch.tensor(b, dtype=torch.int64, device=dev),
+        frames=torch.full((), b, dtype=torch.int64, device=dev),
         block_errors=scope.any(dim=1).sum(),
         rs_block_errors=rs_errs,
         rs_blocks=rs_blocks,

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
+from ldpc_erasure_codes_tpu_torch.codes.toy import toy_code
 from ldpc_erasure_codes_tpu_torch.ops import channel, cube, elim, nbmm, peel, rank, synd
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, pack_bits
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
@@ -768,6 +769,128 @@ def test_cube_kernel_empty_batch_and_counter(cuda_device):
     profiling.reset()
     assert rec["counters"]["ge.cube_kernel_frames"] == e.shape[0]
     assert cube.f2_cube.launches == before + 1
+
+
+# The pattern-only peel (csrc/peel_mask.cu): the batch-wide stop on the card.
+
+# (code, B, PER, max_iters, first-k stop): the simulation's batch both ways,
+# ragged batches, every budget from none to 200, each shipped code and the
+# GF(256) lift, whose masks peel as the binary code's.
+PEEL_MASK_CASES = [
+    ("n2040_k1530", 4096, 0.1875, 50, True),
+    ("n2040_k1530", 4096, 0.1875, 50, False),
+    *[("n2040_k1530", b, 0.1875, 50, True) for b in (1, 31, 33, 4097)],
+    *[("n2040_k1530", 512, 0.1875, it, True) for it in (0, 1, 2, 5, 200)],
+    ("n4000_k2000", 256, 0.44, 200, True),
+    ("n4000_k2000", 256, 0.44, 200, False),
+    ("n2000_k1000", 256, 0.4, 50, False),
+    ("n4080_k3060", 256, 0.2, 50, True),
+    ("n2040_k1530_gf256", 256, 0.2031, 10, False),
+]
+
+
+def _peel_mask_both(code, dev, mask: torch.Tensor, **kw):
+    """(kernel's outputs on the host, the CPU route's), the kernel counted
+    once."""
+    before = peel_decode_mask.launches
+    got = peel_decode_mask(code_arrays(code, dev), mask.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert peel_decode_mask.launches == before + 1
+    want = peel_decode_mask(code_arrays(code, "cpu"), mask.cpu(), **kw)
+    return [g.cpu() for g in got], want
+
+
+@pytest.mark.parametrize("name,b,per,max_iters,early", PEEL_MASK_CASES)
+def test_peel_mask_kernel_matches_cpu(cuda_device, name, b, per, max_iters, early):
+    code = get_code(name)
+    mask = torch.from_numpy(np.random.default_rng(b + max_iters).random((b, code.n)) < per)
+    got, want = _peel_mask_both(code, cuda_device, mask, max_iters=max_iters,
+                                early_stop_k=code.k if early else None)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("per,max_iters,stop", [(0.05, 50, "done"), (0.3, 50, "stall"),
+                                                (0.1875, 5, "cap")])
+def test_peel_mask_kernel_stop_rules(cuda_device, per, max_iters, stop):
+    """One batch that ends on each of the loop's three stops; the kernel's
+    sweeps (``peel.mask_sweeps``) say which, and its frames are counted."""
+    code = get_code("n2040_k1530")
+    mask = torch.from_numpy(np.random.default_rng(17).random((1024, code.n)) < per)
+    profiling.reset()
+    with profiling.recording():
+        got, want = _peel_mask_both(code, cuda_device, mask, max_iters=max_iters,
+                                    early_stop_k=code.k)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    _equal(got, want)
+    sweeps = counters["peel.mask_sweeps"]
+    assert counters["peel.mask_kernel_frames"] == 1024
+    left = bool(want[0][:, :code.k].any())
+    if stop == "cap":
+        assert sweeps == max_iters
+    else:
+        assert sweeps < max_iters and left == (stop == "stall")
+
+
+@pytest.mark.parametrize("kind", ["misaligned", "ragged_n"])
+def test_peel_mask_kernel_word_rows(cuda_device, kind):
+    """The kernel reads and writes rows as 32-bit words: a mask 1 byte past
+    a word boundary is copied to an aligned one first, and a code whose n
+    is no multiple of 4 is refused."""
+    if kind == "ragged_n":
+        code = toy_code(n=101, k=60, seed=3)
+        mask = torch.zeros((70, code.n), dtype=torch.bool, device=cuda_device)
+        before = peel_decode_mask.launches
+        with pytest.raises(ValueError, match="multiple of 4"):
+            peel_decode_mask(code_arrays(code, cuda_device), mask, max_iters=30)
+        assert peel_decode_mask.launches == before
+        return
+    code = get_code("n2040_k1530")
+    mask = torch.from_numpy(np.random.default_rng(9).random((70, code.n)) < 0.25)
+    flat = torch.empty(mask.numel() + 1, dtype=torch.bool, device=cuda_device)
+    dev_mask = flat[1:].view(mask.shape)
+    dev_mask.copy_(mask)
+    assert dev_mask.data_ptr() % 4 == 1
+    for early in (code.k, None):
+        got, want = _peel_mask_both(code, cuda_device, dev_mask, max_iters=30, early_stop_k=early)
+        _equal(got, want)
+
+
+def test_peel_mask_kernel_no_host_sync_and_empty_batch(cuda_device):
+    """The wrapper reads nothing back (the sync debug mode raises on a sync);
+    B = 0 launches nothing."""
+    arrays = code_arrays(get_code("n2040_k1530"), cuda_device)
+    mask = torch.rand((4096, arrays.n), device=cuda_device) < 0.1875
+    before = peel_decode_mask.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        peel_decode_mask(arrays, mask, max_iters=50, early_stop_k=1530)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    e, it = peel_decode_mask(arrays, mask[:0], max_iters=50)
+    torch.cuda.synchronize()
+    assert peel_decode_mask.launches == before + 1
+    assert e.shape == (0, arrays.n) and it.shape == (0,)
+
+
+def test_sim_step_pattern_only_peel_reads_nothing_back(cuda_device):
+    """A call of the pattern-only peel's simulation step (16 batches) makes
+    no host sync: the peel's stop and the counters stay on the card."""
+    from ldpc_erasure_codes_tpu_torch import sim
+
+    cfg = sim.SimConfig(code="n2040_k1530", batch=4096, track_values=False, steps_per_call=16,
+                        decoder=sim.DecoderConfig(kind="peel", max_iters=50, early_stop_k=True))
+    step = sim.make_sim_step("n2040_k1530", cfg, device=cuda_device)
+    step(0, 0.1875)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stats = step(1, 0.1875)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(stats.frames) == 16 * 4096 and int(stats.iters_hist.sum()) == 16 * 4096
 
 
 # GF(256): byte frames, four bytes to a word in the kernels.
