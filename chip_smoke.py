@@ -22,19 +22,21 @@ Phases, each fatal on failure:
    ``f2_matvec_wide``'s list route and each apply at its preferred slab
    width (asserted);
 4. the main path at full width through the entry points a user calls
-   (``bench.MainPath``): (2040,1530), B=2048, W=256, PER 0.1406, first-k
-   early stop, 50 sweeps at most. The launch counters are zeroed just
-   before and read just after; the first decode is verified bit-exactly
-   (``utils/verify.py::check_peel``, which also holds 8 frames' masks and
-   sweeps to the NumPy oracle ``utils/oracle.py``, its seconds logged),
-   then 10 reps are timed with CUDA events;
-4b. the hybrid path at full width (``bench.HybridPath``, the GE-hot point
-   of scripts/bench_hybrid_values.py): (2040,1530), B=1024, W=256, PER
+   (``encode_packed``, ``iid_erasures``, ``peel_decode``): (2040,1530),
+   B=2048, W=256, PER 0.1406, first-k early stop, 50 sweeps at most. The
+   launch counters are zeroed just before and read just after; the decode
+   is verified bit-exactly (``utils/verify.py::check_peel``, which also
+   holds 8 frames' masks and sweeps to the NumPy oracle
+   ``utils/oracle.py``, its seconds logged). The benchmark's cell
+   ``ldpc2040.rx_peel.per1406`` times this path (``codec_bench/``);
+4b. the hybrid path at full width (``hybrid_decode``, the GE-hot point of
+   scripts/bench_hybrid_values.py): (2040,1530), B=1024, W=256, PER
    .2031, 10 peel sweeps, emax 512, a GE bucket of 448 frames, the rows
    written back with the topology syndrome (on ``f2_matvec_wide``'s list
    route, counted as ``syndrome_from_topo``: no dense syndrome is counted).
-   Counters zeroed before, read after; the first decode verified
-   (``check_hybrid``), then 5 reps timed;
+   Counters zeroed before, read after; the decode verified
+   (``check_hybrid``). The cell ``ldpc2040.rx_hybrid.per2031`` times the
+   hybrid;
 4c. ``hybrid_decode_escalated`` through ``compact_ge_solve`` with buckets
    too small for the batch (emax 128, 64 frames), so escalation fires;
    verified, and held against the production branch on the same mask;
@@ -68,10 +70,9 @@ Phases, each fatal on failure:
 6. GF(256): the GF(256) modes of encode and peel, the GF(256) elimination
    (both cube modes), ``gf_matvec_wide`` and ``gf_apply_scatter`` against
    their plain versions at small shapes, bit-exact;
-6a. the NB main path (``bench.NBPath``): ``n2040_k1530_gf256``, B=512,
-   1024-byte symbols, PER .1406, first-k early stop; counted, verified
-   (``check_nb``, with the oracle's GF(256) peel on 8 frames), 5 reps
-   timed;
+6a. the NB main path: ``n2040_k1530_gf256``, B=512, 1024-byte symbols,
+   PER .1406, first-k early stop; counted, verified (``check_nb``, with the
+   oracle's GF(256) peel on 8 frames), 5 reps timed (no cell runs it yet);
 6b. the NB hybrid, production knobs (10 sweeps, emax 128, bucket 64; its
    GE is the plain byte Gauss-Jordan ``ge_solve``); counted, verified
    (``check_hybrid``), 3 reps timed;
@@ -81,25 +82,24 @@ Phases, each fatal on failure:
    ``gf256_eliminate`` on its GE operands (held to the plain version, and
    its column steps alone, as in phase 6d) and ``gf_apply_scatter`` (as in
    phase 6d's split), and ``ge_solve``'s stage time;
-6d. RS(255,192) wide decode (``bench.RSPath``), B=1024, 1024-byte
+6d. RS(255,192) wide decode (``rs_decode_wide``), B=1024, 1024-byte
    payloads: verified on ``verify_rs``'s pattern (e = 1..63, one frame at
-   64 that must fail, ``check_rs``), then the i.i.d. PER .15 and the e=63
-   systematic legs timed; the three GF(256) GE kernels launch on every
-   decode; ``gf256_eliminate`` on the i.i.d. batch's GE operands in both
-   cube modes, and its column steps alone (the cubes' A block replaced by
-   the identity: each column's pivot search, table build and pivot row,
-   no other row updated);
+   64 that must fail, ``check_rs``) and on e=63 systematic erasures; the
+   three GF(256) GE kernels launch on every decode (the cell
+   ``rs255.rx.per1875`` times it); ``gf256_eliminate`` on the i.i.d.
+   batch's GE operands in both cube modes, and its column steps alone (the cubes' A block replaced by the identity: each column's
+   pivot search, table build and pivot row, no other row updated);
 7. each GF(256) kernel's time against its plain version's: encode and peel
    (with the schedule kernel, the Wc widths and the splits, as in phase 5)
    at phase 6a's shapes, the GE kernels at phase 6d's i.i.d. batch (``gf_matvec_wide``
    on its dense route: the RS H's tiles; 6c's LDPC Vlist takes the list
    route; ``gf_apply_scatter`` at each tile size R, its placed rows per
    frame, its fused copy alone beside a ``clone`` and its rows alone);
-8. the ``throughput`` command by peel schedule (``bench.ThroughputPath``,
-   ``bench.make_throughput_step``): (2040,1530), B=2048, W=256, PER
-   .1406, first-k early stop, for each of "seq", "unrolled", "counted",
-   "grouped" and "jacobi"; counted and timed per schedule, and the step's
-   digest timed apart. On one fixed
+8. the ``throughput`` command's step by peel schedule
+   (``utils/cli.py::make_throughput_step``): (2040,1530), B=2048, W=256,
+   PER .1406, first-k early stop, for each of "seq", "unrolled",
+   "counted", "grouped" and "jacobi", and once with ``impl="xla"``; one
+   call each, counted, and the step's digest timed apart. On one fixed
    batch the three research kernels ("counted", "grouped" and "jacobi",
    visit orders of ``csrc/peel.cu``'s schedule kernel before its slab value
    kernel) are held against their plain versions on the whole batch,
@@ -239,11 +239,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ldpc_erasure_codes_tpu_torch import bench, sim
+from ldpc_erasure_codes_tpu_torch import sim
 from ldpc_erasure_codes_tpu_torch.channel.erasure import (
     apply_erasures,
     iid_erasures,
@@ -273,6 +274,8 @@ from ldpc_erasure_codes_tpu_torch.ops.encode import (
     encode_packed,
     encode_packed_reference,
     make_packed_encoder,
+    random_bytes,
+    random_words,
 )
 from ldpc_erasure_codes_tpu_torch.ops.ge import (
     _unpack_words_bytes,
@@ -314,7 +317,12 @@ from ldpc_erasure_codes_tpu_torch.ops.rank import erased_columns, f2_rank_check
 from ldpc_erasure_codes_tpu_torch.parallel import default_mesh, multihost, shard_sim_step
 from ldpc_erasure_codes_tpu_torch.parallel.dryrun import dryrun_multichip
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
-from ldpc_erasure_codes_tpu_torch.rs import rs_code, rs_encode, rs_systematic_generator
+from ldpc_erasure_codes_tpu_torch.rs import (
+    rs_code,
+    rs_decode_wide,
+    rs_encode,
+    rs_systematic_generator,
+)
 from ldpc_erasure_codes_tpu_torch.rs import stream as rs_stream
 from ldpc_erasure_codes_tpu_torch.rs.stream import RSStream, chunk_scalar, run_stream
 from ldpc_erasure_codes_tpu_torch.utils import cli
@@ -341,6 +349,19 @@ from ldpc_erasure_codes_tpu_torch.utils.verify import (
 enc = importlib.import_module("ldpc_erasure_codes_tpu_torch.ops.encode")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# The main path: (2040,1530), B=2048 frames of W=256 words (8192-bit
+# symbols), PER .1406 (Latex/Milcom_2022_ErasureCodes.tex:185), first-k
+# early stop, 50 sweeps at most.
+B, W, PER, MAX_ITERS = 2048, 256, 0.1406, 50
+# The GE-hot hybrid point of scripts/bench_hybrid_values.py:104-109.
+HYBRID = dict(b=1024, w=256, per=0.2031, peel_iters=10, emax=512, ge_subbatch=448)
+# The GF(256) points: scripts/bench_nb_stages.py / bench_nb_pipeline.py
+# (B=512, 1 KB symbols, PER .1406; the hybrid's production knobs) and
+# scripts/bench_rs_wide.py (RS(255,192), B=1024, 1 KB payloads).
+NB = dict(b=512, wb=1024, per=0.1406)
+NB_HYBRID = dict(peel_iters=10, emax=128, ge_subbatch=64)
+RS = dict(n=255, k=192, b=1024, wb=1024, per=0.15)
 
 KERNELS = {
     "encode_packed": dict(
@@ -569,6 +590,59 @@ def host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+class Frames(NamedTuple):
+    """Codewords on the card, with the generator that drew their source;
+    it goes on to draw their masks."""
+
+    code: object
+    arrays: object
+    codewords: torch.Tensor
+    generator: torch.Generator
+
+
+def encoded(code, *, b: int, w: int, seed: int, device) -> Frames:
+    """``b`` frames of ``code`` encoded from a source drawn from a generator
+    seeded ``seed``: W int32 words a symbol, or W bytes for GF(256)."""
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    draw = random_bytes if code.gf_order == 256 else random_words
+    cw = encode_packed(arrays, draw((b, code.k, w), gen, device), gf_order=code.gf_order)
+    return Frames(code, arrays, cw, gen)
+
+
+def rs_frames(device) -> Frames:
+    """Phase 6d's RS payloads (``RS``, seed 2024), encoded by ``rs_encode``."""
+    code = rs_code(RS["n"], RS["k"])
+    arrays = code_arrays(code, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2024)
+    cw = rs_encode(arrays, random_bytes((RS["b"], code.k, RS["wb"]), gen, device))
+    return Frames(code, arrays, cw, gen)
+
+
+def fresh_mask(frames: Frames, per: float) -> torch.Tensor:
+    """An i.i.d. mask over ``frames`` from their generator."""
+    b, n = frames.codewords.shape[:2]
+    return iid_erasures((b, n), per, generator=frames.generator, device=frames.codewords.device)
+
+
+def systematic_pattern(frames: Frames, e: int, seed: int) -> torch.Tensor:
+    """A (B, n) mask erasing ``e`` distinct systematic symbols of each frame."""
+    b, k, n = frames.codewords.shape[0], frames.code.k, frames.code.n
+    g = torch.Generator(device=frames.codewords.device)
+    g.manual_seed(seed)
+    keys = torch.rand((b, k), generator=g, device=frames.codewords.device)
+    mask = torch.zeros((b, n), dtype=torch.bool, device=keys.device)
+    return mask.scatter_(1, keys.argsort(dim=1)[:, :e], True)
+
+
+def nb_gbps(code, ms: float) -> float:
+    """Information Gbps of ``NB["b"]`` GF(256) frames of ``NB["wb"]``-byte
+    symbols decoded in ``ms`` (scripts/bench_nb_stages.py:83)."""
+    return NB["b"] * code.k * 8 * NB["wb"] / (ms * 1e-3) / 1e9
+
+
 def compare_small(device, errs: dict) -> None:
     """Phase 3: kernels against plain versions at small batch."""
     for name, b in (("n2040_k1530", 64), ("n2000_k1000", 16)):
@@ -576,40 +650,40 @@ def compare_small(device, errs: dict) -> None:
         arrays = code_arrays(code, device)
         gen = torch.Generator(device=device)
         gen.manual_seed(1)
-        src = bench.random_words((b, code.k, bench.W), gen, device)
+        src = random_words((b, code.k, W), gen, device)
         cw = encode_packed(arrays, src)
         e = max_abs_err(cw, encode_packed_reference(arrays, src))
         errs["encode_packed"] = max(errs["encode_packed"], e)
         require(e == 0, f"{name}: encode kernel != plain (max abs err {e})")
-        mask = iid_erasures((b, code.n), bench.PER, generator=gen, device=device)
+        mask = iid_erasures((b, code.n), PER, generator=gen, device=device)
         for esk in (None, code.k):
-            kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=esk)
+            kw = dict(max_iters=MAX_ITERS, early_stop_k=esk)
             got = peel_decode(arrays, cw, mask, **kw)
             want = peel_decode_reference(arrays, cw, mask, **kw)
             e = outputs_err(got, want)
             errs["peel_decode"] = max(errs["peel_decode"], e)
             require(e == 0, f"{name} early_stop_k={esk}: peel kernel != plain ({e})")
         torch.cuda.synchronize()
-        log(f"phase 3: {name} B={b} W={bench.W}: encode and peel (early_stop_k None, k) "
+        log(f"phase 3: {name} B={b} W={W}: encode and peel (early_stop_k None, k) "
             "bit-exact against the plain versions")
     for name in SHIPPED:
         for gf_order in (2, 256):
             code = get_code(name if gf_order == 2 else f"{name}_gf256")
             arrays = code_arrays(code, device)
-            wc = enc.slab_words(arrays, bench.W, gf_order)
+            wc = enc.slab_words(arrays, W, gf_order)
             require(wc is not None, f"{code.name}: the encode should take the slab route")
-            src = (random_bytes((4, code.k, 4 * bench.W), 21, device) if gf_order == 256 else
-                   bench.random_words((4, code.k, bench.W), torch.Generator(device=device),
+            src = (seeded_bytes((4, code.k, 4 * W), 21, device) if gf_order == 256 else
+                   random_words((4, code.k, W), torch.Generator(device=device),
                                       device))
             e = max_abs_err(encode_packed(arrays, src, gf_order=gf_order),
                             encode_packed_reference(arrays, src, gf_order=gf_order))
             key = "encode_packed_gf256" if gf_order == 256 else "encode_packed"
             errs[key] = max(errs[key], e)
             require(e == 0, f"{code.name}: encode slab kernel != plain ({e})")
-            rows = nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W)
+            rows = nbmm.f2_slab_words(arrays.h_rows[0], code.n, W)
             require(gf_order == 256 or rows is not None,
                     f"{name}: H should take f2_matvec_wide's list route")
-            log(f"phase 3: {code.name} B=4 W={bench.W} words: the encode on its slab route "
+            log(f"phase 3: {code.name} B=4 W={W} words: the encode on its slab route "
                 f"(Wc {wc}, {arrays.enc_levels.levels} levels) bit-exact against the plain "
                 f"version" + (f"; H on f2_matvec_wide's list route (Wc {rows})"
                               if gf_order == 2 else ""))
@@ -757,15 +831,11 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def peeled(code, arrays, b: int, per: float, sweeps: int, device):
+def peeled(code, b: int, per: float, sweeps: int, device):
     """Encoded random frames of ``code`` after a ``sweeps``-sweep peel of an
     i.i.d. mask: (values, erased)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(3)
-    src = bench.random_words((b, code.k, bench.W), gen, device)
-    cw = encode_packed(arrays, src)
-    mask = iid_erasures((b, code.n), per, generator=gen, device=device)
-    values, erased, _ = peel_decode(arrays, cw, mask, max_iters=sweeps)
+    f = encoded(code, b=b, w=W, seed=3, device=device)
+    values, erased, _ = peel_decode(f.arrays, f.codewords, fresh_mask(f, per), max_iters=sweeps)
     return values, erased
 
 
@@ -779,7 +849,7 @@ def compare_ge(device, errs: dict) -> None:
     ):
         code = get_code(name)
         arrays = code_arrays(code, device)
-        values, erased = peeled(code, arrays, b, per, sweeps, device)
+        values, erased = peeled(code, b, per, sweeps, device)
         require(bool(erased.any()), f"{name}: the peel left no residual for the GE")
         ge = GEInputs(arrays, values, erased, emax)
         m, c = ge.cube.shape[1:]
@@ -802,9 +872,9 @@ def compare_ge(device, errs: dict) -> None:
             base = kname.split()[0]
             errs[base] = max(errs[base], e)
             require(e == 0, f"{name}: {kname} kernel != plain (max abs err {e})")
-        require(nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W) is not None,
+        require(nbmm.f2_slab_words(arrays.h_rows[0], code.n, W) is not None,
                 f"{name}: H should take f2_matvec_wide's list route")
-        wc_apply = nbmm.f2_apply_slab_words(m, ge.emax, code.n, bench.W)
+        wc_apply = nbmm.f2_apply_slab_words(m, ge.emax, code.n, W)
         require(wc_apply == nbmm.F2_APPLY_WORDS[0],
                 f"{name}: the apply should take Wc {nbmm.F2_APPLY_WORDS[0]}, not {wc_apply}")
         e = max_abs_err(nbmm.f2_apply_rows_reference(values, ge.rhs, ge.t_rows, ge.idx),
@@ -815,32 +885,35 @@ def compare_ge(device, errs: dict) -> None:
         require(torch.equal(dense, ge.rhs), f"{name}: dense and topology syndromes differ")
         failed = ge.elim_out[2]
         torch.cuda.synchronize()
-        log(f"phase 3b: {name} B={b} W={bench.W} PER {per}, {sweeps} sweeps, emax {ge.emax}: "
+        log(f"phase 3b: {name} B={b} W={W} PER {per}, {sweeps} sweeps, emax {ge.emax}: "
             f"cube ({m}, {c}) "
             f"words in {'shared' if in_smem else 'device'} memory; "
             f"{int(erased.any(dim=1).sum())} residual frames, max residual "
             f"{int(ge.nreal.max())}, {int(failed.sum())} failed; GE kernels bit-exact "
             "against the plain versions; H on f2_matvec_wide's list route (Wc "
-            f"{nbmm.f2_slab_words(arrays.h_rows[0], code.n, bench.W)}); the apply at Wc "
+            f"{nbmm.f2_slab_words(arrays.h_rows[0], code.n, W)}); the apply at Wc "
             f"{wc_apply}")
 
 
 def hybrid_phase(device, card: str):
-    """Phase 4b: the hybrid path at full width, counted, verified, timed."""
+    """Phase 4b: the hybrid path at full width, counted and verified."""
     code = get_code("n2040_k1530")
-    h = bench.HYBRID
+    h = HYBRID
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    path = bench.HybridPath(code, seed=2024, device=device, **h)
-    mask, values, erased, iters, failed, consumed = path.step()
+    path = encoded(code, b=h["b"], w=h["w"], seed=2024, device=device)
+    mask = fresh_mask(path, h["per"])
+    values, erased, iters, failed = hybrid_decode(
+        path.arrays, path.codewords, mask, peel_iters=h["peel_iters"], emax=h["emax"],
+        ge_subbatch=h["ge_subbatch"], tiled=True, static_topo=True, impl="vmem",
+    )
     torch.cuda.synchronize()
     require(values.shape == (h["b"], code.n, h["w"]), f"values shape {tuple(values.shape)}")
     report = check_hybrid(path.arrays, path.codewords, mask, values, erased, failed,
                           peel_iters=h["peel_iters"])
     log(f"phase 4b: verify {json.dumps(report)}")
     require(report["ok"], "hybrid decode failed verification")
-    del mask, values, erased, iters, failed, consumed
-    ms = path.time_reps(5)
+    del mask, values, erased, iters, failed
     counts = read_counts()
     for name in ("encode_packed", "peel_decode", "f2_eliminate", "syndrome_from_topo",
                  "f2_matmul_batched"):
@@ -852,17 +925,15 @@ def hybrid_phase(device, card: str):
     require(counts["f2_matvec_wide"] == 0,
             f"the hybrid path counted {counts['f2_matvec_wide']} dense syndromes")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"phase 4b: hybrid {path.gbps(ms):.2f} Gbps info ({ms:.3f} ms/rep over 5 reps, "
-        f"B={h['b']} W={h['w']} PER {h['per']} emax {h['emax']} ge_subbatch "
-        f"{h['ge_subbatch']}); hybrid FER {path.fer():.4e} ({path.failed_frames}/"
-        f"{path.frames}); GE frames in the verified rep {report['ge_frames']}; launches "
-        f"{counts}; peak memory {peak_gb:.2f} GB; on {card}")
+    log(f"phase 4b: hybrid B={h['b']} W={h['w']} PER {h['per']} emax {h['emax']} ge_subbatch "
+        f"{h['ge_subbatch']}: failed frames {report['failed_frames']}, GE frames "
+        f"{report['ge_frames']}; launches {counts}; peak memory {peak_gb:.2f} GB; on {card}")
     return path, counts
 
 
 def escalation_phase(path, device) -> dict:
     """Phase 4c: escalation through compact_ge_solve, counted and verified."""
-    code, h = path.code, bench.HYBRID
+    code, h = path.code, HYBRID
     gen = torch.Generator(device=device)
     gen.manual_seed(77)
     mask = iid_erasures((h["b"], code.n), h["per"], generator=gen, device=device)
@@ -899,7 +970,7 @@ def ge_bucket(path, device):
     """Phase 4b's GE bucket on a fresh mask (seed 99): (mask, the peeled
     values and residual erasures, the indices of the first ge_subbatch
     residual frames)."""
-    code, h = path.code, bench.HYBRID
+    code, h = path.code, HYBRID
     gen = torch.Generator(device=device)
     gen.manual_seed(99)
     mask = iid_erasures((h["b"], code.n), h["per"], generator=gen, device=device)
@@ -957,7 +1028,7 @@ def cube_line(split: dict) -> str:
 def stage_times(path, device, errs: dict) -> tuple[dict, dict, dict]:
     """Phase 5 for the GE kernels at phase 4b's shapes (the bucket of the
     first ge_subbatch residual frames), and the hybrid step's stages."""
-    code, h = path.code, bench.HYBRID
+    code, h = path.code, HYBRID
     mask, values, erased, sel = ge_bucket(path, device)
     stages = {}
     stages["peel"] = cuda_ms(
@@ -1059,14 +1130,14 @@ def peel_split(arrays, cw, mask, k_stop: int, gf_order: int, errs: dict, name: s
     against its plain version and timed alone, and the whole decode timed
     at every slab width Wc (the wrapper's choice is ``peel.slab_words``)."""
     words = cw.view(torch.int32) if gf_order == 256 else cw
-    got = peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS)
-    want = peel.peel_schedule_reference(arrays, mask, max_iters=bench.MAX_ITERS,
+    got = peel.launch_schedule(arrays, mask, k_stop, MAX_ITERS)
+    want = peel.peel_schedule_reference(arrays, mask, max_iters=MAX_ITERS,
                                         early_stop_k=k_stop)
     e = outputs_err(got, want)
     errs[name] = max(errs[name], e)
     require(e == 0, f"{name}: schedule kernel != plain ({e})")
     out = {"schedule_ms": cuda_ms(lambda: peel.launch_schedule(
-        arrays, mask, k_stop, bench.MAX_ITERS), 5),
+        arrays, mask, k_stop, MAX_ITERS), 5),
         "levels_max": int(got[2].max()), "resolutions_mean": float(got[1][:, -1].float().mean()),
         "wc_default": peel.slab_words(arrays, words.shape[1], words.shape[2], gf_order)}
     n = words.shape[1]
@@ -1079,7 +1150,7 @@ def peel_split(arrays, cw, mask, k_stop: int, gf_order: int, errs: dict, name: s
                  if peel.apply_smem(n, arrays.m, arrays.dmax, wc, gf_order) <= peel.SMEM_LIMIT]
     for wc in out["wc"]:
         out[f"wc{wc}_ms"] = cuda_ms(lambda: peel.launch_kernel(
-            arrays, words, mask, k_stop, bench.MAX_ITERS, gf_order, wc), 5)
+            arrays, words, mask, k_stop, MAX_ITERS, gf_order, wc), 5)
     return out
 
 
@@ -1088,17 +1159,17 @@ def order_split(arrays, mask, k_stop: int, schedule: str, errs: dict, name: str)
     the schedule kernel) alone: held against its plain version on the whole
     batch ("grouped" and "counted" also against the seq order's kernel,
     whose schedule they must equal) and timed beside the seq order's."""
-    got = peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS, schedule)
-    want = ORDER_PLAIN[schedule](arrays, mask, max_iters=bench.MAX_ITERS, early_stop_k=k_stop)
+    got = peel.launch_schedule(arrays, mask, k_stop, MAX_ITERS, schedule)
+    want = ORDER_PLAIN[schedule](arrays, mask, max_iters=MAX_ITERS, early_stop_k=k_stop)
     e = outputs_err(got, want)
     if schedule != "jacobi":
-        e = max(e, outputs_err(got, peel.launch_schedule(arrays, mask, k_stop, bench.MAX_ITERS)))
+        e = max(e, outputs_err(got, peel.launch_schedule(arrays, mask, k_stop, MAX_ITERS)))
     errs[name] = max(errs[name], e)
     require(e == 0, f"{name}: schedule kernel != plain ({e})")
     return {"schedule_ms": cuda_ms(lambda: peel.launch_schedule(
-                arrays, mask, k_stop, bench.MAX_ITERS, schedule), 5),
+                arrays, mask, k_stop, MAX_ITERS, schedule), 5),
             "seq_schedule_ms": cuda_ms(lambda: peel.launch_schedule(
-                arrays, mask, k_stop, bench.MAX_ITERS), 5),
+                arrays, mask, k_stop, MAX_ITERS), 5),
             "levels_max": int(got[2].max()),
             "resolutions_mean": float(got[1][:, -1].float().mean())}
 
@@ -1465,10 +1536,10 @@ class GEInputsNB:
         }
 
 
-def random_bytes(shape, seed: int, device) -> torch.Tensor:
+def seeded_bytes(shape, seed: int, device) -> torch.Tensor:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return bench.random_bytes(shape, gen, device)
+    return random_bytes(shape, gen, device)
 
 
 def verify_rs_pattern(b: int, n: int, seed: int, device) -> torch.Tensor:
@@ -1488,11 +1559,10 @@ NB_ESCALATION = dict(gf_order=256, peel_iters=10, emax=128, ge_subbatch=16, impl
 
 
 def nb_escalation(device):
-    """Phase 6c's batch: (the ``NBPath`` of n2040_k1530_gf256 at B=64, the
+    """Phase 6c's batch: (the frames of n2040_k1530_gf256 at B=64, the
     mask, the production branch's ``hybrid_decode(return_overflow=True)``)."""
-    code = get_code("n2040_k1530_gf256")
-    esc = bench.NBPath(code, b=64, wb=bench.NB["wb"], per=0.2031, seed=77, device=device)
-    mask = iid_erasures((64, code.n), 0.2031, generator=esc.generator, device=device)
+    esc = encoded(get_code("n2040_k1530_gf256"), b=64, w=NB["wb"], seed=77, device=device)
+    mask = fresh_mask(esc, 0.2031)
     prod = hybrid_decode(esc.arrays, esc.codewords, mask, return_overflow=True,
                          **NB_ESCALATION)
     return esc, mask, prod
@@ -1513,7 +1583,7 @@ def escalation_ge(esc, mask, prod):
 def rs_ge(path, device):
     """The GE operands of phase 6d's RS i.i.d. batch (mask seed 17): (the
     received words, GEInputsNB)."""
-    r = bench.RS
+    r = RS
     gen = torch.Generator(device=device)
     gen.manual_seed(17)
     mask = iid_erasures((r["b"], r["n"]), r["per"], generator=gen, device=device)
@@ -1525,16 +1595,16 @@ def compare_gf_small(device, errs: dict) -> None:
     """Phase 6: the GF(256) kernels and modes against their plain versions."""
     code = get_code("n2040_k1530_gf256")
     arrays = code_arrays(code, device)
-    src = random_bytes((16, code.k, 1024), 11, device)
+    src = seeded_bytes((16, code.k, 1024), 11, device)
     cw = encode_packed(arrays, src, gf_order=256)
     e = max_abs_err(cw, encode_packed_reference(arrays, src, gf_order=256))
     errs["encode_packed_gf256"] = max(errs["encode_packed_gf256"], e)
     require(e == 0, f"GF(256) encode kernel != plain ({e})")
     gen = torch.Generator(device=device)
     gen.manual_seed(12)
-    mask = iid_erasures((16, code.n), bench.NB["per"], generator=gen, device=device)
+    mask = iid_erasures((16, code.n), NB["per"], generator=gen, device=device)
     for esk in (None, code.k):
-        kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=esk, gf_order=256)
+        kw = dict(max_iters=MAX_ITERS, early_stop_k=esk, gf_order=256)
         e = outputs_err(peel_decode(arrays, cw, mask, **kw),
                         peel_decode_reference(arrays, cw, mask, **kw))
         errs["peel_decode_gf256"] = max(errs["peel_decode_gf256"], e)
@@ -1543,7 +1613,7 @@ def compare_gf_small(device, errs: dict) -> None:
         "(early_stop_k None, k) bit-exact against the plain versions")
 
     rs_arrays = code_arrays(rs_code(255, 192), device)
-    rs_cw = rs_encode(rs_arrays, random_bytes((64, 192, 64), 13, device))
+    rs_cw = rs_encode(rs_arrays, seeded_bytes((64, 192, 64), 13, device))
     rs_mask = verify_rs_pattern(64, 255, 14, device)
     mask = iid_erasures((8, code.n), 0.2031, generator=gen, device=device)
     peeled_nb = peel_decode(arrays, cw[:8, :, :16].contiguous(), mask, max_iters=10, gf_order=256)
@@ -1589,24 +1659,30 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
 
     # 6a: the NB main path, counted.
     code = get_code("n2040_k1530_gf256")
-    nb = bench.NB
+    nb = NB
     zero_counts()
-    path = bench.NBPath(code, seed=2024, device=device, **nb)
-    mask, values, erased, iters, _, consumed = path.step()
+    path = encoded(code, b=nb["b"], w=nb["wb"], seed=2024, device=device)
+
+    def nb_peel():
+        mask = fresh_mask(path, nb["per"])
+        return mask, *peel_decode(path.arrays, path.codewords, mask, max_iters=MAX_ITERS,
+                                  early_stop_k=code.k, gf_order=256)
+
+    mask, values, erased, iters = nb_peel()
     torch.cuda.synchronize()
     require(values.shape == (nb["b"], code.n, nb["wb"]) and values.dtype == torch.uint8,
             f"values {tuple(values.shape)} {values.dtype}")
     report = check_nb(path.arrays, path.codewords, mask, values, erased, iters,
-                      max_iters=bench.MAX_ITERS, early_stop_k=code.k)
+                      max_iters=MAX_ITERS, early_stop_k=code.k)
     log(f"phase 6a: verify {json.dumps(report)}")
     require(report["ok"], "NB main-path decode failed verification")
     frames_left = int(erased[:, : code.k].any(dim=1).sum())
-    del mask, values, erased, iters, consumed
-    ms = path.time_reps(5)
+    del mask, values, erased, iters
+    ms = cuda_ms(nb_peel, 5)
     counts = read_counts()
     for name in ("encode_packed_gf256", "peel_decode_gf256"):
         require(counts[name] > 0, f"the NB main path never launched the {name} kernel")
-    log(f"phase 6a: NB main path {path.gbps(ms):.2f} Gbps info ({ms:.3f} ms/rep over 5 reps, "
+    log(f"phase 6a: NB main path {nb_gbps(code, ms):.2f} Gbps info ({ms:.3f} ms/rep over 5 reps, "
         f"B={nb['b']} {nb['wb']}-byte symbols PER {nb['per']}, first-k early stop); frames "
         f"with source symbols left erased in the verified rep {frames_left}; launches "
         f"{counts}; on {card}")
@@ -1614,7 +1690,7 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
 
     # 7a: encode and peel GF(256) against their plain versions at these shapes.
     arrays = path.arrays
-    src = random_bytes((nb["b"], code.k, nb["wb"]), 15, device)
+    src = seeded_bytes((nb["b"], code.k, nb["wb"]), 15, device)
     times["encode_packed_gf256"] = cuda_ms(lambda: encode_packed(arrays, src, gf_order=256), 5)
     want, plain["encode_packed_gf256"] = host_ms(
         lambda: encode_packed_reference(arrays, src, gf_order=256))
@@ -1631,7 +1707,7 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     gen = torch.Generator(device=device)
     gen.manual_seed(16)
     mask = iid_erasures((nb["b"], code.n), nb["per"], generator=gen, device=device)
-    kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=code.k, gf_order=256)
+    kw = dict(max_iters=MAX_ITERS, early_stop_k=code.k, gf_order=256)
     cw = path.codewords
     times["peel_decode_gf256"] = cuda_ms(lambda: peel_decode(arrays, cw, mask, **kw), 5)
     want, plain["peel_decode_gf256"] = host_ms(
@@ -1652,22 +1728,31 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
         f"{split['copy_ms']:.3f} ms, a clone of the frames {split['clone_ms']:.3f} ms; on {card}")
 
     # 6b: the NB hybrid with the production knobs, on the same codewords.
-    path.hybrid = bench.NB_HYBRID
+    fails = []
+
+    def nb_hybrid():
+        mask = fresh_mask(path, nb["per"])
+        out = hybrid_decode(arrays, cw, mask, gf_order=256, tiled=True, impl="vmem",
+                            **NB_HYBRID)
+        fails.append(out[3].sum())
+        return mask, *out
+
     zero_counts()
-    mask, values, erased, iters, failed, consumed = path.step()
+    mask, values, erased, iters, failed = nb_hybrid()
     torch.cuda.synchronize()
     report = check_hybrid(arrays, cw, mask, values, erased, failed,
-                          peel_iters=bench.NB_HYBRID["peel_iters"], gf_order=256,
+                          peel_iters=NB_HYBRID["peel_iters"], gf_order=256,
                           require_ge=False)
     log(f"phase 6b: verify {json.dumps(report)}")
     require(report["ok"], "NB hybrid decode failed verification")
-    del mask, values, erased, iters, failed, consumed
-    path.failed_frames = path.frames = 0
-    ms = path.time_reps(3)
+    del mask, values, erased, iters, failed
+    fails.clear()
+    ms = cuda_ms(nb_hybrid, 3)
+    failed_frames, frames = int(sum(fails)), len(fails) * nb["b"]
     counts = read_counts()
     require(counts["peel_decode_gf256"] > 0, "the NB hybrid never launched the GF(256) peel")
-    log(f"phase 6b: NB hybrid {path.gbps(ms):.2f} Gbps info ({ms:.3f} ms/rep over 3 reps, "
-        f"{bench.NB_HYBRID}); hybrid FER {path.fer():.4e} ({path.failed_frames}/{path.frames});"
+    log(f"phase 6b: NB hybrid {nb_gbps(code, ms):.2f} Gbps info ({ms:.3f} ms/rep over 3 reps, "
+        f"{NB_HYBRID}); hybrid FER {failed_frames / frames:.4e} ({failed_frames}/{frames});"
         f" GE frames in the verified rep {report['ge_frames']} (the GE branch is the plain "
         f"ge_solve); launches {counts}; on {card}")
     add_counts(launches, counts)
@@ -1715,37 +1800,32 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     del esc, v, pv, vs
 
     # 6d: RS(255,192) wide decode.
-    r = bench.RS
-    path = bench.RSPath(seed=2024, device=device, **r)
+    r = RS
+    path = rs_frames(device)
     require(path.arrays.vlist_tiles is not None,
             "the RS H should take gf_matvec_wide's dense route")
-    path.pattern = verify_rs_pattern(r["b"], r["n"], 5, device)
+
+    def rs_decode(mask):
+        recv = path.codewords.masked_fill(mask[:, :, None], 0)
+        return rs_decode_wide(path.arrays, recv, mask)
+
     zero_counts()
-    mask, values, erased, failed, consumed = path.step()
+    mask = verify_rs_pattern(r["b"], r["n"], 5, device)
+    values, erased, failed = rs_decode(mask)
     torch.cuda.synchronize()
     report = check_rs(path.codewords, mask, values, erased, failed, n_minus_k=r["n"] - r["k"])
     log(f"phase 6d: verify (e = 1..63 over {r['b'] - 1} frames, one at 64) {json.dumps(report)}")
     require(report["ok"] and bool(failed[-1]) and int(failed.sum()) == 1,
             "RS decode failed verification")
-    del values, erased, failed, consumed
-    path.pattern = None
-    path.failed_frames = path.frames = 0
-    ms_iid = path.time_reps(5)
-    fer_iid = (path.failed_frames, path.frames)
-    path.pattern = path.systematic_pattern(r["n"] - r["k"], seed=63)
-    _, values, _, failed, _ = path.step()
+    values, _, failed = rs_decode(systematic_pattern(path, r["n"] - r["k"], seed=63))
     require(not bool(failed.any()) and torch.equal(values, path.codewords),
             "RS e=63 systematic decode failed")
-    del values, failed
-    ms_63 = path.time_reps(5)
+    del mask, values, erased, failed
     counts = read_counts()
     for name in ("gf256_eliminate", "gf_matvec_wide", "gf_apply_scatter"):
-        require(counts[name] == 12, f"RS: {name} launched {counts[name]} times for 12 decodes")
-    log(f"phase 6d: RS({r['n']},{r['k']}) B={r['b']} {r['wb']}-byte payloads: i.i.d. PER "
-        f"{r['per']} {path.gbps(ms_iid):.2f} Gbps info ({ms_iid:.3f} ms/batch over 5 reps, "
-        f"FER {fer_iid[0] / fer_iid[1]:.4e}: {fer_iid[0]}/{fer_iid[1]}); "
-        f"e=63 systematic {path.gbps(ms_63):.2f} Gbps info ({ms_63:.3f} ms/batch); launches "
-        f"{counts}; on {card}")
+        require(counts[name] == 2, f"RS: {name} launched {counts[name]} times for 2 decodes")
+    log(f"phase 6d: RS({r['n']},{r['k']}) B={r['b']} {r['wb']}-byte payloads: the verify "
+        f"pattern and e=63 systematic erasures decoded exactly; launches {counts}; on {card}")
     add_counts(launches, counts)
 
     # 7b: the GE kernels against their plain versions at the RS i.i.d. batch.
@@ -1776,34 +1856,33 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
 
 def schedule_phase(device, card: str, errs: dict, times: dict, plain: dict, bounds: dict,
                    launches: dict) -> None:
-    """Phase 8: the throughput command by schedule, counted and timed; the
-    research kernels against their plain versions and their contracts."""
+    """Phase 8: the throughput step by schedule, counted; the research
+    kernels against their plain versions and their contracts."""
     code = get_code("n2040_k1530")
-    b, w, per, k = bench.B, bench.W, bench.PER, code.k
-    for schedule in SCHEDULES:
-        path = bench.ThroughputPath(code, b=b, w=w, per=per, seed=2024, device=device,
-                                    schedule=schedule)
+    b, w, per, k = B, W, PER, code.k
+    fixed = encoded(code, b=b, w=w, seed=8, device=device)
+    arrays, cw, gen = fixed.arrays, fixed.codewords, fixed.generator
+    mask = fresh_mask(fixed, per)
+    kw = dict(max_iters=MAX_ITERS, early_stop_k=k)
+    step_gen = torch.Generator(device=device)
+    step_gen.manual_seed(2024)
+    for schedule, impl in [*((s, "pallas") for s in SCHEDULES), ("seq", "xla")]:
+        step = cli.make_throughput_step(code, arrays, batch=b, per=per, max_iters=MAX_ITERS,
+                                        impl=impl, schedule=schedule)
         torch.cuda.synchronize()
         zero_counts()
-        resid, digest = path.step()
+        resid, digest = step(step_gen, cw)
         require(digest.shape == (w,) and digest.dtype == torch.int32,
-                f"{schedule}: digest {tuple(digest.shape)} {digest.dtype}")
-        ms = path.time_reps(5)
+                f"{schedule} {impl}: digest {tuple(digest.shape)} {digest.dtype}")
         counts = read_counts()
         name = SCHED_KERNELS.get(schedule, "peel_decode")
-        require(counts[name] > 0, f"the {schedule} throughput step never launched {name}")
+        if impl == "pallas":
+            require(counts[name] > 0, f"the {schedule} throughput step never launched {name}")
         add_counts(launches, counts)
-        log(f"phase 8: schedule {schedule}: {path.gbps(ms):.2f} Gbps_info ({ms:.3f} ms/rep over "
-            f"5 reps, B={b} W={w} PER {per}, first-k early stop); first-k residual of the first "
-            f"rep {int(resid)}; {name} launches {counts[name]}; on {card}")
-        del path, resid, digest
-
-    arrays = code_arrays(code, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(8)
-    cw = encode_packed(arrays, bench.random_words((b, k, w), gen, device))
-    mask = iid_erasures((b, code.n), per, generator=gen, device=device)
-    kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=k)
+        log(f"phase 8: the throughput step, schedule {schedule}, impl {impl}, B={b} W={w} PER "
+            f"{per}, first-k early stop: first-k residual {int(resid)}; {name} launches "
+            f"{counts[name]}; on {card}")
+        del resid, digest
     seq_ms = cuda_ms(lambda: peel_decode(arrays, cw, mask, **kw), 5)
     values = peel_decode(arrays, cw, mask, **kw)[0]
     digest_ms = cuda_ms(lambda: values.sum(dim=(0, 1), dtype=torch.int32), 5)
@@ -1833,21 +1912,16 @@ def schedule_phase(device, card: str, errs: dict, times: dict, plain: dict, boun
             f"({bounds[name]['bound_by']}), sweeps max {int(got[2].max())} mean "
             f"{float(got[2].float().mean()):.2f}, max abs err {errs[name]} on {card}")
         del got
-    xla = bench.ThroughputPath(code, b=b, w=w, per=per, seed=2024, device=device, impl="xla")
-    xla.step()
-    xla_ms = xla.time_reps(2)
-    log(f"phase 8: impl xla (peel_decode_jacobi, plain tensors): {xla.gbps(xla_ms):.2f} "
-        f"Gbps_info ({xla_ms:.3f} ms/rep over 2 reps) on {card}")
-    del xla, cw, mask
+    del fixed, cw, mask
 
     nb_code = get_code("n2040_k1530_gf256")
     nb_arrays = code_arrays(nb_code, device)
-    nb_cw = encode_packed(nb_arrays, random_bytes((16, k, 1024), 19, device), gf_order=256)
+    nb_cw = encode_packed(nb_arrays, seeded_bytes((16, k, 1024), 19, device), gf_order=256)
     nb_mask = iid_erasures((16, nb_code.n), per, generator=gen, device=device)
     for schedule, name in SCHED_KERNELS.items():
         reference = peel_decode_jacobi_reference if schedule == "jacobi" else peel_decode_reference
         for esk in (None, k):
-            kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=esk, gf_order=256)
+            kw = dict(max_iters=MAX_ITERS, early_stop_k=esk, gf_order=256)
             e = outputs_err(peel_decode(nb_arrays, nb_cw, nb_mask, schedule=schedule, **kw),
                             reference(nb_arrays, nb_cw, nb_mask, **kw))
             errs[name] = max(errs[name], e)
@@ -2076,10 +2150,10 @@ def sim_9c_stages(device, card: str, errs: dict) -> None:
     shape = (cfg.batch, code.n)
     st = {"channel": cuda_ms(lambda: iid_erasures(shape, SIM_PER, generator=gen, device=device),
                              5),
-          "source": cuda_ms(lambda: bench.random_words(
+          "source": cuda_ms(lambda: random_words(
               (cfg.batch, code.k, cfg.symbol_words), gen, device), 5)}
     mask = iid_erasures(shape, SIM_PER, generator=gen, device=device)
-    src = bench.random_words((cfg.batch, code.k, cfg.symbol_words), gen, device)
+    src = random_words((cfg.batch, code.k, cfg.symbol_words), gen, device)
     st["encode"] = cuda_ms(lambda: encode_packed(arrays, src), 5)
     cw = encode_packed(arrays, src)
     del src
@@ -2270,8 +2344,8 @@ def channel_phase(device, card: str, errs: dict, times: dict, plain: dict, bound
     code = get_code("n2040_k1530")
     gen = torch.Generator(device=device)
     gen.manual_seed(10)
-    for b in (64, bench.B):
-        values = bench.random_words((b, code.n, bench.W), gen, device)
+    for b in (64, B):
+        values = random_words((b, code.n, W), gen, device)
         for num in (0, 9, 64):
             got = channel_apply_per64(values, 2024 + num, num)
             e_err = outputs_err(got, channel_apply_per64_reference(values, 2024 + num, num))
@@ -2282,7 +2356,7 @@ def channel_phase(device, card: str, errs: dict, times: dict, plain: dict, bound
     ms = cuda_ms(lambda: channel_apply_per64(values, 7, 9), 10)
     _, plain_ms = host_ms(lambda: channel_apply_per64_reference(values, 7, 9))
     pair_ms = cuda_ms(lambda: apply_erasures(values, iid_erasures_per64(
-        (bench.B, code.n), 9, generator=gen, device=device)), 10)
+        (B, code.n), 9, generator=gen, device=device)), 10)
     b, n, w = values.shape
     bnd = bound(2 * b * n * w * 4 + b * n, b * n * (PHILOX_OPS + w))
     times["channel_apply_per64"], plain["channel_apply_per64"] = ms, plain_ms
@@ -2340,15 +2414,11 @@ def decoder_top_phase(device, card: str, launches: dict) -> None:
     PER .1406) -> peel with first-k stop, counted and verified; then 5 reps
     (a fresh seed each) timed."""
     code = get_code("n2040_k1530")
-    arrays = code_arrays(code, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(2024)
-    src = bench.random_words((bench.B, code.k, bench.W), gen, device)
-    kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=code.k)
+    kw = dict(max_iters=MAX_ITERS, early_stop_k=code.k)
     torch.cuda.synchronize()
     zero_counts()
-    cw = encode_packed(arrays, src)
-    del src
+    top = encoded(code, b=B, w=W, seed=2024, device=device)
+    arrays, cw = top.arrays, top.codewords
     recv, mask = channel_apply_per64(cw, 1, 9)
     values, erased, iters = peel_decode(arrays, recv, mask, **kw)
     torch.cuda.synchronize()
@@ -2371,8 +2441,8 @@ def decoder_top_phase(device, card: str, launches: dict) -> None:
         return peel_decode(arrays, r, msk, **kw)[2].max()
 
     ms = cuda_ms(rep, 5)
-    gbps = bench.B * code.k * 32 * bench.W / (ms * 1e-3) / 1e9
-    log(f"phase 10b: encode -> channel_apply_per64 (num 9) -> peel, B={bench.B} W={bench.W}: "
+    gbps = B * code.k * 32 * W / (ms * 1e-3) / 1e9
+    log(f"phase 10b: encode -> channel_apply_per64 (num 9) -> peel, B={B} W={W}: "
         f"erased share {share:.5f}, frames with source symbols left {left}; channel + peel "
         f"{ms:.3f} ms/rep over 5 reps, {gbps:.2f} Gbps_info; launches {counts}; on {card}")
 
@@ -2567,7 +2637,7 @@ def stream_kernels(r, device, errs: dict) -> str:
     b, n, w = STREAM["blocks"], code.n, STREAM["symbol_words"]
     gen = torch.Generator(device=device)
     gen.manual_seed(STREAM["seed"])
-    src = bench.random_words((b, code.k, w), gen, device)
+    src = random_words((b, code.k, w), gen, device)
     cw = encode_packed(arrays, src)
     e = max_abs_err(cw, encode_packed_reference(arrays, src))
     errs["encode_packed"] = max(errs["encode_packed"], e)
@@ -2801,7 +2871,7 @@ def plot_phase(device, card: str, launches: dict) -> None:
 # Phase 16's shapes: the main path's frames for the decode variants, and
 # the small batches of the scalar checks and of the ge_impl comparison (the
 # hybrid's GE-hot PER and bucket width).
-API = dict(b=bench.B, w=bench.W, per=bench.PER, small_b=64, ge_per=0.2031, ge_emax=512)
+API = dict(b=B, w=W, per=PER, small_b=64, ge_per=0.2031, ge_emax=512)
 
 
 def once_ms(fn):
@@ -2925,7 +2995,7 @@ def api_small(code, arrays, device, gen) -> list[str]:
             "16: peel_step_matmul != peel_step_gather on random frames")
     lines.append(f"B={b} scalar random frames: peel_step_matmul {ms_m:.2f} ms equals "
                  f"peel_step_gather {ms_g:.2f} ms ({int((er & ~g[1]).sum())} symbols solved)")
-    src = bench.random_words((b, code.k, API["w"]), gen, device)
+    src = random_words((b, code.k, API["w"]), gen, device)
     cw = encode_packed(arrays, src)
     mask = iid_erasures((b, code.n), API["ge_per"], generator=gen, device=device)
     kw = dict(emax=API["ge_emax"])
@@ -2949,7 +3019,7 @@ def api_refusals(code, device) -> str:
     arrays = code_arrays(code, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(16)
-    src = bench.random_words((8, code.k, 4), gen, device)
+    src = random_words((8, code.k, 4), gen, device)
     cw = encode_packed(arrays, src)
     mask = iid_erasures((8, code.n), 0.2, generator=gen, device=device)
     nb = code.lift_to_gf256(seed=0)
@@ -2996,7 +3066,7 @@ def api_phase(device, card: str, launches: dict) -> None:
     arrays = device_arrays(code)
     gen = torch.Generator(device=device)
     gen.manual_seed(1616)
-    src = bench.random_words((API["b"], code.k, API["w"]), gen, device)
+    src = random_words((API["b"], code.k, API["w"]), gen, device)
     encoder = make_packed_encoder(code)
     cw, ms_first = once_ms(lambda: encoder(src))
     cw, ms = once_ms(lambda: encoder(src))
@@ -3033,15 +3103,15 @@ def paired_kernels(device, card: str) -> None:
     JSON line. Copied to the root of another checkout of the port (an
     earlier commit), the script times that checkout's kernels on the same
     operands, so that two versions can be compared in one call."""
-    h = bench.HYBRID
-    path = bench.HybridPath(get_code("n2040_k1530"), seed=2024, device=device, **h)
+    path = encoded(get_code("n2040_k1530"), b=HYBRID["b"], w=HYBRID["w"], seed=2024,
+                   device=device)
     _, values, _, sel = ge_bucket(path, device)
     vs = values[sel]
     del values
     out = {"syndrome_from_topo 4b bucket": cuda_ms(
         lambda: syndrome_from_topo(path.arrays, vs), 20)}
     del path, vs
-    _, ge = rs_ge(bench.RSPath(seed=2024, device=device, **bench.RS), device)
+    _, ge = rs_ge(rs_frames(device), device)
     kw = dict(emax=ge.emax, a_words=ge.wa)
     out["gf256_eliminate RS batch"] = cuda_ms(lambda: gf256_eliminate(ge.cube, ge.nreal, **kw), 20)
     out["gf_matmul_batched RS batch"] = cuda_ms(lambda: gf_matmul_batched(ge.rhs, ge.t_top), 20)
@@ -3091,31 +3161,28 @@ def main() -> None:
     code = get_code("n2040_k1530")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    main_path = bench.MainPath(
-        code, b=bench.B, w=bench.W, per=bench.PER, seed=2024, device=device
-    )
-    mask, values, erased, iters, consumed = main_path.step()
+    main_path = encoded(code, b=B, w=W, seed=2024, device=device)
+    mask = fresh_mask(main_path, PER)
+    values, erased, iters = peel_decode(main_path.arrays, main_path.codewords, mask,
+                                        max_iters=MAX_ITERS, early_stop_k=code.k)
     torch.cuda.synchronize()
-    require(values.shape == (bench.B, code.n, bench.W), f"values shape {tuple(values.shape)}")
+    require(values.shape == (B, code.n, W), f"values shape {tuple(values.shape)}")
     report = check_peel(
         main_path.arrays, main_path.codewords, mask, values, erased, iters,
-        max_iters=bench.MAX_ITERS, early_stop_k=code.k,
+        max_iters=MAX_ITERS, early_stop_k=code.k,
     )
     log(f"phase 4: verify {json.dumps(report)}")
     require(report["ok"], "main-path decode failed verification")
     frames_left = int(erased[:, : code.k].any(dim=1).sum())
-    log(f"phase 4: frames with source symbols left erased: {frames_left} of {bench.B}; "
-        f"max sweeps {int(iters.max())}; mean erasures {float(mask.float().sum(1).mean()):.1f}")
-    del mask, values, erased, iters, consumed
-    ms = main_path.time_reps(bench.REPS)
-    torch.cuda.synchronize()
     counts4 = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name in ("encode_packed", "peel_decode"):
         require(counts4[name] > 0, f"main path never launched the {name} kernel")
-    log(f"phase 4: main path {main_path.gbps(ms):.2f} Gbps info ({ms:.3f} ms/rep over "
-        f"{bench.REPS} reps, B={bench.B} W={bench.W} PER {bench.PER}, first-k early stop) "
-        f"on {card}; launches {counts4}; peak memory {peak_gb:.2f} GB")
+    log(f"phase 4: main path B={B} W={W} PER {PER}, first-k early stop: frames with source "
+        f"symbols left erased {frames_left} of {B}; max sweeps {int(iters.max())}; mean "
+        f"erasures {float(mask.float().sum(1).mean()):.1f}; launches {counts4}; peak memory "
+        f"{peak_gb:.2f} GB; on {card}")
+    del mask, values, erased, iters
 
     hybrid, counts4b = hybrid_phase(device, card)
     counts4c = escalation_phase(hybrid, device)
@@ -3130,7 +3197,7 @@ def main() -> None:
     arrays = main_path.arrays
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
-    src = bench.random_words((bench.B, code.k, bench.W), gen, device)
+    src = random_words((B, code.k, W), gen, device)
     times = {"encode_packed": cuda_ms(lambda: encode_packed(arrays, src), 5)}
     want, times_plain_enc = host_ms(lambda: encode_packed_reference(arrays, src))
     e = max_abs_err(encode_packed(arrays, src), want)
@@ -3138,24 +3205,24 @@ def main() -> None:
     require(e == 0, f"main shape: encode kernel != plain ({e})")
     del want
     split = encode_split(arrays, src, 2, errs, "encode_packed")
-    log(f"phase 5: encode_packed at B={bench.B} W={bench.W}: {times['encode_packed']:.3f} ms on "
+    log(f"phase 5: encode_packed at B={B} W={W}: {times['encode_packed']:.3f} ms on "
         f"the slab route; by Wc: {split_line(split)}; on {card}")
     del src
     cw = main_path.codewords
-    mask = iid_erasures((bench.B, code.n), bench.PER, generator=gen, device=device)
-    kw = dict(max_iters=bench.MAX_ITERS, early_stop_k=code.k)
+    mask = iid_erasures((B, code.n), PER, generator=gen, device=device)
+    kw = dict(max_iters=MAX_ITERS, early_stop_k=code.k)
     times["peel_decode"] = cuda_ms(lambda: peel_decode(arrays, cw, mask, **kw), 5)
     want, times_plain_peel = host_ms(lambda: peel_decode_reference(arrays, cw, mask, **kw))
     got = peel_decode(arrays, cw, mask, **kw)
     bounds = {
-        "encode_packed": encode_bound(arrays, bench.B, bench.W * 4, gf=False),
-        "peel_decode": peel_bound(arrays, mask, got[1], bench.W * 4, gf=False),
+        "encode_packed": encode_bound(arrays, B, W * 4, gf=False),
+        "peel_decode": peel_bound(arrays, mask, got[1], W * 4, gf=False),
     }
     e = outputs_err(got, want)
     errs["peel_decode"] = max(errs["peel_decode"], e)
     require(e == 0, f"main shape: peel kernel != plain ({e})")
     split = peel_split(arrays, cw, mask, code.k, 2, errs, "peel_decode")
-    log(f"phase 5: peel_decode at B={bench.B} W={bench.W}: schedule kernel "
+    log(f"phase 5: peel_decode at B={B} W={W}: schedule kernel "
         f"{split['schedule_ms']:.3f} ms of {times['peel_decode']:.3f} "
         f"({100 * split['schedule_ms'] / times['peel_decode']:.1f}%), bit-exact against its "
         f"plain version; whole decode by Wc: " + ", ".join(
@@ -3166,16 +3233,16 @@ def main() -> None:
         f"{card}")
     plain = {"encode_packed": times_plain_enc, "peel_decode": times_plain_peel}
     del main_path, cw, mask, want, got
-    hybrid = bench.HybridPath(code, seed=5, device=device, **bench.HYBRID)
+    hybrid = encoded(code, b=HYBRID["b"], w=HYBRID["w"], seed=5, device=device)
     ge_times, ge_plain, stages, ge_bounds = stage_times(hybrid, device, errs)
     times.update(ge_times)
     plain.update(ge_plain)
     bounds.update(ge_bounds)
     log("phase 5: hybrid step stages (ms, CUDA events): " + "; ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
-    h = bench.HYBRID
+    h = HYBRID
     for name in BINARY:
-        at = (f"B={bench.B} W={bench.W}" if name in ("encode_packed", "peel_decode") else
+        at = (f"B={B} W={W}" if name in ("encode_packed", "peel_decode") else
               f"the GE bucket ({h['ge_subbatch']} frames, W={h['w']}, emax {h['emax']})")
         log(f"phase 5: {name} at {at}: kernel {times[name]:.3f} ms, "
             f"plain {plain[name]:.1f} ms, bound {bounds[name]['bound_ms']:.4f} ms "

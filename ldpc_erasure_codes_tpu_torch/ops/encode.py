@@ -327,6 +327,21 @@ encode_packed.launches = 0
 encode_packed.launches_gf256 = 0
 
 
+def random_words(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Uniform random int32 words (all 32 bits) from ``generator``: a
+    binary source for :func:`encode_packed`."""
+    return torch.randint(
+        -(2**31), 2**31, shape, dtype=torch.int32, generator=generator, device=device
+    )
+
+
+def random_bytes(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Uniform random uint8 bytes from ``generator``, drawn as int32 words
+    (the last dimension must be a multiple of 4): a GF(256) source."""
+    *lead, wb = shape
+    return random_words((*lead, wb // 4), generator, device).view(torch.uint8)
+
+
 def scalar_words(symbols: torch.Tensor, gf_order: int) -> torch.Tensor:
     """Scalar uint8 symbols (..., n) as one-symbol packed frames
     (..., n, 1) int32: the symbol itself as a word (binary), or its byte

@@ -194,7 +194,10 @@ def hybrid_decode_escalated(
     with the first candidate; erased slots re-zeroed before the dispatch.
     The second dispatch is ``ge_solve_packed``, ``ge_solve_wide_nb`` for
     GF(256) and ``ge_solve`` for scalar symbols (hybrid.py:294-301).
-    ``ge_impl`` and ``static_topo`` pass to the first dispatch.
+    ``ge_impl`` passes to the first dispatch. That dispatch takes the flat
+    branch (``compact_ge_solve``, or the whole batch), which reads no
+    ``static_topo``: the argument is accepted for JAX's signature and has
+    no effect here.
 
     Returns (values, erased, iters, failed, n_escalated), n_escalated the
     frames that entered the second dispatch. Syncs with the host.

@@ -41,12 +41,17 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from ldpc_erasure_codes_tpu_torch.bench import random_words
 from ldpc_erasure_codes_tpu_torch.channel import erasure as ch
 from ldpc_erasure_codes_tpu_torch.codes.io import LDPCCode, get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_rank, residual_order
-from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_nb, encode_packed
+from ldpc_erasure_codes_tpu_torch.ops.encode import (
+    encode,
+    encode_nb,
+    encode_packed,
+    random_bytes,
+    random_words,
+)
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_solve
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
@@ -87,7 +92,7 @@ def _draw_source(gen: torch.Generator, cfg: SimConfig, k: int, device) -> torch.
     if w == 0:
         return torch.randint(0, 256, (cfg.batch, k), dtype=torch.uint8, generator=gen,
                              device=device)
-    return random_words((cfg.batch, k, w // 4), gen, device).view(torch.uint8)
+    return random_bytes((cfg.batch, k, w), gen, device)
 
 
 def _encode(arrays: CodeArrays, cfg: SimConfig, source: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,10 @@ import time
 import numpy as np
 import torch
 
-from ldpc_erasure_codes_tpu_torch.bench import make_throughput_step, random_words
+from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code, list_codes
+from ldpc_erasure_codes_tpu_torch.ops.peel import SCHEDULES, peel_decode
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi
 from ldpc_erasure_codes_tpu_torch.utils.device import cuda_device
 
 
@@ -126,9 +128,44 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_throughput_step(
+    code, arrays, *, batch: int, per: float, max_iters: int,
+    impl: str = "pallas", schedule: str = "seq",
+):
+    """The ``throughput`` command's step ``step(generator, cw) -> (first-k
+    residual, digest)``: an i.i.d. channel draw on the codewords' device,
+    then the wide value decode with first-k early stop. ``impl="pallas"``
+    is the peel kernel of ``schedule`` (``ops/peel.py`` SCHEDULES; the
+    masking is fused into its copy-in); ``"xla"`` zeroes the erased slots
+    and runs the Jacobi decoder ``peel_decode_jacobi`` (JAX's
+    ``peel_decode_wide``).
+
+    The outputs depend on the codeword values, so a measurement always
+    includes the value decode (the JAX CLI's cli.py:104-109): the digest is
+    the wrapping int32 sum of every decoded word at each word position,
+    (W,) words, one reduction that reads the values once. The symbol width
+    is the codewords'.
+    """
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"impl must be 'pallas' or 'xla', got {impl!r}")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+
+    def step(generator: torch.Generator, cw: torch.Tensor):
+        mask = iid_erasures((batch, code.n), per, generator=generator, device=cw.device)
+        kw = dict(max_iters=max_iters, early_stop_k=code.k)
+        if impl == "pallas":
+            values, erased, _ = peel_decode(arrays, cw, mask, schedule=schedule, **kw)
+        else:
+            values, erased, _ = peel_decode_jacobi(arrays, apply_erasures(cw, mask), mask, **kw)
+        return erased[:, : code.k].sum(), values.sum(dim=(0, 1), dtype=torch.int32)
+
+    return step
+
+
 def cmd_throughput(args) -> int:
     from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
-    from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
+    from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, random_words
 
     device = resolve_device(args.device)
     code = get_code(args.code)

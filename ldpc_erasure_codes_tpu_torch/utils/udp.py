@@ -642,10 +642,9 @@ def loopback_demo(
     arrive as a VITA-49 stream over UDP and are recovered bit-exactly by
     VitaIngest before encoding (:140-212).
     """
-    from ldpc_erasure_codes_tpu_torch.bench import random_words
     from ldpc_erasure_codes_tpu_torch.codes.io import get_code
     from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
-    from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
+    from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, random_words
     from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
     from ldpc_erasure_codes_tpu_torch.utils.device import cuda_device
 

@@ -54,12 +54,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ldpc_erasure_codes_tpu_torch.bench import random_bytes, random_words
 from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
 from ldpc_erasure_codes_tpu_torch.codes import gen_row_wise, toy_code
 from ldpc_erasure_codes_tpu_torch.codes.io import from_vlist, get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays, code_arrays
-from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
+from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed, random_bytes, random_words
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode, peel_decode_reference
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (

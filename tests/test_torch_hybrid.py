@@ -20,7 +20,6 @@ from ldpc_erasure_codes_tpu.ops import device_arrays
 from ldpc_erasure_codes_tpu.ops import hybrid as jax_hybrid
 from ldpc_erasure_codes_tpu.ops.pallas_peel import static_topology, tile_wide, untile_wide
 from ldpc_erasure_codes_tpu.utils import oracle
-from ldpc_erasure_codes_tpu_torch.bench import HybridPath
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
@@ -168,15 +167,3 @@ def test_check_hybrid_catches_each_fault(case2040):
     assert not check_hybrid(arrays, cw, torch.zeros_like(m), v, e, f, peel_iters=10)["ok"]
     assert check_hybrid(arrays, cw, torch.zeros_like(m), v, e, f, peel_iters=10,
                         require_ge=False)["ok"]
-
-
-def test_hybrid_path_on_cpu():
-    path = HybridPath(get_code("n2040_k1530"), b=4, w=2, per=0.2031, seed=3, device="cpu",
-                      peel_iters=10, emax=512, ge_subbatch=2)
-    mask, v, e, it, f, (n_failed, n_resid, digest) = path.step()
-    assert v.shape == (4, 2040, 2) and int(n_failed) == int(f.sum())
-    assert int(n_resid) == int(e.any(dim=1).sum())
-    assert int(digest) == int(np.bitwise_xor.reduce(v[:, :2].numpy().reshape(-1)))
-    assert check_hybrid(path.arrays, path.codewords, mask, v, e, f, peel_iters=10)["ok"]
-    assert path.fer() == int(f.sum()) / 4 and path.frames == 4
-    assert path.gbps(1.0) == pytest.approx(4 * 1530 * 64 / 1e-3 / 1e9)

@@ -20,9 +20,7 @@ import torch
 from ldpc_erasure_codes_tpu.ops import device_arrays
 from ldpc_erasure_codes_tpu.ops.pallas_encode import encode_packed_vmem
 from ldpc_erasure_codes_tpu.ops.pallas_peel import peel_decode_vmem, static_topology
-from ldpc_erasure_codes_tpu_torch.bench import MainPath, xor_reduce
 from ldpc_erasure_codes_tpu_torch.channel.erasure import apply_erasures, iid_erasures
-from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops import _build
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
@@ -123,30 +121,34 @@ def test_runs_with_jax_unimportable():
     assert out.stdout.startswith("ok")
 
 
-def test_package_source_never_imports_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|ldpc_erasure_codes_tpu)\b(?!_torch)", re.M)
+def _package_sources():
+    """chip_smoke.py and every Python file of the package."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for d, subdirs, fs in os.walk(PKG):
         subdirs[:] = [s for s in subdirs if s != "build"]  # build outputs, not source
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 10
-    for path in files:
+    return files
+
+
+def test_package_source_never_imports_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|ldpc_erasure_codes_tpu)\b(?!_torch)", re.M)
+    for path in _package_sources():
         with open(path) as fh:
             assert not pat.search(fh.read()), path
 
 
-def test_bench_main_path_on_cpu():
-    code = get_code("n2040_k1530")
-    path = MainPath(code, b=2, w=2, per=0.1406, seed=3, device="cpu")
-    mask, v, e, it, (resid, max_it, digest) = path.step()
-    assert v.shape == (2, code.n, 2) and int(max_it) == int(it.max())
-    assert int(resid) == int(e[:, : code.k].sum())
-    want = np.bitwise_xor.reduce(v[:, :2].numpy().reshape(-1))
-    assert int(digest) == int(want)
-    report = check_peel(path.arrays, path.codewords, mask, v, e, it,
-                        max_iters=50, early_stop_k=code.k)
-    assert report["ok"], report
-    assert path.gbps(1.0) == pytest.approx(2 * 1530 * 64 / 1e-3 / 1e9)
+def test_package_source_never_imports_a_bench_module():
+    """Measurement lives outside the package (codec_bench/): nothing in it
+    or in chip_smoke.py imports a ``bench`` module of the package."""
+    pat = re.compile(
+        r"^\s*(import\s+ldpc_erasure_codes_tpu_torch\.bench\b"
+        r"|from\s+ldpc_erasure_codes_tpu_torch\.bench\b"
+        r"|from\s+ldpc_erasure_codes_tpu_torch\s+import\s+(\([^)]*|[^\n]*)\bbench\b)", re.M)
+    assert not os.path.exists(os.path.join(PKG, "bench.py"))
+    for path in _package_sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
 
 
 def test_channel_matches_jax_and_draws_the_rate():
@@ -173,12 +175,6 @@ def test_channel_matches_jax_and_draws_the_rate():
     g = torch.Generator().manual_seed(0)
     assert iid_erasures((2, 3), 1.0, generator=g, device="cpu").all()
     assert not iid_erasures((2, 3), -1.0, generator=g, device="cpu").any()
-
-
-@pytest.mark.parametrize("n", [1, 2, 7, 1000])
-def test_xor_reduce(n):
-    x = random_words(np.random.default_rng(n), (n,))
-    assert int(xor_reduce(to_torch(x))) == int(np.bitwise_xor.reduce(x).view(np.int32))
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):

@@ -17,7 +17,6 @@ from ldpc_erasure_codes_tpu import rs as jrs
 from ldpc_erasure_codes_tpu.ops import device_arrays
 from ldpc_erasure_codes_tpu.ops.arrays import _host_arrays
 from ldpc_erasure_codes_tpu_torch import rs
-from ldpc_erasure_codes_tpu_torch.bench import RSPath
 from ldpc_erasure_codes_tpu_torch.ops.arrays import FIELDS, NB_FIELDS, code_arrays
 from ldpc_erasure_codes_tpu_torch.utils.verify import check_rs
 
@@ -113,16 +112,3 @@ def test_check_rs_catches_faults():
     bad[0, 0, 0] ^= 1
     assert check_rs(cw, mask, bad, e, f, n_minus_k=8)["value_mismatches"] == 1
     assert check_rs(cw, mask, v, e, ~f, n_minus_k=8)["failure_flag_mismatches"] == 4
-
-
-def test_rs_path_steps_on_cpu():
-    """bench.RSPath at a small batch: the i.i.d. leg and a fixed systematic
-    pattern of n - k erasures, both decoded exactly."""
-    path = RSPath(n=18, k=10, b=8, wb=8, per=0.3, seed=1, device="cpu")
-    mask, values, erased, failed, consumed = path.step()
-    assert check_rs(path.codewords, mask, values, erased, failed, n_minus_k=8)["ok"]
-    path.pattern = path.systematic_pattern(8, seed=2)
-    assert (path.pattern.sum(dim=1) == 8).all() and not path.pattern[:, 10:].any()
-    mask, values, erased, failed, consumed = path.step()
-    assert not failed.any() and torch.equal(values, path.codewords)
-    assert int(consumed[0]) == 0

@@ -22,11 +22,17 @@ from ldpc_erasure_codes_tpu.codes import get_code as jax_get_code
 from ldpc_erasure_codes_tpu.ops import device_arrays
 from ldpc_erasure_codes_tpu.sim import driver as jax_driver
 from ldpc_erasure_codes_tpu.sim.stats import batch_stats as jax_batch_stats
-from ldpc_erasure_codes_tpu_torch import bench, sim
+from ldpc_erasure_codes_tpu_torch import sim
 from ldpc_erasure_codes_tpu_torch.channel import erasure as ch
 from ldpc_erasure_codes_tpu_torch.codes.io import get_code
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays
-from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_nb, encode_packed
+from ldpc_erasure_codes_tpu_torch.ops.encode import (
+    encode,
+    encode_nb,
+    encode_packed,
+    random_bytes,
+    random_words,
+)
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_mask
 from ldpc_erasure_codes_tpu_torch.sim import driver
 from ldpc_erasure_codes_tpu_torch.utils import cli
@@ -244,18 +250,36 @@ def test_throughput_cli_smoke(capsys, schedule, impl):
 def test_throughput_step_consumes_values():
     """tests/test_cli.py::test_throughput_step_consumes_values: two codeword
     batches under the same channel draw give different digests."""
-    from ldpc_erasure_codes_tpu_torch.ops.encode import encode_packed
-
     code = get_code("n2000_k1000")
     arrays = code_arrays(code, "cpu")
-    step = bench.make_throughput_step(code, arrays, batch=4, per=0.2, max_iters=50,
-                                      schedule="grouped")
+    step = cli.make_throughput_step(code, arrays, batch=4, per=0.2, max_iters=50,
+                                    schedule="grouped")
     g = torch.Generator().manual_seed(1)
-    cw1 = encode_packed(arrays, bench.random_words((4, code.k, 2), g, "cpu"))
-    cw2 = encode_packed(arrays, bench.random_words((4, code.k, 2), g, "cpu"))
+    cw1 = encode_packed(arrays, random_words((4, code.k, 2), g, "cpu"))
+    cw2 = encode_packed(arrays, random_words((4, code.k, 2), g, "cpu"))
     d1 = step(torch.Generator().manual_seed(7), cw1)
     d2 = step(torch.Generator().manual_seed(7), cw2)
     assert int(d1[0]) == int(d2[0]) and not torch.equal(d1[1], d2[1])
+
+
+@pytest.mark.parametrize("draw", ["words", "bytes"])
+@pytest.mark.parametrize("shape", [(3, 8), (4, 1530, 4), (2, 5, 1024)])
+def test_source_draws_are_one_randint(draw, shape):
+    """The source draws of the value-tracking sim, the battery, ``cli
+    throughput`` and the stream demo are one ``torch.randint`` of int32
+    words over all 32 bits (bytes: W/4 words viewed as uint8), so a seeded
+    generator gives the same stream and leaves the same state."""
+    g, want_g = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
+    words = (*shape[:-1], shape[-1] // 4) if draw == "bytes" else shape
+    want = torch.randint(-(2**31), 2**31, words, dtype=torch.int32, generator=want_g)
+    if draw == "bytes":
+        got = random_bytes(shape, g, "cpu")
+        want = want.view(torch.uint8)
+    else:
+        got = random_words(shape, g, "cpu")
+    assert got.dtype == want.dtype and got.shape == shape and torch.equal(got, want)
+    assert torch.equal(torch.randint(0, 2**31, (4,), generator=g),
+                       torch.randint(0, 2**31, (4,), generator=want_g))
 
 
 def test_cli_defaults_to_the_card():
