@@ -124,10 +124,13 @@ Phases, each fatal on failure:
    cube, the elimination, the transform gather, the dense syndrome and the apply,
    the decode, one sim step; the elimination and the apply held to their
    plain versions on that batch). 9a's peel is the mask kernel
-   (``csrc/peel_mask.cu``), counted, one launch a batch, also held to the
-   plain route at 9a's batch (B=4096, 50 sweeps, first-k stop) and timed
-   beside it and its byte bound, and one call of 9a's step lists its host
-   syncs by site (none the peel's) and launches it once a batch.
+   (``csrc/peel_mask.cu``) in its counting mode, counted, one launch a
+   batch; at 9a's batch (B=4096, 50 sweeps, first-k stop) the residual
+   launch is held to the plain route and the counting launch's counters to
+   ``batch_stats`` over it, each timed beside its byte bound (the plain
+   route, and the residual route with ``batch_stats``), and one call of
+   9a's step lists its host syncs by site (none the peel's) and launches it
+   once a batch.
    9b's rank check is the rank kernel (``csrc/rank.cu``),
    counted; every count of 9a-9c must equal the recorded counts of the
    same seeds (``RECORDED_COUNTS``);
@@ -308,6 +311,7 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_jacobi_reference,
     peel_decode_mask,
     peel_decode_mask_reference,
+    peel_decode_mask_stats,
     peel_decode_wide,
     peel_decode_with_history,
     peel_step_gather,
@@ -446,6 +450,12 @@ KERNELS = {
         source="ldpc_erasure_codes_tpu_torch/csrc/peel_mask.cu",
         replaces="ldpc_erasure_codes_tpu/ops/peel.py:382 (XLA)",
     ),
+    # The same kernel counting the simulation's statistics: JAX runs the
+    # loop and batch_stats in XLA.
+    "peel_decode_mask_stats": dict(
+        source="ldpc_erasure_codes_tpu_torch/csrc/peel_mask.cu",
+        replaces="ldpc_erasure_codes_tpu/ops/peel.py:382 + sim/stats.py:35 (XLA)",
+    ),
 }
 # Where each kernel's launches are counted: (wrapper, attribute). The
 # encode and peel wrappers count their GF(256) mode apart.
@@ -470,6 +480,7 @@ COUNTERS = {
     "gf_matmul_batched": (gf_matmul_batched, "launches"),
     "f2_cube": (f2_cube, "launches"),
     "peel_decode_mask": (peel_decode_mask, "launches"),
+    "peel_decode_mask_stats": (peel_decode_mask_stats, "launches"),
 }
 # The research schedules' kernel entries; their GF(256) modes are held to
 # the plain versions under the same entry.
@@ -2013,6 +2024,49 @@ def peel_mask_row(device, card: str, launches: dict, errs: dict, times: dict, pl
         f"batch ran {sweeps} sweeps; kernels {ms:.4f} ms (profiler), call {call_ms:.4f} ms "
         f"(CUDA events), plain route {plain_ms:.1f} ms; bound {bnd['bound_ms']:.4f} ms "
         f"({bnd['bound_by']}: {bnd['bytes']:.4g} bytes); bit-exact; on {card}")
+
+    # The counting launch, the simulation step's route, on the same masks:
+    # its SimStats against batch_stats over the residual route's outputs,
+    # and its time beside the residual route's and beside that route with
+    # batch_stats (what the step ran before).
+    count_kw = dict(kw, k_count=code.k, rs_n=code.rs_n, rs_k=code.rs_k)
+    stats = torch.zeros((9 + kw["max_iters"],), dtype=torch.int64, device=device)
+    zero_counts()
+    profiling.reset()
+    with profiling.recording():
+        peel_decode_mask_stats(arrays, mask, stats, **count_kw)
+    rec = profiling.snapshot()["counters"]
+    profiling.reset()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["peel_decode_mask_stats"] == 1 and counts["peel_decode_mask"] == 1,
+            f"the counting launch was counted {counts}")
+    require(rec["peel.mask_stats_frames"] == b,
+            f"peel.mask_stats_frames read {rec.get('peel.mask_stats_frames')}, not {b}")
+    add_counts(launches, counts)
+
+    def stats_route():
+        e, it = peel_decode_mask(arrays, mask, **kw)
+        return sim.batch_stats(mask, e, it, None, code.k, code.rs_n, code.rs_k, kw["max_iters"])
+
+    want_stats = torch.cat([t.reshape(-1) for t in stats_route()])
+    err = int((stats - want_stats).abs().max())
+    errs["peel_decode_mask_stats"] = max(errs["peel_decode_mask_stats"], err)
+    require(err == 0, f"9a shape: the counting launch's SimStats != batch_stats "
+                      f"({stats.tolist()} against {want_stats.tolist()})")
+    count_ms = device_ms(lambda: peel_decode_mask_stats(arrays, mask, stats, **count_kw), 20,
+                         "peel_mask_kernel")
+    count_call_ms = cuda_ms(lambda: peel_decode_mask_stats(arrays, mask, stats, **count_kw), 20)
+    route_ms = cuda_ms(stats_route, 20)
+    # Bytes: each mask byte read once, the counters written once.
+    cbnd = bound(b * n + 8 * stats.numel(), 0)
+    times["peel_decode_mask_stats"], plain["peel_decode_mask_stats"] = count_ms, route_ms
+    bounds["peel_decode_mask_stats"] = cbnd
+    log(f"phase 9a: peel_decode_mask_stats on the same masks: SimStats equal to batch_stats; "
+        f"kernels {count_ms:.4f} ms (profiler; residual route {ms:.4f}), call "
+        f"{count_call_ms:.4f} ms (CUDA events; residual route {call_ms:.4f}, with batch_stats "
+        f"{route_ms:.4f}); bound {cbnd['bound_ms']:.4f} ms ({cbnd['bound_by']}: "
+        f"{cbnd['bytes']:.4g} bytes); on {card}")
     step = sim.make_sim_step(code, cli.sim_config(cli.parser().parse_args(SIM_9A)),
                              device=device)
     zero_counts()
@@ -2028,9 +2082,10 @@ def peel_mask_row(device, card: str, launches: dict, errs: dict, times: dict, pl
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     counts = read_counts()
-    require(counts["peel_decode_mask"] == 16,
-            f"one call of 9a's step launched the mask peel {counts['peel_decode_mask']} times, "
-            f"not once for each of its 16 batches")
+    require(counts["peel_decode_mask"] == 16 and counts["peel_decode_mask_stats"] == 16,
+            f"one call of 9a's step launched the mask peel {counts['peel_decode_mask']} times "
+            f"({counts['peel_decode_mask_stats']} counting), not once for each of its 16 "
+            f"batches, counting")
     add_counts(launches, counts)
     by_site = {site: sites.count(site) for site in sorted(set(sites))}
     log(f"phase 9a: host syncs in one call of the simulation step (16 batches, 16 mask peel "

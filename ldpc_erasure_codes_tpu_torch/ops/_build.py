@@ -93,8 +93,9 @@ LAUNCHERS = {
     # stream
     "ldpc_cube_launch": [*[_P] * 6, *[_I] * 5, _P],
     # erased, vlist_idx, vlist_len, clist_idx, clist_len, scratch,
-    # erased_out, iters_out, B, n, m, dmax, cmax, k_stop, max_iters, stream
-    "ldpc_peel_mask_launch": [*[_P] * 8, *[_I] * 7, _P],
+    # erased_out, iters_out, B, n, m, dmax, cmax, k_stop, max_iters, stats,
+    # k_count, rs_n, rs_k, stream
+    "ldpc_peel_mask_launch": [*[_P] * 8, *[_I] * 7, _P, *[_I] * 3, _P],
     # values, out, mask, B, n, W, seed, num, stream
     "ldpc_channel_launch": [*[_P] * 3, *[_I] * 5, _P],
     # values, vlist_idx, vlist_len, out, B, n, m, dmax, W, stream

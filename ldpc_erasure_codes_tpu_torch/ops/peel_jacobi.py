@@ -546,14 +546,74 @@ def peel_decode_mask_reference(
     return er, iters
 
 
-def _mask_smem(arrays: CodeArrays) -> int:
+def _mask_smem(arrays: CodeArrays, nwin: int = 0) -> int:
     """Shared memory a block of ``csrc/peel_mask.cu`` takes: the group's
     words and the checks' words, each with a zero pad, then the Vlist and
-    the Clist as uint16."""
+    the Clist as uint16; counting, launch 1 adds ``nwin`` RS windows' counts
+    of 32 frames."""
     n, m, dmax = arrays.n, arrays.m, arrays.dmax
     cmax = arrays.clist_idx.shape[1]
     r16 = _build.round16
-    return r16(4 * (n + 1)) + r16(4 * (m + 1)) + r16(2 * m * dmax) + r16(2 * n * cmax)
+    return (r16(4 * (n + 1)) + r16(4 * (m + 1)) + r16(2 * m * dmax) + r16(2 * n * cmax)
+            + r16(4 * 32 * nwin))
+
+
+def rs_windows(n: int, rs_n: int) -> int:
+    """RS windows a frame of ``n`` symbols is scored in: ``n / rs_n`` where
+    ``rs_n`` divides n, else none (``sim/stats.py::batch_stats``' rule)."""
+    return n // rs_n if rs_n > 0 and n % rs_n == 0 else 0
+
+
+def mask_kernel_fits(arrays: CodeArrays, rs_n: int = 0) -> bool:
+    """Whether ``csrc/peel_mask.cu`` takes the code: rows of 32-bit words
+    (n a multiple of 4), uint16 tables (n, m < 65535), and its shared memory,
+    with the RS windows of ``rs_n`` symbols that counting keeps."""
+    n, m = arrays.n, arrays.m
+    return (n % 4 == 0 and n < 65535 and m < 65535
+            and _mask_smem(arrays, rs_windows(n, rs_n)) <= _build.SMEM_LIMIT)
+
+
+def _launch_mask(arrays: CodeArrays, erased: torch.Tensor, k_stop: int, max_iters: int, *,
+                 er_out: torch.Tensor | None = None, iters: torch.Tensor | None = None,
+                 stats: torch.Tensor | None = None, k_count: int = 0, rs_n: int = 0,
+                 rs_k: int = 0) -> None:
+    """Both launches of ``csrc/peel_mask.cu`` on CUDA ``erased``: the
+    residual into ``er_out`` and ``iters``, or, given ``stats``, the
+    counters added into it. Counted on ``peel_decode_mask.launches``."""
+    b, n = erased.shape
+    m, dev = arrays.m, erased.device
+    nwin = 0 if stats is None else rs_windows(n, rs_n)
+    if not mask_kernel_fits(arrays, rs_n if nwin else 0):
+        raise ValueError(f"the mask kernel reads rows as 32-bit words and stages the Vlist and "
+                         f"the Clist as uint16 in shared memory: n={n} (a multiple of 4), m={m} "
+                         f"(< 65535 each), {_mask_smem(arrays, nwin)} bytes "
+                         f"(<= {_build.SMEM_LIMIT})")
+    if b == 0:
+        return
+    erased = erased.contiguous()
+    if erased.data_ptr() % 4:
+        erased = erased.clone()
+    # Each group's words, then max d, max c and T.
+    scratch = torch.empty((-(-b // 32) * n + 3,), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = _build.library().ldpc_peel_mask_launch(
+            erased.data_ptr(), arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
+            arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(), scratch.data_ptr(),
+            ptr(er_out), ptr(iters), b, n, m, arrays.dmax, arrays.clist_idx.shape[1], k_stop,
+            max_iters, ptr(stats), k_count, rs_n, rs_k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "ldpc_peel_mask_launch")
+    peel_decode_mask.launches += 1
+    if profiling.enabled():
+        profiling.count("peel.mask_kernel_frames", b)
+        profiling.count("peel.mask_sweeps", scratch[-1])
+        if stats is not None:
+            profiling.count("peel.mask_stats_frames", b)
 
 
 def peel_decode_mask(
@@ -570,7 +630,8 @@ def peel_decode_mask(
     CPU tensors take :func:`peel_decode_mask_reference`; CUDA tensors launch
     ``csrc/peel_mask.cu`` (or raise), which decides the stop on the card:
     no host read. ``peel_decode_mask.launches`` counts the calls that
-    launch it (its two kernels as one)."""
+    launch it (its two kernels as one), :func:`peel_decode_mask_stats`'
+    included."""
     k_stop = _check_mask(arrays, erased, max_iters, early_stop_k)
     if erased.device.type == "cpu":
         return peel_decode_mask_reference(arrays, erased, max_iters=max_iters,
@@ -578,34 +639,53 @@ def peel_decode_mask(
     if erased.device.type != "cuda":
         raise ValueError(f"unsupported device {erased.device}")
     b, n = erased.shape
-    m, dev = arrays.m, erased.device
-    if n % 4 or n >= 65535 or m >= 65535 or _mask_smem(arrays) > _build.SMEM_LIMIT:
-        raise ValueError(f"the mask kernel reads rows as 32-bit words and stages the Vlist and "
-                         f"the Clist as uint16 in shared memory: n={n} (a multiple of 4), m={m} "
-                         f"(< 65535 each), {_mask_smem(arrays)} bytes (<= {_build.SMEM_LIMIT})")
-    erased = erased.contiguous()
-    if erased.data_ptr() % 4:
-        erased = erased.clone()
-    groups = -(-b // 32)
-    # Each group's words, then max d, max c and T.
-    scratch = torch.empty((groups * n + 3,), dtype=torch.int32, device=dev)
-    er_out = torch.empty((b, n), dtype=torch.bool, device=dev)
-    iters = torch.empty((b,), dtype=torch.int32, device=dev)
-    if b == 0:
-        return er_out, iters
-    with torch.cuda.device(dev):
-        rc = _build.library().ldpc_peel_mask_launch(
-            erased.data_ptr(), arrays.vlist_idx.data_ptr(), arrays.vlist_len.data_ptr(),
-            arrays.clist_idx.data_ptr(), arrays.clist_len.data_ptr(), scratch.data_ptr(),
-            er_out.data_ptr(), iters.data_ptr(), b, n, m, arrays.dmax, arrays.clist_idx.shape[1],
-            k_stop, max_iters, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(rc, "ldpc_peel_mask_launch")
-    peel_decode_mask.launches += 1
-    if profiling.enabled():
-        profiling.count("peel.mask_kernel_frames", b)
-        profiling.count("peel.mask_sweeps", scratch[-1])
+    er_out = torch.empty((b, n), dtype=torch.bool, device=erased.device)
+    iters = torch.empty((b,), dtype=torch.int32, device=erased.device)
+    _launch_mask(arrays, erased, k_stop, max_iters, er_out=er_out, iters=iters)
     return er_out, iters
 
 
 peel_decode_mask.launches = 0
+
+
+def peel_decode_mask_stats(
+    arrays: CodeArrays,
+    erased: torch.Tensor,
+    stats: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    early_stop_k: int | None = None,
+    k_count: int,
+    rs_n: int = 0,
+    rs_k: int = 0,
+) -> None:
+    """:func:`peel_decode_mask` on CUDA ``erased`` whose outputs only feed
+    the FER simulation's counters: adds the batch's ``SimStats`` into
+    ``stats`` ((9 + max_iters,) int64 on the card, ``SimStats``' order, the
+    histogram's bins last), counted inside ``csrc/peel_mask.cu``; the
+    residual and the iteration counts are not written. A block error is an
+    erasure left among the first ``k_count`` symbols; the RS windows are
+    those of ``rs_n`` symbols (:func:`rs_windows`), failing past ``rs_n -
+    rs_k`` erasures. The counts are ``sim/stats.py::batch_stats`` of
+    :func:`peel_decode_mask`'s outputs, its plain version. No host read;
+    counted on ``peel_decode_mask.launches``, on
+    ``peel_decode_mask_stats.launches`` and, while profiling records,
+    ``peel.mask_stats_frames``."""
+    k_stop = _check_mask(arrays, erased, max_iters, early_stop_k)
+    n = erased.shape[1]
+    if (stats.dtype != torch.int64 or stats.shape != (9 + max_iters,)
+            or stats.device != erased.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be contiguous ({9 + max_iters},) int64 on {erased.device}, "
+                         f"got {tuple(stats.shape)} {stats.dtype} on {stats.device}")
+    if not 0 <= k_count <= n:
+        raise ValueError(f"k_count={k_count} outside 0..{n}")
+    if erased.device.type != "cuda":
+        raise ValueError(f"the counting launch runs on the card, not {erased.device}: on the "
+                         f"CPU count batch_stats over peel_decode_mask")
+    _launch_mask(arrays, erased, k_stop, max_iters, stats=stats, k_count=k_count, rs_n=rs_n,
+                 rs_k=rs_k)
+    if erased.shape[0]:
+        peel_decode_mask_stats.launches += 1
+
+
+peel_decode_mask_stats.launches = 0

@@ -79,8 +79,7 @@ def all_reduce_stats(stats, group):
     step left them)."""
     flat = torch.cat([t.reshape(-1).to(torch.int64) for t in stats])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    nscalar = len(stats) - 1
-    return type(stats)(*flat[:nscalar].unbind(), flat[nscalar:])
+    return type(stats).from_flat(flat)
 
 
 def shard_sim_step(

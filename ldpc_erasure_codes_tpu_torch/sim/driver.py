@@ -18,7 +18,10 @@ is kept:
 * the pattern-only hybrid peels to convergence, then rank-checks the
   residual (:158-191);
 * ``steps_per_call`` batches per call of the step, their statistics summed
-  on the device and read by the host once per call (:283-297).
+  on the device and read by the host once per call (:283-297); the
+  pattern-only peel on the card has ``csrc/peel_mask.cu`` count them into
+  one buffer a call (``peel_decode_mask_stats``), the others fold each
+  batch by ``batch_stats``.
 
 Each batch draws from its own ``torch.Generator``, seeded from
 (``SimConfig.seed``, call, batch, shard), so a run can be repeated. The
@@ -55,7 +58,12 @@ from ldpc_erasure_codes_tpu_torch.ops.encode import (
 from ldpc_erasure_codes_tpu_torch.ops.ge import ge_rank_check, ge_solve
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
-from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi, peel_decode_mask
+from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
+    mask_kernel_fits,
+    peel_decode_jacobi,
+    peel_decode_mask,
+    peel_decode_mask_stats,
+)
 from ldpc_erasure_codes_tpu_torch.parallel.mesh import default_mesh, shard_sim_step
 from ldpc_erasure_codes_tpu_torch.sim.config import SimConfig
 from ldpc_erasure_codes_tpu_torch.sim.stats import Accumulator, SimStats, batch_stats
@@ -200,7 +208,13 @@ def make_sim_step(
     device = cuda_device() if device is None else torch.device(device)
     arrays = code_arrays(code, device)
     n, k = code.n, code.k
-    max_hist = cfg.decoder.max_iters if cfg.decoder.kind == "peel" else cfg.decoder.peel_iters
+    d = cfg.decoder
+    max_hist = d.max_iters if d.kind == "peel" else d.peel_iters
+    # The pattern-only peel on the card reads nothing of its outputs but
+    # their counts: the mask kernel counts them itself, into one buffer a
+    # call, in place of batch_stats and the batches' adds.
+    counts_on_card = (d.kind == "peel" and not cfg.track_values and device.type == "cuda"
+                      and mask_kernel_fits(arrays, code.rs_n))
 
     def step_once(gen: torch.Generator, per) -> SimStats:
         mask = _erasure_mask(gen, cfg, n, per, device)
@@ -218,8 +232,20 @@ def make_sim_step(
         )
 
     def step(call: int, per, shard: int = 0) -> SimStats:
+        batches = range(max(cfg.steps_per_call, 1))
+        if counts_on_card:
+            flat = torch.zeros((len(SimStats._fields) + max_hist,), dtype=torch.int64,
+                               device=device)
+            for j in batches:
+                gen = batch_generator(cfg.seed, call, j, device, shard)
+                peel_decode_mask_stats(
+                    arrays, _erasure_mask(gen, cfg, n, per, device), flat,
+                    max_iters=d.max_iters, early_stop_k=k if d.early_stop_k else None,
+                    k_count=n if d.count_all_symbols else k, rs_n=code.rs_n, rs_k=code.rs_k,
+                )
+            return SimStats.from_flat(flat)
         acc = None
-        for j in range(max(cfg.steps_per_call, 1)):
+        for j in batches:
             s = step_once(batch_generator(cfg.seed, call, j, device, shard), per)
             acc = s if acc is None else acc + s
         return acc

@@ -36,6 +36,13 @@ class SimStats(NamedTuple):
     def __add__(self, other: "SimStats") -> "SimStats":
         return SimStats(*(a + b for a, b in zip(self, other)))
 
+    @classmethod
+    def from_flat(cls, flat: torch.Tensor) -> "SimStats":
+        """The counters of one int64 vector in the fields' order, the
+        histogram's bins last: views of it."""
+        nscalar = len(cls._fields) - 1
+        return cls(*flat[:nscalar].unbind(), flat[nscalar:])
+
     def to_host(self) -> "SimStats":
         """The same counters as Python ints (the histogram a list), read
         from the device in one transfer."""

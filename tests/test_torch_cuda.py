@@ -35,6 +35,7 @@ from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import (
     peel_decode_jacobi,
     peel_decode_jacobi_reference,
     peel_decode_mask,
+    peel_decode_mask_stats,
 )
 from ldpc_erasure_codes_tpu_torch.ops.synd import syndrome_from_topo, syndrome_from_topo_reference
 from ldpc_erasure_codes_tpu_torch.utils import golden, profiling, verify
@@ -877,7 +878,8 @@ def test_peel_mask_kernel_no_host_sync_and_empty_batch(cuda_device):
 
 def test_sim_step_pattern_only_peel_reads_nothing_back(cuda_device):
     """A call of the pattern-only peel's simulation step (16 batches) makes
-    no host sync: the peel's stop and the counters stay on the card."""
+    no host sync: the peel's stop and the counters stay on the card, where
+    the kernel counts every frame (``peel.mask_stats_frames``)."""
     from ldpc_erasure_codes_tpu_torch import sim
 
     cfg = sim.SimConfig(code="n2040_k1530", batch=4096, track_values=False, steps_per_call=16,
@@ -885,12 +887,91 @@ def test_sim_step_pattern_only_peel_reads_nothing_back(cuda_device):
     step = sim.make_sim_step("n2040_k1530", cfg, device=cuda_device)
     step(0, 0.1875)
     torch.cuda.synchronize()
+    profiling.reset()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        stats = step(1, 0.1875)
+        with profiling.recording():
+            stats = step(1, 0.1875)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
     assert int(stats.frames) == 16 * 4096 and int(stats.iters_hist.sum()) == 16 * 4096
+    assert counters["peel.mask_stats_frames"] == 16 * 4096
+
+
+# The counting launch (peel_decode_mask_stats): the simulation's counters
+# counted in the kernel, against batch_stats over the residual route.
+
+# (code, B, PER, max_iters, first-k stop, every symbol counted): ragged
+# batches, budgets 0 and 1, each RS window size, the GF(256) lift's masks.
+PEEL_MASK_STATS_CASES = [
+    *[("n2040_k1530", b, 0.1875, 50, True, False) for b in (1, 33, 4097)],
+    ("n2040_k1530", 512, 0.1875, 0, True, False),
+    ("n2040_k1530", 512, 0.1875, 1, False, True),
+    ("n4000_k2000", 256, 0.44, 200, True, False),
+    ("n2000_k1000", 256, 0.4, 50, False, True),
+    ("n4080_k3060", 256, 0.2, 50, True, True),
+    ("n2040_k1530_gf256", 256, 0.2031, 10, False, False),
+]
+
+
+def _stats_route(code, arrays, mask, max_iters, early, count_all):
+    """``batch_stats`` over :func:`peel_decode_mask`, flattened."""
+    from ldpc_erasure_codes_tpu_torch.sim.stats import batch_stats
+
+    e, it = peel_decode_mask(arrays, mask, max_iters=max_iters, early_stop_k=early)
+    s = batch_stats(mask, e, it, None, code.k, code.rs_n, code.rs_k, max_iters,
+                    count_all_symbols=count_all)
+    return torch.cat([t.reshape(-1) for t in s])
+
+
+@pytest.mark.parametrize("name,b,per,max_iters,early,count_all", PEEL_MASK_STATS_CASES)
+def test_peel_mask_stats_equal_batch_stats(cuda_device, name, b, per, max_iters, early,
+                                           count_all):
+    code = get_code(name)
+    arrays = code_arrays(code, cuda_device)
+    mask = torch.from_numpy(np.random.default_rng(b + max_iters).random((b, code.n)) < per)
+    mask = mask.to(cuda_device)
+    early_k = code.k if early else None
+    # Counts add into what the buffer holds.
+    stats = torch.full((9 + max_iters,), 7, dtype=torch.int64, device=cuda_device)
+    before = peel_decode_mask_stats.launches, peel_decode_mask.launches
+    peel_decode_mask_stats(arrays, mask, stats, max_iters=max_iters, early_stop_k=early_k,
+                           k_count=code.n if count_all else code.k, rs_n=code.rs_n,
+                           rs_k=code.rs_k)
+    torch.cuda.synchronize()
+    assert (peel_decode_mask_stats.launches, peel_decode_mask.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    want = _stats_route(code, arrays, mask, max_iters, early_k, count_all)
+    torch.testing.assert_close(stats.cpu() - 7, want.cpu(), rtol=0, atol=0)
+    assert int(stats[0]) - 7 == b
+
+
+def test_sim_step_counts_on_the_card_equal_batch_stats(cuda_device):
+    """The cell's call (16 batches of 4096, PER .1875, 50 sweeps, first-k
+    stop) takes the counting route, one launch a batch, and returns the sum
+    of batch_stats over the residual route on the same draws."""
+    from ldpc_erasure_codes_tpu_torch import sim
+    from ldpc_erasure_codes_tpu_torch.sim import driver
+
+    code = get_code("n2040_k1530")
+    cfg = sim.SimConfig(code=code.name, batch=4096, track_values=False, steps_per_call=16,
+                        seed=2**31 + 11,
+                        decoder=sim.DecoderConfig(kind="peel", max_iters=50, early_stop_k=True))
+    step = sim.make_sim_step(code, cfg, device=cuda_device)
+    before = peel_decode_mask_stats.launches
+    got = step(5, 0.1875)
+    torch.cuda.synchronize()
+    assert peel_decode_mask_stats.launches == before + 16
+    arrays = code_arrays(code, cuda_device)
+    want = 0
+    for j in range(16):
+        gen = driver.batch_generator(cfg.seed, 5, j, cuda_device)
+        mask = driver._erasure_mask(gen, cfg, code.n, 0.1875, cuda_device)
+        want = want + _stats_route(code, arrays, mask, 50, code.k, False)
+    flat = torch.cat([t.reshape(-1) for t in got])
+    torch.testing.assert_close(flat.cpu(), want.cpu(), rtol=0, atol=0)
 
 
 # GF(256): byte frames, four bytes to a word in the kernels.
