@@ -74,10 +74,12 @@ Phases, each fatal on failure:
    PER .1406, first-k early stop; counted, verified (``check_nb``, with the
    oracle's GF(256) peel on 8 frames), 5 reps timed (no cell runs it yet);
 6b. the NB hybrid, production knobs (10 sweeps, emax 128, bucket 64; its
-   GE is the plain byte Gauss-Jordan ``ge_solve``); counted, verified
+   GE is ``ge_solve_wide_nb``, whose ``gf256_eliminate`` must launch in
+   any rep the peel leaves a residual); counted, verified
    (``check_hybrid``), 3 reps timed;
 6c. NB escalation: B=64, PER .2031, emax 128, bucket 16, so the production
-   branch overflows and ``ge_solve_wide_nb`` solves the rest with the cube
+   branch (its first dispatch on ``ge_solve_wide_nb``, ``gf256_eliminate``
+   required) overflows and ``ge_solve_wide_nb`` solves the rest with the cube
    in device memory; verified, the escalation call timed, with
    ``gf256_eliminate`` on its GE operands (held to the plain version, and
    its column steps alone, as in phase 6d) and ``gf_apply_scatter`` (as in
@@ -288,6 +290,7 @@ from ldpc_erasure_codes_tpu_torch.ops.ge import (
     ge_rank_check_reference,
     ge_solve,
     ge_solve_packed,
+    ge_solve_wide_nb,
     pivot_transforms,
 )
 from ldpc_erasure_codes_tpu_torch.ops.hybrid import hybrid_decode, hybrid_decode_escalated
@@ -1762,17 +1765,22 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     failed_frames, frames = int(sum(fails)), len(fails) * nb["b"]
     counts = read_counts()
     require(counts["peel_decode_gf256"] > 0, "the NB hybrid never launched the GF(256) peel")
+    require(counts["gf256_eliminate"] > 0 or report["ge_frames"] == 0,
+            "the NB hybrid's GE never launched gf256_eliminate")
     log(f"phase 6b: NB hybrid {nb_gbps(code, ms):.2f} Gbps info ({ms:.3f} ms/rep over 3 reps, "
         f"{NB_HYBRID}); hybrid FER {failed_frames / frames:.4e} ({failed_frames}/{frames});"
-        f" GE frames in the verified rep {report['ge_frames']} (the GE branch is the plain "
-        f"ge_solve); launches {counts}; on {card}")
+        f" GE frames in the verified rep {report['ge_frames']} (the GE branch is "
+        f"ge_solve_wide_nb); launches {counts}; on {card}")
     add_counts(launches, counts)
     del path, cw
 
     # 6c: NB escalation: buckets too small, ge_solve_wide_nb on the rest.
+    zero_counts()
     esc, mask, prod = nb_escalation(device)
     kw = NB_ESCALATION
     require(bool(prod[4].any()), "the production branch overflowed no frame")
+    require(read_counts()["gf256_eliminate"] > 0,
+            "the production branch's GE never launched gf256_eliminate")
     zero_counts()
     v, e_out, it, f, n_esc = hybrid_decode_escalated(esc.arrays, esc.codewords, mask, **kw)
     torch.cuda.synchronize()
@@ -1805,9 +1813,10 @@ def gf_phases(device, card: str, errs: dict, times: dict, plain: dict, bounds: d
     sel = residual_order(resid, kw["ge_subbatch"])[0]
     vs, es = pv[sel], resid[sel]
     ge_ms = cuda_ms(lambda: ge_solve(esc.arrays, vs, es, emax=kw["emax"], gf_order=256), 2)
-    log(f"phase 6c: ge_solve (plain byte Gauss-Jordan) on the production bucket "
-        f"({vs.shape[0]} frames, emax {kw['emax']}, {nb['wb']}-byte symbols): {ge_ms:.3f} ms "
-        f"on {card}")
+    wide_ms = cuda_ms(lambda: ge_solve_wide_nb(esc.arrays, vs, es, emax=kw["emax"]), 2)
+    log(f"phase 6c: the production bucket ({vs.shape[0]} frames, emax {kw['emax']}, "
+        f"{nb['wb']}-byte symbols) on ge_solve_wide_nb, its route: {wide_ms:.3f} ms; on "
+        f"ge_solve (plain byte Gauss-Jordan): {ge_ms:.3f} ms; on {card}")
     del esc, v, pv, vs
 
     # 6d: RS(255,192) wide decode.

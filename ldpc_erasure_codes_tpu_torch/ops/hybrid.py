@@ -16,8 +16,13 @@ from __future__ import annotations
 import torch
 
 from ldpc_erasure_codes_tpu_torch.ops.arrays import CodeArrays
-from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, ge_packed, residual_order
-from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed, ge_solve_wide_nb
+from ldpc_erasure_codes_tpu_torch.ops.compact import (
+    compact_ge_solve,
+    ge_packed,
+    residual_order,
+    solve_packed,
+)
+from ldpc_erasure_codes_tpu_torch.ops.ge import ge_solve, ge_solve_packed
 from ldpc_erasure_codes_tpu_torch.ops.peel import peel_decode
 from ldpc_erasure_codes_tpu_torch.ops.peel_jacobi import peel_decode_jacobi, peel_decode_wide
 from ldpc_erasure_codes_tpu_torch.utils import profiling
@@ -90,13 +95,16 @@ def hybrid_decode(
     ``impl`` JAX refuses raises ValueError. ``emax`` buckets the residual
     GE width; frames whose residual exceeds it fail. ``ge_subbatch`` > 0
     compacts the frames that still hold erasures into a bucket of that many
-    frames (overflow -> failed). ``ge_impl`` picks the solver as JAX's
-    ``ge_flat`` (hybrid.py:127-141, :func:`.compact.ge_packed`): "auto" the
-    packed solver ``ge_solve_packed`` on wide binary words and the byte
-    ``ge_solve`` otherwise, "packed" the packed one (wide binary words
-    only: JAX would run the binary solver on bytes, the port raises),
-    "bytes" the byte one. The knobs are the JAX function's; the port keeps
-    the flat layout, so:
+    frames (overflow -> failed). ``ge_impl`` picks the solver as
+    :func:`.compact.ge_packed` says: "auto" and "packed" the field's
+    wide-word solver on wide frames (:func:`.compact.solve_packed`:
+    ``ge_solve_packed`` for binary words, as JAX's ``ge_flat``,
+    hybrid.py:127-141, and GF(256)'s ``ge_solve_wide_nb``, the card's
+    GF(256) GE kernels, for bytes, where JAX takes its byte solver), the
+    byte ``ge_solve`` for scalar frames under "auto" ("packed" raises
+    there), "bytes" the byte one always. Every solver returns the same
+    erasures and flags, and the same values on frames that do not fail.
+    The knobs are the JAX function's; the port keeps the flat layout, so:
 
     * ``tiled=True`` with ``ge_subbatch`` > 0 on a binary code with
       ``ge_impl`` "auto" or "packed" takes the flat counterpart of JAX's
@@ -105,7 +113,9 @@ def hybrid_decode(
       straight into the decoded frames. Otherwise, and for GF(256) always,
       the residual goes through :func:`.compact.compact_ge_solve`
       (``ge_subbatch`` > 0) or the chosen solver on the whole batch, as
-      JAX's ``ge_flat``.
+      JAX's ``ge_flat``. The frames that either hands to
+      ``ge_solve_wide_nb`` (the bucket, fillers included) are counted as
+      ``hybrid.ge.nb_wide_frames``.
     * ``static_topo=True`` takes the row branch's syndrome through the code's
       topology (``csrc/synd.cu``) instead of the dense product.
 
@@ -146,7 +156,9 @@ def _hybrid(arrays, values, erased, *, gf_order, peel_iters, emax, impl, ge_subb
         overflow = erased.sum(dim=1) > min(emax, n)
         if ge_subbatch > 0:
             overflow |= residual_order(erased, ge_subbatch)[2]
-    if tiled and ge_subbatch > 0 and packed:
+    if packed and gf_order == 256:
+        profiling.count("hybrid.ge.nb_wide_frames", min(ge_subbatch, b) if ge_subbatch > 0 else b)
+    if tiled and ge_subbatch > 0 and packed and gf_order == 2:
         with profiling.span("hybrid.ge.rows"):
             values, erased, failed = _ge_rows(
                 arrays, values, erased, emax=emax, ge_subbatch=ge_subbatch,
@@ -161,7 +173,8 @@ def _hybrid(arrays, values, erased, *, gf_order, peel_iters, emax, impl, ge_subb
     else:
         with profiling.span("hybrid.ge.whole"):
             if packed:
-                values, erased, failed = ge_solve_packed(arrays, values, erased, emax=emax)
+                values, erased, failed = solve_packed(arrays, values, erased, emax=emax,
+                                                      gf_order=gf_order)
             else:
                 values, erased, failed = ge_solve(
                     arrays, values, erased, emax=emax, gf_order=gf_order)
@@ -194,10 +207,11 @@ def hybrid_decode_escalated(
     with the first candidate; erased slots re-zeroed before the dispatch.
     The second dispatch is ``ge_solve_packed``, ``ge_solve_wide_nb`` for
     GF(256) and ``ge_solve`` for scalar symbols (hybrid.py:294-301).
-    ``ge_impl`` passes to the first dispatch. That dispatch takes the flat
-    branch (``compact_ge_solve``, or the whole batch), which reads no
-    ``static_topo``: the argument is accepted for JAX's signature and has
-    no effect here.
+    ``ge_impl`` passes to the first dispatch, so "auto" and "packed" run
+    both dispatches of GF(256) bytes on ``ge_solve_wide_nb``. That dispatch
+    takes the flat branch (``compact_ge_solve``, or the whole batch), which
+    reads no ``static_topo``: the argument is accepted for JAX's signature
+    and has no effect here.
 
     Returns (values, erased, iters, failed, n_escalated), n_escalated the
     frames that entered the second dispatch. Syncs with the host.
@@ -238,10 +252,8 @@ def _escalate(arrays, values, erased, iters, failed, *, gf_order):
         v_sub = values[sel].masked_fill_(e_sub if values.dim() == 2 else e_sub[:, :, None], 0)
     if values.dim() == 2:
         v2, e2, f2 = ge_solve(arrays, v_sub, e_sub, emax=emax2, gf_order=gf_order)
-    elif gf_order == 256:
-        v2, e2, f2 = ge_solve_wide_nb(arrays, v_sub, e_sub, emax=emax2)
     else:
-        v2, e2, f2 = ge_solve_packed(arrays, v_sub, e_sub, emax=emax2)
+        v2, e2, f2 = solve_packed(arrays, v_sub, e_sub, emax=emax2, gf_order=gf_order)
     with profiling.span("ge.scatter"):
         values[cand] = v2[:ncand]
         erased[cand] = e2[:ncand]

@@ -7,7 +7,8 @@ JAX package exports is exported by the port's, apart from the entries of
 parameters the port spells otherwise (``RENAMED``). Then the parts of the
 ``ops`` API that are only knobs, each against JAX's on the same inputs:
 ``ge_impl`` through ``compact_ge_solve``, ``hybrid_decode`` and
-``hybrid_decode_escalated``; ``gf_mul_packed(prim_poly=)``;
+``hybrid_decode_escalated`` (GF(256)'s wide-word solver, which JAX does not
+have, also against the benchmark's plain reference); ``gf_mul_packed(prim_poly=)``;
 ``from_h_dense(dmax=)``; ``send_blocks(feedback=)``.
 """
 
@@ -39,6 +40,7 @@ from ldpc_erasure_codes_tpu_torch.ops import (
     hybrid_decode,
     hybrid_decode_escalated,
 )
+from ldpc_erasure_codes_tpu_torch.utils import profiling
 from ldpc_erasure_codes_tpu_torch.utils.streaming import BlockAssembler
 from ldpc_erasure_codes_tpu_torch.utils.udp import UdpReceiver, send_blocks
 from torch_port_cases import random_words, small_jax_code, to_port_code, to_torch, to_words
@@ -279,16 +281,26 @@ def _same_unfailed(got, want, failed_at: int) -> None:
         np.testing.assert_array_equal(g, w)
 
 
-GE_CASES = [(2, "auto"), (2, "packed"), (2, "bytes"), (256, "auto"), (256, "bytes")]
+GE_CASES = [(2, "auto"), (2, "packed"), (2, "bytes"), (256, "auto"), (256, "bytes"),
+            (256, "packed")]
+
+
+def _jax_impl(field: int, ge_impl: str) -> str:
+    """JAX's ``ge_impl`` to hold the port's against: JAX solves GF(256)
+    bytes with its byte solver ("auto", "bytes"; its "packed" runs the
+    binary solver on them), and the port's "auto" and "packed" with
+    GF(256)'s wide-word solver, which returns what the byte solver does."""
+    return "bytes" if field == 256 else ge_impl
 
 
 @pytest.mark.parametrize("field,ge_impl", GE_CASES)
 def test_compact_ge_solve_ge_impl_matches_jax(field, ge_impl):
     jarr, arrays = _codes(field)
     cw, mask, recv = _wide(field, 12, 0.3, 1)
-    kw = dict(emax=14, f_max=7, gf_order=field, ge_impl=ge_impl)
-    want = jax_compact.compact_ge_solve(jarr, jnp.asarray(recv), jnp.asarray(mask), **kw)
-    got = compact_ge_solve(arrays, _port(recv), torch.from_numpy(mask), **kw)
+    kw = dict(emax=14, f_max=7, gf_order=field)
+    want = jax_compact.compact_ge_solve(jarr, jnp.asarray(recv), jnp.asarray(mask), **kw,
+                                        ge_impl=_jax_impl(field, ge_impl))
+    got = compact_ge_solve(arrays, _port(recv), torch.from_numpy(mask), **kw, ge_impl=ge_impl)
     _same_unfailed(got, want, 2)
     assert np.asarray(want[2]).any() and not np.asarray(want[2]).all()
 
@@ -298,10 +310,11 @@ def test_compact_ge_solve_ge_impl_matches_jax(field, ge_impl):
 def test_hybrid_ge_impl_matches_jax(field, ge_impl, ge_subbatch):
     jarr, arrays = _codes(field)
     cw, mask, recv = _wide(field, 12, 0.3, 2)
-    kw = dict(gf_order=field, peel_iters=2, emax=12, ge_subbatch=ge_subbatch, ge_impl=ge_impl)
+    kw = dict(gf_order=field, peel_iters=2, emax=12, ge_subbatch=ge_subbatch)
     want = jax_hybrid.hybrid_decode(jarr, jnp.asarray(recv), jnp.asarray(mask),
-                                    return_overflow=True, **kw)
-    got = hybrid_decode(arrays, _port(cw), torch.from_numpy(mask), return_overflow=True, **kw)
+                                    return_overflow=True, **kw, ge_impl=_jax_impl(field, ge_impl))
+    got = hybrid_decode(arrays, _port(cw), torch.from_numpy(mask), return_overflow=True, **kw,
+                        ge_impl=ge_impl)
     _same_unfailed(got, want, 3)
 
 
@@ -310,23 +323,66 @@ def test_escalated_ge_impl_matches_jax(field, ge_impl):
     """emax 6 overflows most frames; the escalation solves them again."""
     jarr, arrays = _codes(field)
     cw, mask, recv = _wide(field, 12, 0.3, 3)
-    kw = dict(gf_order=field, peel_iters=2, emax=6, ge_subbatch=4, ge_impl=ge_impl)
-    want = jax_hybrid.hybrid_decode_escalated(jarr, jnp.asarray(recv), jnp.asarray(mask), **kw)
-    got = hybrid_decode_escalated(arrays, _port(cw), torch.from_numpy(mask), **kw)
+    kw = dict(gf_order=field, peel_iters=2, emax=6, ge_subbatch=4)
+    want = jax_hybrid.hybrid_decode_escalated(jarr, jnp.asarray(recv), jnp.asarray(mask), **kw,
+                                              ge_impl=_jax_impl(field, ge_impl))
+    got = hybrid_decode_escalated(arrays, _port(cw), torch.from_numpy(mask), **kw,
+                                  ge_impl=ge_impl)
     _same_unfailed(got, want, 3)
     assert got[4] > 0
 
 
-@pytest.mark.parametrize("field,w,ge_impl", [(256, 8, "packed"), (2, 0, "packed"),
+@pytest.mark.parametrize("ge_impl", ["auto", "packed"])
+def test_escalated_gf256_packed_matches_the_benchmark_reference(ge_impl):
+    """GF(256)'s wide-word solver ("auto" and "packed" alike) through both
+    dispatches, against the benchmark's
+    own reference (``codec_bench/reference``, which takes nothing of the
+    program but the lift's Vlist and coefficients): every symbol a frame
+    delivers is its codeword's, and a frame fails exactly where the erased
+    columns of H are dependent over GF(256)."""
+    from codec_bench.reference import codes as ref_codes
+    from codec_bench.reference import recovery
+
+    code = to_port_code(small_jax_code()).lift_to_gf256(seed=0)
+    _, arrays = _codes(256)
+    gf = ref_codes.GF256.frozen()
+    idx = code.vlist_idx.astype(np.int64)
+    h_nb = ref_codes.parity_check(code.n, idx, code.vlist_val)
+    p = ref_codes.ldpc_parity_gf256(h_nb, code.k, gf)
+    ref = ref_codes.Code(code.n, code.k, ref_codes.binary_image(p, gf), 8, vlist=idx, h_nb=h_nb)
+    rng = np.random.default_rng(5)
+    src = torch.from_numpy(rng.integers(-(2**31), 2**31, (48, code.k, 2), dtype=np.int32))
+    cw = ref.codewords(src)
+    assert torch.equal(cw.view(torch.uint8),
+                       encode_packed(arrays, src.view(torch.uint8), gf_order=256))
+    mask = torch.from_numpy(rng.random((48, code.n)) < 0.33)
+    recv = cw.masked_fill(mask[:, :, None], 0).view(torch.uint8)
+    profiling.reset()
+    with profiling.recording():
+        values, erased, _, failed, n_esc = hybrid_decode_escalated(
+            arrays, recv, mask, gf_order=256, peel_iters=2, emax=8, ge_subbatch=16,
+            ge_impl=ge_impl)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    ok = recovery.ml_rank(ref, mask)
+    assert torch.equal(failed, ~ok) and ok.any() and not ok.all()
+    assert n_esc > 0 and counters["hybrid.ge.nb_wide_frames"] == 16
+    known = ~erased
+    assert not erased[ok].any() and torch.equal(erased, erased & mask)
+    assert torch.equal(values.view(torch.int32)[known], cw[known])
+
+
+@pytest.mark.parametrize("field,w,ge_impl", [(256, 0, "packed"), (2, 0, "packed"),
                                              (2, 3, "bogus")])
 def test_ge_impl_refusals(field, w, ge_impl):
-    """"packed" on GF(256) or scalar frames (JAX would run the binary
-    solver on bytes) and an unknown ge_impl raise."""
+    """"packed" on scalar (B, n) frames of either field and an unknown
+    ge_impl raise."""
     _, arrays = _codes(field)
     cw, mask, _ = _wide(field, 4, 0.3, 4)
     values = _port(cw)
     if w == 0:
-        values = torch.from_numpy((to_words(values)[:, :, 0] & 1).astype(np.uint8))
+        scalar = cw[:, :, 0] if field == 256 else to_words(values)[:, :, 0] & 1
+        values = torch.from_numpy(np.ascontiguousarray(scalar).astype(np.uint8))
     with pytest.raises(ValueError):
         hybrid_decode(arrays, values, torch.from_numpy(mask), gf_order=field, ge_impl=ge_impl)
     with pytest.raises(ValueError):

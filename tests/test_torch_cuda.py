@@ -21,7 +21,7 @@ from ldpc_erasure_codes_tpu_torch.codes.toy import toy_code
 from ldpc_erasure_codes_tpu_torch.ops import channel, cube, elim, nbmm, peel, rank, synd
 from ldpc_erasure_codes_tpu_torch.ops.arrays import code_arrays, pack_bits
 from ldpc_erasure_codes_tpu_torch.ops.encode import encode, encode_packed, encode_packed_reference
-from ldpc_erasure_codes_tpu_torch.ops.compact import residual_order
+from ldpc_erasure_codes_tpu_torch.ops.compact import compact_ge_solve, residual_order
 from ldpc_erasure_codes_tpu_torch.ops.ge import (
     coefficient_cube,
     erased_indices,
@@ -1260,9 +1260,9 @@ def test_rs_decode_wide_cuda_matches_cpu(cuda_device):
 
 @pytest.mark.parametrize("escalated", [False, True])
 def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
-    """The GF(256) hybrid: the compacted byte GE (production) and, with
-    buckets too small, the escalation through ge_solve_wide_nb with its
-    cube in device memory."""
+    """The GF(256) hybrid: the compacted GE on ge_solve_wide_nb
+    (production) and, with buckets too small, the escalation through it
+    again with its cube in device memory: one gf256_eliminate launch each."""
     code = get_code("n2040_k1530_gf256")
     arrays = code_arrays(code, cuda_device)
     rng = np.random.default_rng(21)
@@ -1274,7 +1274,7 @@ def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
         before = elim.gf256_eliminate.launches
         got = hybrid_decode_escalated(arrays, cw, mask, **kw)
         want = hybrid_decode_escalated(cpu, cw.cpu(), mask.cpu(), **kw)
-        assert got[4] == want[4] > 0 and elim.gf256_eliminate.launches == before + 1
+        assert got[4] == want[4] > 0 and elim.gf256_eliminate.launches == before + 2
     else:
         got = hybrid_decode(arrays, cw, mask, tiled=True, **kw)
         want = hybrid_decode(cpu, cw.cpu(), mask.cpu(), tiled=True, **kw)
@@ -1284,6 +1284,93 @@ def test_hybrid_nb_cuda_matches_cpu(cuda_device, escalated):
     torch.testing.assert_close(got[0].cpu()[ok], want[0][ok], rtol=0, atol=0)
     torch.testing.assert_close(got[0].cpu()[ok], cw.cpu()[ok], rtol=0, atol=0)
     _equal([x.cpu() for x in got[1:4]], want[1:4])
+
+
+def _nb_packed_case(case, dev):
+    """(arrays, codewords, mask, kw): a GF(256) toy code ((96,48), B 32, 8
+    bytes, PER .3, emax 24, an 8-frame bucket), or the lift's shapes
+    ((2040,1530), B 64, 1 KB, PER .2031, emax 512, a 32-frame bucket), so
+    that escalation runs."""
+    if case == "toy":
+        code = toy_code(n=96, k=48, row_weight=8, seed=3, gf_order=256)
+        b, wb, per = 32, 8, 0.3
+        kw = dict(gf_order=256, peel_iters=2, emax=24, ge_subbatch=8, impl="vmem")
+    else:
+        code = get_code("n2040_k1530_gf256")
+        b, wb, per = 64, 1024, 0.2031
+        kw = dict(gf_order=256, peel_iters=10, emax=512, ge_subbatch=32, impl="vmem")
+    arrays = code_arrays(code, dev)
+    rng = np.random.default_rng(28)
+    cw = encode_packed(arrays, _random_bytes(rng, (b, code.k, wb), dev), gf_order=256)
+    mask = torch.from_numpy(rng.random((b, code.n)) < per).to(dev)
+    return arrays, cw, mask, kw
+
+
+def _packed_and_bytes(call):
+    """``call(ge_impl)`` with "packed", "auto" and "bytes", each recorded:
+    (its outputs, its ``hybrid.ge.nb_wide_frames``, its ``gf256_eliminate``
+    launches) for "packed" and for "bytes", after checking that "auto"
+    gave "packed"'s in full."""
+    out = []
+    for ge_impl in ("packed", "auto", "bytes"):
+        before = elim.gf256_eliminate.launches
+        profiling.reset()
+        with profiling.recording():
+            got = call(ge_impl)
+            torch.cuda.synchronize()
+        frames = profiling.snapshot()["counters"].get("hybrid.ge.nb_wide_frames", 0)
+        profiling.reset()
+        out.append((got, frames, elim.gf256_eliminate.launches - before))
+    (p, p_n, p_l), (a, a_n, a_l), _ = out
+    assert (a_n, a_l) == (p_n, p_l)
+    for x, y in zip(a, p, strict=True):
+        if isinstance(y, torch.Tensor):
+            _equal([x], [y])
+        else:
+            assert x == y
+    return out[0], out[2]
+
+
+def _same_unfailed(got, want, failed_at):
+    """Every output equal, the values on the frames that did not fail."""
+    ok = ~want[failed_at]
+    assert ok.any()
+    torch.testing.assert_close(got[0][ok], want[0][ok], rtol=0, atol=0)
+    for g, w in zip(got[1:], want[1:], strict=True):
+        if isinstance(w, torch.Tensor):
+            _equal([g], [w])
+        else:
+            assert g == w
+
+
+@pytest.mark.parametrize("case", ["toy", "lift"])
+def test_hybrid_nb_packed_matches_bytes(cuda_device, case):
+    """ge_impl="packed" and "auto" on GF(256) bytes take ge_solve_wide_nb
+    (the card's gf256_eliminate, gf_matvec_wide, gf_apply_scatter) in the
+    first dispatch, and return what the byte solver returns: every output,
+    the values on every frame that does not fail. The hybrids get the
+    codewords unzeroed: the peel zeroes the erased slots."""
+    arrays, cw, mask, kw = _nb_packed_case(case, cuda_device)
+    recv = cw.masked_fill(mask[:, :, None], 0)
+    b, f_max, emax = mask.shape[0], kw["ge_subbatch"], kw["emax"]
+    v, e, _ = peel_decode(arrays, recv, mask, max_iters=kw["peel_iters"], gf_order=256)
+    (p, _, p_l), (w, _, w_l) = _packed_and_bytes(
+        lambda g: compact_ge_solve(arrays, v, e, emax=emax, f_max=f_max, gf_order=256, ge_impl=g))
+    _same_unfailed(p, w, 2)
+    assert (p_l, w_l) == (1, 0)
+    for sub, overflow in [(0, False), (0, True), (f_max, False), (f_max, True)]:
+        kw_h = dict(kw, ge_subbatch=sub)
+        (p, p_n, p_l), (w, w_n, w_l) = _packed_and_bytes(
+            lambda g: hybrid_decode(arrays, cw, mask, ge_impl=g, return_overflow=overflow, **kw_h))
+        _same_unfailed(p, w, 3)
+        assert (p_n, w_n) == (sub or b, 0) and (p_l, w_l) == (1, 0)
+    (p, p_n, p_l), (w, w_n, w_l) = _packed_and_bytes(
+        lambda g: hybrid_decode_escalated(arrays, cw, mask, ge_impl=g, **kw))
+    _same_unfailed(p, w, 3)
+    assert p[4] == w[4] > 0 and (p_n, w_n) == (f_max, 0) and (p_l, w_l) == (2, 1)
+    ok = ~p[3]
+    torch.testing.assert_close(p[0][ok], cw[ok], rtol=0, atol=0)
+    assert not p[1][ok].any()
 
 
 # The research schedules, visit orders of csrc/peel.cu's schedule kernel
